@@ -1,0 +1,173 @@
+"""The port's kernel front on the CPU: each plain PyTorch version
+(``repro_torch.kernels.ref``) against the JAX package's Pallas kernel in
+interpret mode and its jnp oracle, on the same seeded numpy inputs, and the
+dispatch rule (CPU operands → plain version, no launch counted).
+
+The CUDA kernels themselves run only on the card: ``chip_smoke.py`` holds
+them against these plain versions at the sweep and main-path shapes, and
+``tests/test_torch_cuda.py`` does at small shapes.
+Tolerances are ``tests/test_kernels.py``'s: float32 ``rtol=2e-4,
+atol=2e-5`` (another summation order), bf16 ``6e-2/3e-2``, gathers exact.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro_torch.kernels import fused_sigmoid_matmul as fsm_mod
+from repro_torch.kernels import onehot_embed as embed_mod
+from repro_torch.kernels import ops, ref
+from repro_torch.kernels import relational_matmul as relmm_mod
+
+F32 = dict(rtol=2e-4, atol=2e-5)
+BF16 = dict(rtol=6e-2, atol=3e-2)
+
+
+def rnd(rng, *shape):
+    return rng.randn(*shape).astype(np.float32)
+
+
+def both(a: np.ndarray, torch_dtype=None):
+    """The same numpy array as a jnp array and a CPU tensor."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    return jnp.asarray(a), (t.to(torch_dtype) if torch_dtype else t)
+
+
+def f32(x) -> np.ndarray:
+    return np.asarray(torch.as_tensor(x).float() if isinstance(x, torch.Tensor)
+                      else np.asarray(x, np.float32))
+
+
+@pytest.mark.parametrize("m,k,n,blk_t,blk_n",
+                         [(8, 16, 128, 32, 64), (16, 32, 256, 128, 128)])
+def test_relational_matmul_dense_coo(m, k, n, blk_t, blk_n):
+    rng = np.random.RandomState(42)
+    rows_np = np.repeat(np.arange(m, dtype=np.int32), k)
+    cols_np = np.tile(np.arange(k, dtype=np.int32), m)
+    (jr, tr), (jc, tc) = both(rows_np), both(cols_np)
+    (jv, tv), (jb, tb) = both(rnd(rng, m * k)), both(rnd(rng, k, n))
+    got = ops.relational_matmul(tr, tc, tv, tb, m)
+    assert got.dtype == torch.float32 and got.shape == (m, n)
+    pallas = jops.relational_matmul(jr, jc, jv, jb, m, use_pallas=True,
+                                    blk_t=blk_t, blk_n=blk_n)
+    np.testing.assert_allclose(got.numpy(), np.asarray(pallas), **F32)
+    np.testing.assert_allclose(got.numpy(), np.asarray(
+        jref.relational_matmul(jr, jc, jv, jb, m)), **F32)
+
+
+@pytest.mark.parametrize("nnz,pad", [(32, 0), (48, 16), (8, 56)])
+def test_relational_matmul_sparse_padding(nnz, pad):
+    """Padding tuples (row == m) are dropped, as the group-by drops them."""
+    rng = np.random.RandomState(nnz + pad)
+    m, k, n = 16, 32, 128
+    rows_np = np.concatenate([np.sort(rng.randint(0, m, nnz)),
+                              np.full(pad, m)]).astype(np.int32)
+    (jr, tr) = both(rows_np)
+    (jc, tc) = both(rng.randint(0, k, nnz + pad).astype(np.int32))
+    (jv, tv), (jb, tb) = both(rnd(rng, nnz + pad)), both(rnd(rng, k, n))
+    got = ops.relational_matmul(tr, tc, tv, tb, m)
+    pallas = jops.relational_matmul(jr, jc, jv, jb, m, use_pallas=True,
+                                    blk_t=min(64, nnz + pad), blk_n=64)
+    np.testing.assert_allclose(got.numpy(), np.asarray(pallas), **F32)
+    np.testing.assert_allclose(got.numpy(), np.asarray(
+        jref.relational_matmul(jr, jc, jv, jb, m)), **F32)
+
+
+@pytest.mark.parametrize("m,k,n", [(128, 128, 128), (128, 512, 384)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fused_sigmoid_matmul(m, k, n, dtype):
+    rng = np.random.RandomState(7)
+    x_np, w_np = rnd(rng, m, k), rnd(rng, k, n)
+    jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
+    tdt = getattr(torch, dtype)
+    jx, tx = jnp.asarray(x_np).astype(jdt), torch.from_numpy(x_np).to(tdt)
+    jw, tw = jnp.asarray(w_np).astype(jdt), torch.from_numpy(w_np).to(tdt)
+    got = ops.fused_sigmoid_matmul(tx, tw)
+    assert got.dtype == tdt and got.shape == (m, n)
+    tol = F32 if dtype == "float32" else BF16
+    pallas = jops.fused_sigmoid_matmul(jx, jw, use_pallas=True)
+    np.testing.assert_allclose(f32(got), np.asarray(pallas, np.float32), **tol)
+    np.testing.assert_allclose(f32(got), np.asarray(
+        jref.fused_sigmoid_matmul(jx, jw), np.float32), **tol)
+
+
+@pytest.mark.parametrize("t,v,d", [(16, 100, 64), (128, 333, 256)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_onehot_embed(t, v, d, dtype):
+    """Exact: a gather moves the bits it finds."""
+    rng = np.random.RandomState(t)
+    ids_np = rng.randint(0, v, t).astype(np.int32)
+    table_np = rnd(rng, v, d)
+    jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
+    tdt = getattr(torch, dtype)
+    jt, tt = jnp.asarray(table_np).astype(jdt), torch.from_numpy(table_np).to(tdt)
+    got = ops.onehot_embed(torch.from_numpy(ids_np), tt)
+    assert got.dtype == tdt and got.shape == (t, d)
+    pallas = jops.onehot_embed(jnp.asarray(ids_np), jt, use_pallas=True)
+    np.testing.assert_array_equal(f32(got), np.asarray(pallas, np.float32))
+    np.testing.assert_array_equal(f32(got), np.asarray(
+        jref.onehot_embed(jnp.asarray(ids_np), jt), np.float32))
+
+
+def test_onehot_with_identity_is_one_hot():
+    """§4.1: onehot(y)·I_C is the one-hot label matrix."""
+    y = np.array([0, 2, 1, 2, 9, 3], np.int32)
+    got = ops.onehot_embed(torch.from_numpy(y), torch.eye(10))
+    np.testing.assert_array_equal(got.numpy(), np.eye(10, dtype=np.float32)[y])
+
+
+def _counts():
+    return (relmm_mod.relational_matmul.launches,
+            fsm_mod.fused_sigmoid_matmul.launches,
+            embed_mod.onehot_embed.launches)
+
+
+def test_cpu_operands_take_the_plain_version_and_count_no_launch():
+    before = _counts()
+    rng = np.random.RandomState(0)
+    x, w = torch.from_numpy(rnd(rng, 5, 4)), torch.from_numpy(rnd(rng, 4, 3))
+    torch.testing.assert_close(ops.fused_sigmoid_matmul(x, w),
+                               ref.fused_sigmoid_matmul(x, w), rtol=0, atol=0)
+    rows = torch.tensor([0, 0, 1, 2], dtype=torch.int32)
+    cols = torch.tensor([1, 3, 0, 2], dtype=torch.int32)
+    vals = torch.ones(4)
+    torch.testing.assert_close(
+        ops.relational_matmul(rows, cols, vals, w, 3),
+        ref.relational_matmul(rows, cols, vals, w, 3), rtol=0, atol=0)
+    ops.onehot_embed(torch.tensor([1, 0], dtype=torch.int32), w)
+    assert _counts() == before
+
+
+def test_no_fallback_off_the_cpu():
+    """Operands that are neither all-CPU nor all-CUDA raise; the kernel
+    wrappers refuse host tensors instead of running the plain version."""
+    meta = torch.empty((4, 3), device="meta")
+    with pytest.raises(ValueError):
+        ops.fused_sigmoid_matmul(meta, torch.empty((3, 2), device="meta"))
+    with pytest.raises(ValueError):
+        ops.fused_sigmoid_matmul(torch.ones(4, 3), torch.empty((3, 2),
+                                                               device="meta"))
+    x, w = torch.ones(4, 3), torch.ones(3, 2)
+    before = _counts()
+    with pytest.raises(ValueError):
+        fsm_mod.fused_sigmoid_matmul(x, w)
+    with pytest.raises(ValueError):
+        embed_mod.onehot_embed(torch.zeros(2, dtype=torch.int32), x)
+    with pytest.raises(ValueError):
+        relmm_mod.relational_matmul(torch.zeros(2, dtype=torch.int32),
+                                    torch.zeros(2, dtype=torch.int32),
+                                    torch.ones(2), w, 1)
+    assert _counts() == before
+
+
+def test_plain_relational_matmul_drops_out_of_range_rows_like_segment_sum():
+    rng = np.random.RandomState(3)
+    rows_np = np.array([2, 0, 5, 1, -1, 3], np.int32)       # unsorted, 5/-1 out
+    cols_np = rng.randint(0, 4, 6).astype(np.int32)
+    (jr, tr), (jc, tc) = both(rows_np), both(cols_np)
+    (jv, tv), (jb, tb) = both(rnd(rng, 6)), both(rnd(rng, 4, 3))
+    np.testing.assert_allclose(
+        ref.relational_matmul(tr, tc, tv, tb, 4).numpy(),
+        np.asarray(jref.relational_matmul(jr, jc, jv, jb, 4)), **F32)
