@@ -8,7 +8,7 @@ Phases (any failure exits non-zero; nothing is caught and carried on past):
 1. build   every CUDA kernel from ``src/repro_torch/kernels/csrc`` for
            sm_90a (one nvcc per source, in parallel) and print ptxas's report;
 2. kernels each kernel against its plain PyTorch version on the card, over
-           the ``tests/test_kernels.py`` sweeps and the main path's shapes,
+           the ``tests/test_kernels.py`` sweeps and the main paths' shapes,
            with the reference's tolerances; then its time beside the plain
            version's, one PyTorch library call's (a yardstick only) and the
            card's bound for the same work;
@@ -19,7 +19,17 @@ Phases (any failure exits non-zero; nothing is caught and carried on past):
            and read just after; the weights are held against Listing 2's
            numpy training in float64 and the engines against each other;
 4. profile one training step of each engine: wall time, device time by
-           kernel (torch.profiler) and the device's busy share.
+           kernel (torch.profiler) and the device's busy share;
+5. serve   the LM serving path on the full-width Yi-6B (32 layers, d_model
+           4096, weights from ``LM.init`` with a seeded generator, float32
+           as the JAX package stores them): (a) ``LM.prefill`` of 4 prompts
+           × 2000 tokens, one flash_attention launch per layer, counted;
+           (b) the continuous-batching ``ServingEngine`` with 4 slots serving
+           8 greedy requests; (c) 4 prompts of 8 tokens through
+           ``prefill`` (the kernel) and through 8 ``decode_step``s (plain
+           attention over the cache), in bf16 and float32 compute, for
+           weight seeds 0, 1 and 2, held together; then a profile of one
+           prefill and one decode step.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
 line before it lists the kernels as JSON.  Details also go to
@@ -44,6 +54,7 @@ OUT_DIR = ROOT / "chiprun_out"
 # Published peaks of one H100 SXM (NVIDIA data sheet), at 700 W.
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12            # float32 outside the tensor cores (no TF32)
+BF16_FLOPS = 989e12          # bf16 on the tensor cores, dense
 
 F32_TOL = dict(rtol=2e-4, atol=2e-5)      # tests/test_kernels.py
 BF16_TOL = dict(rtol=6e-2, atol=3e-2)
@@ -82,9 +93,10 @@ def time_ms(fn, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound_ms(n_bytes: float, flops: float) -> tuple[float, str]:
+def bound_ms(n_bytes: float, flops: float,
+             flops_per_s: float = F32_FLOPS) -> tuple[float, str]:
     by_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    by_ops = flops / F32_FLOPS * 1e3
+    by_ops = flops / flops_per_s * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
@@ -159,10 +171,12 @@ def check_relational(mod, RelTensor, data, report):
     for what, (rel, b) in cases.items():
         err = max(err, run(rel, b, f"relmm {what}"))
 
-    # what the kernel refuses (the plain version takes any relation)
+    # a relation in reverse order is sorted by the wrapper, as the plain
+    # version takes any order; an id out of range still raises
     rel, b = cases["z_xh = img.w_xh"]
-    expect_raise(ValueError, lambda: mod.relational_matmul(
-        rel.i.flip(0).contiguous(), rel.j, rel.v, b, N_ROWS), "unsorted rows")
+    rev = RelTensor(i=rel.i.flip(0).contiguous(), j=rel.j.flip(0).contiguous(),
+                    v=rel.v.flip(0).contiguous(), shape=rel.shape)
+    err = max(err, run(rev, b, "relmm z_xh reversed"))
     expect_raise(ValueError, lambda: mod.relational_matmul(
         rel.i, rel.j + N_FEAT, rel.v, b, N_ROWS), "col out of range")
 
@@ -252,6 +266,74 @@ def check_onehot(mod, data, report):
         shape=f"({t},) ids into eye({N_CLS})")
 
 
+FLASH_MAIN = (4, 32, 4, 2000, 128)      # Yi-6B prefill: B, Hq, Hkv, S, D
+# bf16 at the main shape: both sides round the same float32 value to bf16,
+# so they may differ by one bf16 ulp, at most 2^-7 of the value; typical
+# outputs are about 0.05 here, so the sweep's atol 3e-2 would hide a wrong
+# row, and 1e-2 does not.
+FLASH_MAIN_BF16_TOL = dict(rtol=1e-2, atol=1e-2)
+
+
+def flash_bound(b, hq, hkv, s, d, dtype, causal=True):
+    """Operations of the score pairs this call needs (QKᵀ and PV, 2 FLOPs a
+    multiply-add each) and bytes of q, k, v read and out written once."""
+    pairs = s * (s + 1) // 2 if causal else s * s
+    size = torch.tensor([], dtype=dtype).element_size()
+    n_bytes = size * (2 * b * hq * s * d + 2 * b * hkv * s * d)
+    peak = BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS
+    return bound_ms(n_bytes, 4 * b * hq * pairs * d, peak)
+
+
+def check_flash(mod, report):
+    rng = np.random.RandomState(45)
+
+    def inputs(b, hq, hkv, s, d, dtype):
+        return [torch.tensor(rng.randn(b, h, s, d), dtype=torch.float32,
+                             device="cuda").to(dtype)
+                for h in (hq, hkv, hkv)]
+
+    # tests/test_kernels.py's sweep, then ragged S, causal and not
+    shapes = [(1, 4, 4, 128, 64), (2, 8, 2, 256, 64), (1, 8, 1, 256, 128),
+              (1, 4, 2, 77, 32), (2, 8, 2, 1000, 128)]
+    err32 = 0.0
+    for shape in shapes:
+        for causal in (True, False):
+            for dtype, tol in ((torch.float32, F32_TOL),
+                               (torch.bfloat16, BF16_TOL)):
+                q, k, v = inputs(*shape, dtype)
+                e = max_err(mod.flash_attention(q, k, v, causal=causal),
+                            mod.plain(q, k, v, causal=causal), tol,
+                            f"flash {shape} causal={causal} {dtype}")
+                if dtype == torch.float32:
+                    err32 = max(err32, e)
+    # the main shape in both types: float32 (the path of phase 5 (c)'s
+    # float32 check) at the tests' tolerance, bf16 tighter than the sweep's
+    b, hq, hkv, s, d = FLASH_MAIN
+    q, k, v = inputs(*FLASH_MAIN, torch.float32)
+    err32_main = max_err(mod.flash_attention(q, k, v), mod.plain(q, k, v),
+                         F32_TOL, f"flash main {FLASH_MAIN} float32 causal")
+    q, k, v = inputs(*FLASH_MAIN, torch.bfloat16)
+    err = max_err(mod.flash_attention(q, k, v), mod.plain(q, k, v),
+                  FLASH_MAIN_BF16_TOL, f"flash main {FLASH_MAIN} bf16 causal")
+    bms, by = flash_bound(*FLASH_MAIN, torch.bfloat16)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    report["flash_attention"] = dict(
+        name="flash_attention", route="cuda",
+        source="src/repro_torch/kernels/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention.py:69",
+        max_abs_err=err,
+        ms=time_ms(lambda: mod.flash_attention(q, k, v), iters=10),
+        plain_ms=time_ms(lambda: mod.plain(q, k, v), iters=5),
+        bound_ms=bms, bound_by=by,
+        library_ms=time_ms(lambda: sdpa(q, k, v, is_causal=True,
+                                        enable_gqa=True)),
+        shape=f"q ({b},{hq},{s},{d}), k/v ({b},{hkv},{s},{d}) bf16 causal",
+        max_abs_err_f32_sweep=err32, max_abs_err_f32_main=err32_main)
+    log(f"flash vs plain, max |err|: float32 sweep {err32:.3e}, float32 "
+        f"main {err32_main:.3e}, bf16 main {err:.3e} (held at "
+        f"{FLASH_MAIN_BF16_TOL})")
+
+
 # ---------------------------------------------------------------------------
 # phase 3: the main path
 # ---------------------------------------------------------------------------
@@ -293,7 +375,8 @@ def main_path(counters, core, nn2sql, data_mod, result):
     # Eqs. 8, 10, 11); per inference 2 of each.
     expected = {"onehot_embed": 1,
                 "fused_sigmoid_matmul": 2 * ITERS + 2,
-                "relational_matmul": 5 * ITERS + 2}
+                "relational_matmul": 5 * ITERS + 2,
+                "flash_attention": 0}
     if launches != expected:
         raise AssertionError(f"launches {launches}, expected {expected}")
 
@@ -345,14 +428,41 @@ def main_path(counters, core, nn2sql, data_mod, result):
 # phase 4: where a training step's time goes
 # ---------------------------------------------------------------------------
 
+def device_profile(fn, wall_ms: float, what: str, card: str) -> dict:
+    """Run ``fn`` once under torch.profiler: device time by kernel name,
+    summed, over ``wall_ms`` (the same work timed without the profiler) as
+    the device's busy share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        timed(fn)
+    by_name, n_events = {}, 0
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            n_events += 1
+            by_name[e.name] = (by_name.get(e.name, 0.0)
+                               + e.time_range.elapsed_us() / 1e3)
+    device = sum(by_name.values())
+    top = dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:8])
+    log(f"profile {what} on {card}: wall {wall_ms:.4f} ms, device "
+        f"{device:.4f} ms in {n_events} events, busy share "
+        f"{device / wall_ms:.4f}" if n_events else
+        f"profile {what}: wall {wall_ms:.4f} ms; the profiler saw no device "
+        "events (device time not measured)")
+    for name, ms in top.items():
+        log(f"  {ms:9.4f} ms  {name[:100]}")
+    return dict(wall_ms=wall_ms, device_ms=device,
+                busy_share=device / wall_ms, device_events=n_events,
+                top_ms=top)
+
+
 def profile_step(core, nn2sql, data_mod, result):
     """One training step of each engine at full width, after the main path
     (its counts are read already): the step's wall time, then the same step
     under torch.profiler for the device time by kernel name.  The kernels
     run on one stream and never overlap, so their sum over the unprofiled
     wall time is the device's busy share."""
-    from torch.profiler import ProfilerActivity, profile
-
     x, y = data_mod.make_mnist_like(N_ROWS)
     spec = nn2sql.MLPSpec(N_ROWS, N_FEAT, N_HID, N_CLS, lr=LR)
     graph, w0 = nn2sql.build_graph(spec), nn2sql.init_weights(spec)
@@ -363,28 +473,215 @@ def profile_step(core, nn2sql, data_mod, result):
         step = lambda: nn2sql.train(graph, w0, x, y_oh, 1, eng)
         timed(step)
         wall = min(timed(step)[1] for _ in range(5)) * 1e3
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            timed(step)
-        by_name, n_events = {}, 0
-        for e in prof.events():
-            if e.device_type == torch.autograd.DeviceType.CUDA:
-                n_events += 1
-                by_name[e.name] = (by_name.get(e.name, 0.0)
-                                   + e.time_range.elapsed_us() / 1e3)
-        device = sum(by_name.values())
-        top = dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:8])
-        out[kind] = dict(step_ms=wall, device_ms=device,
-                         busy_share=device / wall, device_events=n_events,
-                         top_ms=top)
-        log(f"profile {kind} step on {result['card']}: wall {wall:.4f} ms, "
-            f"device {device:.4f} ms in {n_events} events, busy share "
-            f"{device / wall:.4f}" if n_events else
-            f"profile {kind} step: wall {wall:.4f} ms; the profiler saw no "
-            "device events (device time not measured)")
-        for name, ms in top.items():
-            log(f"  {ms:9.4f} ms  {name[:100]}")
+        out[kind] = device_profile(step, wall, f"{kind} step", result["card"])
     result["profile"] = out
+
+
+# ---------------------------------------------------------------------------
+# phase 5: the LM serving path on the full-width Yi-6B
+# ---------------------------------------------------------------------------
+
+PREFILL_BATCH, PREFILL_LEN = 4, 2000      # 2000: no multiple of any tile
+SLOTS, MAX_LEN, REQUESTS, NEW_TOKENS = 4, 256, 8, 16
+# (c) prefill vs token-by-token decode, last-token logits of the full-depth
+# model, over PVD_PROMPTS prompts of PVD_LEN tokens for each weight seed.
+# float32 compute is the binding check: the two paths compute the same
+# function, up to sums over k = 4096 and 11008 in another order in each of
+# 32 layers.  bf16 is a sanity bound: each block rounds its output to bf16
+# (2^-8 relative) at other places on the two paths, and a logit's error is
+# the final hidden state's error times the head, absolute, not relative to
+# the logit, so the bound is an atol alone.  tests/test_models_smoke.py's
+# atol=0.05 was set on 2 layers.  At 32, over the seeds and prompts below,
+# an H100 read at most 0.0781 in bf16 and 1.22e-5 in float32 (PERF.md):
+# the atols are 1.5 x and about 8 x those readings.
+PVD_PROMPTS, PVD_LEN, PVD_SEEDS = 4, 8, (0, 1, 2)
+LOGIT_TOL = {"bfloat16": dict(rtol=0.0, atol=0.12),
+             "float32": dict(rtol=0.0, atol=1e-4)}
+
+
+def leaves(tree):
+    for v in tree.values():
+        yield from leaves(v) if isinstance(v, dict) else (v,)
+
+
+def serve_path(counters, result):
+    """Drive the serving path; every counter is zeroed before (a) and read
+    after it, then (b) and (c) are checked for their own launches."""
+    from repro_torch import obs
+    from repro_torch.configs import get_config
+    from repro_torch.nn import layers
+    from repro_torch.nn.model import LM
+    from repro_torch.serving import Request, ServingEngine
+
+    card, flash = result["card"], counters["flash_attention"]
+    cfg = get_config("yi_6b")
+    lm = LM(cfg)
+    gen = torch.Generator(device=lm.device)
+    gen.manual_seed(0)
+    torch.cuda.reset_peak_memory_stats()
+    params, t_init = timed(lambda: lm.init(gen))
+    n_params = sum(t.numel() for t in leaves(params))
+    param_bytes = sum(t.numel() * t.element_size() for t in leaves(params))
+    log(f"serve: {cfg.name}, {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.d_head}, d_ff "
+        f"{cfg.d_ff}, vocab {cfg.vocab}: {n_params} parameters, "
+        f"{param_bytes / 1e9:.2f} GB float32, made in {t_init:.2f} s")
+
+    # (a) bulk prefill, one flash_attention launch per layer
+    rng = np.random.RandomState(0)
+    tokens = torch.from_numpy(rng.randint(
+        0, cfg.vocab, (PREFILL_BATCH, PREFILL_LEN)).astype(np.int32)).to(
+            lm.device)
+    for fn in counters.values():
+        fn.launches = 0
+    (logits, cache), t_prefill = timed(
+        lambda: lm.prefill(params, {"tokens": tokens}))
+    launches = {name: fn.launches for name, fn in counters.items()}
+    expected = {name: 0 for name in counters} | {
+        "flash_attention": cfg.n_layers}
+    if launches != expected:
+        raise AssertionError(f"prefill launches {launches}, expected "
+                             f"{expected}")
+    kv_shape = (cfg.n_layers, PREFILL_BATCH, cfg.n_kv_heads, PREFILL_LEN,
+                cfg.d_head)
+    if logits.shape != (PREFILL_BATCH, 1, cfg.vocab) or \
+            not torch.isfinite(logits).all() or \
+            any(c.shape != kv_shape for c in cache):
+        raise AssertionError(f"prefill gave logits {tuple(logits.shape)}, "
+                             f"cache {[tuple(c.shape) for c in cache]}")
+    del cache
+
+    # (b) continuous batching, greedy; the decode path launches no kernel
+    eng = ServingEngine(lm, params, max_len=MAX_LEN, batch_slots=SLOTS)
+    eng.tracer = obs.Tracer()
+    for uid in range(REQUESTS):
+        eng.submit(Request(uid, rng.randint(0, cfg.vocab, int(
+            rng.randint(4, 33))).astype(np.int32), max_new_tokens=NEW_TOKENS))
+    done, t_serve = timed(eng.run_to_completion)
+    if flash.launches != cfg.n_layers:
+        raise AssertionError("the engine's decode path launched "
+                             f"{flash.launches - cfg.n_layers} flash kernels")
+    if sorted(r.uid for r in done) != list(range(REQUESTS)) or any(
+            len(r.generated) != NEW_TOKENS for r in done):
+        raise AssertionError("the engine left requests unserved: "
+                             f"{[(r.uid, len(r.generated)) for r in done]}")
+    n_generated = sum(len(r.generated) for r in done)
+    tokens4 = torch.zeros((SLOTS, 1), dtype=torch.int32, device=lm.device)
+    step = lambda: lm.decode_step(params, {"tokens": tokens4}, eng.cache, 100)
+    timed(step)
+    step_ms = min(timed(step)[1] for _ in range(3)) * 1e3
+
+    # (c) prefill (the kernel) vs decode steps (plain attention), weight
+    # seed 0 here; seeds 1 and 2 after the profiles
+    readings = prefill_vs_decode(lm, params, 0, layers)
+    if flash.launches != (1 + len(LOGIT_TOL)) * cfg.n_layers:
+        raise AssertionError(f"(c) launched {flash.launches - cfg.n_layers} "
+                             f"flash kernels, expected "
+                             f"{len(LOGIT_TOL) * cfg.n_layers}")
+    peak = torch.cuda.max_memory_allocated()
+
+    prefill = lambda: lm.prefill(params, {"tokens": tokens})
+    wall = timed(prefill)[1] * 1e3
+    out = dict(
+        model=cfg.name, layers=cfg.n_layers, parameters=n_params,
+        param_bytes=param_bytes, init_s=t_init,
+        prefill=dict(shape=f"{PREFILL_BATCH} x {PREFILL_LEN} tokens",
+                     first_s=t_prefill, warm_ms=wall,
+                     tokens_per_s=PREFILL_BATCH * PREFILL_LEN / wall * 1e3,
+                     launches=launches),
+        engine=dict(slots=SLOTS, max_len=MAX_LEN, requests=REQUESTS,
+                    new_tokens=NEW_TOKENS, wall_s=t_serve,
+                    generated=n_generated,
+                    tokens_per_s=n_generated / t_serve,
+                    counters=eng.tracer.counters,
+                    step_ms=eng.tracer.histograms.get("serve.step_ms")),
+        decode_step=dict(slots=SLOTS, ms=step_ms,
+                         tokens_per_s=SLOTS / step_ms * 1e3),
+        peak_bytes=peak)
+    log(f"serve (a) prefill {PREFILL_BATCH} x {PREFILL_LEN} on {card}: first "
+        f"call {t_prefill:.4f} s, warm {wall:.4f} ms "
+        f"({out['prefill']['tokens_per_s']:.1f} tokens/s), launches "
+        f"{launches}")
+    log(f"serve (b) engine on {card}: {len(done)} requests, {n_generated} "
+        f"tokens in {t_serve:.4f} s ({n_generated / t_serve:.2f} tokens/s), "
+        f"counters {eng.tracer.counters}; decode step at {SLOTS} slots "
+        f"{step_ms:.4f} ms ({SLOTS / step_ms * 1e3:.2f} tokens/s)")
+    log(f"serve peak device memory {peak / 2**30:.2f} GiB")
+    out["profile"] = dict(
+        prefill=device_profile(prefill, wall, "prefill 4 x 2000", card),
+        decode_step=device_profile(step, step_ms, "decode step at 4 slots",
+                                   card))
+
+    # (c) for the other weight seeds, each drawn in place of the last
+    eng = step = prefill = None
+    for seed in PVD_SEEDS[1:]:
+        params = None
+        torch.cuda.empty_cache()
+        params = lm.init(gen.manual_seed(seed))
+        readings += prefill_vs_decode(lm, params, seed, layers)
+    out["prefill_vs_decode"] = hold_agreement(readings)
+    result["serve"] = out
+    return launches
+
+
+def prefill_vs_decode(lm, params, seed: int, layers) -> list[dict]:
+    """PVD_PROMPTS prompts of PVD_LEN tokens through ``prefill`` (the
+    kernel) and through PVD_LEN ``decode_step``s (plain attention over the
+    cache), in each compute type of LOGIT_TOL: one reading per prompt."""
+    toks = torch.from_numpy(np.random.RandomState(7 + seed).randint(
+        0, lm.cfg.vocab, (PVD_PROMPTS, PVD_LEN)).astype(np.int32)).to(
+            lm.device)
+    readings = []
+    for dtype in LOGIT_TOL:
+        layers.COMPUTE_DTYPE = getattr(torch, dtype)
+        try:
+            logits_p, _ = lm.prefill(params, {"tokens": toks})
+            kv = lm.init_cache(PVD_PROMPTS, 2 * PVD_LEN)
+            for t in range(PVD_LEN):
+                logits_d, kv = lm.decode_step(
+                    params, {"tokens": toks[:, t:t + 1]}, kv, t)
+        finally:
+            layers.COMPUTE_DTYPE = torch.bfloat16
+        lp, ld = logits_p[:, 0].float(), logits_d[:, 0].float()
+        tol = LOGIT_TOL[dtype]
+        held = ((lp - ld).abs() <= tol["atol"] + tol["rtol"] * ld.abs()).all(-1)
+        top2 = lp.topk(2, dim=-1).values
+        for i in range(PVD_PROMPTS):
+            readings.append(dict(
+                dtype=dtype, seed=seed, prompt=i,
+                max_abs_diff=float((lp[i] - ld[i]).abs().max()),
+                logit_abs_max=float(lp[i].abs().max()),
+                top1_margin=float(top2[i, 0] - top2[i, 1]),
+                argmax=(int(lp[i].argmax()), int(ld[i].argmax())),
+                held=bool(held[i])))
+    return readings
+
+
+def hold_agreement(readings: list[dict]) -> dict:
+    """Print every reading of (c), then fail if one is past LOGIT_TOL or
+    the two paths pick another next token where the top-1 margin exceeds
+    their difference."""
+    out = {}
+    for dtype, tol in LOGIT_TOL.items():
+        rs = [r for r in readings if r["dtype"] == dtype]
+        for r in rs:
+            log(f"serve (c) {dtype} seed {r['seed']} prompt {r['prompt']}: "
+                f"prefill vs decode max |diff| {r['max_abs_diff']:.4e} "
+                f"(|logit| up to {r['logit_abs_max']:.4f}), top-1 margin "
+                f"{r['top1_margin']:.4e}, argmax {r['argmax'][0]} vs "
+                f"{r['argmax'][1]}")
+        worst = max(r["max_abs_diff"] for r in rs)
+        log(f"serve (c) {dtype}: largest |diff| over {len(rs)} prompts "
+            f"{worst:.4e}, held at {tol}")
+        out[dtype] = dict(tolerance=tol, largest_abs_diff=worst, readings=rs)
+    for r in readings:
+        if not r["held"]:
+            raise AssertionError(f"(c) past {LOGIT_TOL[r['dtype']]}: {r}")
+        if r["top1_margin"] > r["max_abs_diff"] and \
+                r["argmax"][0] != r["argmax"][1]:
+            raise AssertionError(f"(c) prefill and decode disagree on the "
+                                 f"next token: {r}")
+    return out
 
 
 def main() -> int:
@@ -401,7 +698,7 @@ def main() -> int:
     from repro_torch.core import nn2sql
     from repro_torch.core.relational import RelTensor
     from repro_torch import data as data_mod
-    from repro_torch.kernels import build
+    from repro_torch.kernels import build, flash_attention
     from repro_torch.kernels import fused_sigmoid_matmul, onehot_embed
     from repro_torch.kernels import relational_matmul
 
@@ -428,6 +725,7 @@ def main() -> int:
     check_relational(relational_matmul, RelTensor, data, report)
     check_fused(fused_sigmoid_matmul, data, report)
     check_onehot(onehot_embed, data, report)
+    check_flash(flash_attention, report)
     torch.cuda.synchronize()
     for r in report.values():
         lib = r["library_ms"]
@@ -440,9 +738,14 @@ def main() -> int:
     counters = {"relational_matmul": relational_matmul.relational_matmul,
                 "fused_sigmoid_matmul":
                     fused_sigmoid_matmul.fused_sigmoid_matmul,
-                "onehot_embed": onehot_embed.onehot_embed}
+                "onehot_embed": onehot_embed.onehot_embed,
+                "flash_attention": flash_attention.flash_attention}
     launches = main_path(counters, core, nn2sql, data_mod, result)
     profile_step(core, nn2sql, data_mod, result)
+    # each kernel's launches on the path that runs it: kernels 1-3 on the
+    # paper's pipeline (phase 3), flash_attention on the serving path
+    launches["flash_attention"] = serve_path(counters, result)[
+        "flash_attention"]
 
     line = {"kernels": [
         {k: r[k] for k in ("name", "route", "source", "replaces")}

@@ -17,14 +17,19 @@ def _tensor(a) -> torch.Tensor:
     return torch.tensor(a)
 
 
-def from_jax_params(params: dict, device="cuda") -> dict[str, torch.Tensor]:
-    """{name: array} (numpy or JAX arrays) → {name: tensor on device}."""
+def from_jax_params(params: dict, device="cuda") -> dict:
+    """{name: array or nested dict} (numpy or JAX arrays) → the same tree
+    of tensors on ``device``, each leaf keeping its dtype.  A JAX
+    ``LM.init`` tree (stacked layer axis included) becomes the port's
+    ``LM`` parameters unchanged."""
     dev = resolve(device)
-    return {k: _tensor(v).to(dev) for k, v in params.items()}
+    return {k: from_jax_params(v, dev) if isinstance(v, dict)
+            else _tensor(v).to(dev) for k, v in params.items()}
 
 
-def to_numpy(tensors: dict[str, torch.Tensor]) -> dict[str, np.ndarray]:
-    """{name: tensor} → {name: numpy array} on the host (bf16 as float32,
-    which holds it exactly)."""
-    return {k: (v.float() if v.dtype == torch.bfloat16 else v)
+def to_numpy(tensors: dict) -> dict:
+    """{name: tensor or nested dict} → the same tree of numpy arrays on the
+    host (bf16 as float32, which holds it exactly)."""
+    return {k: to_numpy(v) if isinstance(v, dict)
+            else (v.float() if v.dtype == torch.bfloat16 else v)
             .detach().cpu().numpy() for k, v in tensors.items()}

@@ -52,9 +52,13 @@ def replicate(x, y, factor: int):
 def one_hot_labels(y, n_classes: int, device="cuda") -> torch.Tensor:
     """§4.1's label transform: ``onehot(y) · I_C``, the one-hot row gather
     with the identity as table (the ``onehot_embed`` kernel on the card).
-    A label outside 0..n_classes-1 raises (the JAX package's
-    ``jax.nn.one_hot`` gives it a zero row)."""
+    As ``jax.nn.one_hot`` does, a label outside 0..n_classes-1 (negative
+    ones too) gets a zero row: the table is I_C with a zero row appended
+    at index C, and every such label gathers that row."""
     dev = resolve(device)
     y = torch.as_tensor(y, device=dev).to(torch.int32)
-    return ops.onehot_embed(y, torch.eye(n_classes, dtype=torch.float32,
-                                         device=dev))
+    y = torch.where((y >= 0) & (y < n_classes), y, n_classes)
+    table = torch.cat([torch.eye(n_classes, dtype=torch.float32, device=dev),
+                       torch.zeros((1, n_classes), dtype=torch.float32,
+                                   device=dev)])
+    return ops.onehot_embed(y, table)

@@ -11,6 +11,7 @@ from __future__ import annotations
 import torch
 
 from . import ref
+from .flash_attention import flash_attention as _flash_cuda
 from .fused_sigmoid_matmul import fused_sigmoid_matmul as _fsm_cuda
 from .onehot_embed import onehot_embed as _embed_cuda
 from .relational_matmul import relational_matmul as _relmm_cuda
@@ -44,3 +45,10 @@ def onehot_embed(ids, table) -> torch.Tensor:
     if _on_host(ids, table):
         return ref.onehot_embed(ids, table)
     return _embed_cuda(ids.to(torch.int32).contiguous(), table.contiguous())
+
+
+def flash_attention(q, k, v, causal: bool = True, scale=None) -> torch.Tensor:
+    if _on_host(q, k, v):
+        return ref.flash_attention(q, k, v, causal=causal, scale=scale)
+    q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
+    return _flash_cuda(q, k, v, causal=causal, scale=scale)

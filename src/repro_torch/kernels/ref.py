@@ -36,3 +36,24 @@ def fused_sigmoid_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 def onehot_embed(ids: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     """onehot(ids) · table — the one-hot matmul is a row gather (§4.1)."""
     return table[ids]
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True, scale: float | None = None
+                    ) -> torch.Tensor:
+    """Dense-softmax attention. q: (B, Hq, S, D); k/v: (B, Hkv, S, D) with
+    Hq a multiple of Hkv (GQA: K/V repeated per query-head group)."""
+    b, hq, s, d = q.shape
+    group = hq // k.shape[1]
+    if scale is None:
+        scale = d ** -0.5
+    k = k.repeat_interleave(group, dim=1)
+    v = v.repeat_interleave(group, dim=1)
+    logits = torch.einsum("bhqd,bhkd->bhqk", q.to(torch.float32),
+                          k.to(torch.float32)) * scale
+    if causal:
+        mask = torch.ones((s, s), dtype=torch.bool, device=q.device).tril()
+        logits = torch.where(mask, logits, -1e30)
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhqk,bhkd->bhqd", probs, v.to(torch.float32))
+    return out.to(q.dtype)

@@ -3,13 +3,15 @@ of ``csrc/relational_matmul.cu`` (a sorted-segment reduction; the source
 says why and what bounds it).  It replaces the Pallas TPU kernel
 ``repro.kernels.relational_matmul``; ``plain`` is its PyTorch twin.
 
-Precondition (the kernel's; ``plain`` has none): the relation is sorted —
-``row_ids`` non-decreasing with the padding tuples (``row_ids == m``)
-last — and every ``col_ids`` lies in 0..k-1.  Every RelTensor the engines
-build holds it (``from_dense``, ``transpose``'s re-sort, ``one_hot``).  The
-kernel's first pass checks it, and the wrapper raises ``ValueError`` on a
-relation that breaks it before the second pass runs; that check costs one
-read of a status word by the host per call.
+The kernel's second pass needs the relation sorted — ``row_ids``
+non-decreasing with the padding tuples (``row_ids == m``) last.  Every
+RelTensor the engines build is (``from_dense``, ``transpose``'s re-sort,
+``one_hot``), but the wrapper, like ``plain``, takes any order: the first
+pass checks the relation into a status word, which the host reads once per
+call.  If the rows are only out of order, the wrapper sorts the tuples by
+row id on the device (stably, so the padding stays last) and runs both
+passes on the sorted copy.  A row id outside 0..m or a col id outside
+0..k-1 raises ``ValueError`` before the second pass runs.
 """
 from __future__ import annotations
 
@@ -30,6 +32,7 @@ _INT32_MAX = 2 ** 31 - 1
 #: bits of the kernel's status word
 _FAULTS = ((1, "a row id outside 0..m or a col id outside 0..k-1"),
            (2, "row_ids not sorted with the padding (== m) last"))
+_UNSORTED = 2
 
 
 def relational_matmul(row_ids: torch.Tensor, col_ids: torch.Tensor,
@@ -68,6 +71,15 @@ def relational_matmul(row_ids: torch.Tensor, col_ids: torch.Tensor,
                                   err.data_ptr(), device, stream),
                 "relational_matmul/segment_offsets")
     bad = int(err.item())
+    if bad == _UNSORTED:
+        order = torch.sort(row_ids, stable=True).indices
+        row_ids, col_ids, vals = row_ids[order], col_ids[order], vals[order]
+        err.zero_()
+        build.check(lib.relmm_offsets(row_ids.data_ptr(), col_ids.data_ptr(),
+                                      nnz, m, k, offsets.data_ptr(),
+                                      err.data_ptr(), device, stream),
+                    "relational_matmul/segment_offsets")
+        bad = int(err.item())
     if bad:
         reasons = [why for bit, why in _FAULTS if bad & bit]
         raise ValueError("relational_matmul kernel: " + "; ".join(reasons))

@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from repro_torch.core.relational import RelTensor
+from repro_torch.kernels import flash_attention as flash_mod
 from repro_torch.kernels import fused_sigmoid_matmul as fsm_mod
 from repro_torch.kernels import onehot_embed as embed_mod
 from repro_torch.kernels import ops
@@ -70,12 +71,22 @@ def test_relational_matmul_kernel_padding(cuda, nnz, pad):
                                relmm_mod.plain(*args), **F32)
 
 
-def test_relational_matmul_kernel_refuses_unsorted(cuda):
-    rows = torch.tensor([1, 0], dtype=torch.int32, device=cuda)
-    cols = torch.zeros(2, dtype=torch.int32, device=cuda)
-    with pytest.raises(ValueError, match="sorted"):
-        relmm_mod.relational_matmul(rows, cols, torch.ones(2, device=cuda),
-                                    torch.ones(1, 3, device=cuda), 2)
+def test_relational_matmul_kernel_sorts_unsorted(cuda):
+    """Rows out of order (padding included) give the plain version's
+    result; an id out of range still raises."""
+    rng = np.random.RandomState(5)
+    m, k, n = 16, 32, 130
+    rows = np.concatenate([rng.randint(0, m, 200), np.full(20, m)])
+    order = rng.permutation(rows.size)
+    args = (torch.tensor(rows[order], dtype=torch.int32, device=cuda),
+            torch.tensor(rng.randint(0, k, rows.size), dtype=torch.int32,
+                         device=cuda),
+            rnd(rng, rows.size, device=cuda), rnd(rng, k, n, device=cuda), m)
+    torch.testing.assert_close(relmm_mod.relational_matmul(*args),
+                               relmm_mod.plain(*args), **F32)
+    bad = (args[0].flip(0) + m + 1,) + args[1:]
+    with pytest.raises(ValueError, match="outside"):
+        relmm_mod.relational_matmul(*bad)
 
 
 @pytest.mark.parametrize("m,k,n", [(128, 128, 128), (256, 384, 256),
@@ -106,3 +117,38 @@ def test_onehot_embed_kernel_bounds_checks(cuda):
         embed_mod.onehot_embed(torch.tensor([0, 3], dtype=torch.int32,
                                             device=cuda),
                                torch.eye(3, device=cuda))
+
+
+@pytest.mark.parametrize("b,hq,hkv,s,d", [(1, 4, 4, 128, 64), (2, 8, 2, 256, 64),
+                                         (1, 8, 1, 256, 128), (1, 4, 2, 77, 32),
+                                         (2, 4, 2, 1000, 128)])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel(cuda, b, hq, hkv, s, d, causal, dtype):
+    rng = np.random.RandomState(s + d)
+    q = rnd(rng, b, hq, s, d, device=cuda, dtype=dtype)
+    k = rnd(rng, b, hkv, s, d, device=cuda, dtype=dtype)
+    v = rnd(rng, b, hkv, s, d, device=cuda, dtype=dtype)
+    before = flash_mod.flash_attention.launches
+    got = ops.flash_attention(q, k, v, causal=causal)
+    assert flash_mod.flash_attention.launches == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    torch.testing.assert_close(
+        got.float(), flash_mod.plain(q, k, v, causal=causal).float(),
+        **(F32 if dtype == torch.float32 else BF16))
+
+
+def test_flash_attention_kernel_takes_head_split_views(cuda):
+    """The model hands over (B, S, H, D) projections viewed as (B, H, S, D)."""
+    rng = np.random.RandomState(0)
+    q = rnd(rng, 2, 100, 4, 32, device=cuda).transpose(1, 2)
+    k = rnd(rng, 2, 100, 2, 32, device=cuda).transpose(1, 2)
+    v = rnd(rng, 2, 100, 2, 32, device=cuda).transpose(1, 2)
+    torch.testing.assert_close(flash_mod.flash_attention(q, k, v),
+                               flash_mod.plain(q, k, v), **F32)
+
+
+def test_flash_attention_kernel_refuses_other_head_dims(cuda):
+    q = torch.zeros(1, 2, 8, 48, device=cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_mod.flash_attention(q, q, q)

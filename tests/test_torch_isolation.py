@@ -33,7 +33,13 @@ def test_the_port_has_modules():
     names = {p.relative_to(ROOT / "src").as_posix() for p in PORT}
     assert {"repro_torch/core/expr.py", "repro_torch/core/autodiff.py",
             "repro_torch/kernels/ops.py", "repro_torch/data/pipeline.py",
-            "repro_torch/convert.py"} <= names
+            "repro_torch/convert.py", "repro_torch/configs/base.py",
+            "repro_torch/configs/yi_6b.py", "repro_torch/obs/tracer.py",
+            "repro_torch/obs/metrics.py", "repro_torch/kernels/ref.py",
+            "repro_torch/kernels/flash_attention.py",
+            "repro_torch/nn/layers.py", "repro_torch/nn/model.py",
+            "repro_torch/serving/engine.py",
+            "repro_torch/launch/serve.py"} <= names
 
 
 @pytest.mark.parametrize("path", PORT + [SMOKE],

@@ -102,6 +102,30 @@ def test_sparse_matmul_with_padding():
                                   np.asarray(jrel.to_dense()))
 
 
+def test_matmul_on_a_shuffled_relation():
+    """Tuples in any order (padding anywhere) give JAX's product: the
+    relational matmul has no sortedness precondition on either side of the
+    port (the card's wrapper sorts such a relation first)."""
+    rng = np.random.RandomState(3)
+    a, b = rnd(rng, 6, 9), rnd(rng, 9, 5)
+    rows = np.concatenate([np.repeat(np.arange(6, dtype=np.int32), 9),
+                           np.full(7, 6, np.int32)])
+    cols = np.concatenate([np.tile(np.arange(9, dtype=np.int32), 6),
+                           rng.randint(0, 9, 7).astype(np.int32)])
+    vals = np.concatenate([a.reshape(-1), rnd(rng, 7)])
+    order = rng.permutation(rows.size)
+    rows, cols, vals = rows[order], cols[order], vals[order]
+    jrel = JR.RelTensor(i=jnp.asarray(rows), j=jnp.asarray(cols),
+                        v=jnp.asarray(vals), shape=(6, 9))
+    trel = TR.RelTensor(i=torch.from_numpy(rows), j=torch.from_numpy(cols),
+                        v=torch.from_numpy(vals), shape=(6, 9))
+    jb, tb = both_from_dense(b)
+    got = trel.matmul(tb).to_dense().numpy()
+    np.testing.assert_allclose(got, np.asarray(jrel.matmul(jb).to_dense()),
+                               rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(got, a @ b, rtol=1e-4, atol=1e-5)
+
+
 def test_matmul_rejects_bad_operands():
     a = TR.RelTensor.from_dense(torch.ones(2, 3))
     with pytest.raises(ValueError, match="matmul"):

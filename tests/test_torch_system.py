@@ -48,13 +48,14 @@ def test_data_and_initial_weights_are_bit_identical():
 
 
 def test_one_hot_labels_is_jax_one_hot():
-    y = np.array([0, 2, 1, 9, 3, 3], np.int32)
+    """Equal to ``jax.nn.one_hot``, including the zero rows it gives labels
+    outside 0..C-1, negative ones too."""
+    y = np.array([0, 2, 1, 9, 3, 3, 10, -1, 11, -7, 2 ** 31 - 1], np.int32)
     got = data.one_hot_labels(torch.from_numpy(y), 10, device="cpu")
-    np.testing.assert_array_equal(
-        got.numpy(), np.asarray(jdata.one_hot_labels(jnp.asarray(y), 10)))
-    with pytest.raises(IndexError):
-        data.one_hot_labels(torch.tensor([10], dtype=torch.int32), 10,
-                            device="cpu")
+    want = np.asarray(jdata.one_hot_labels(jnp.asarray(y), 10))
+    assert got.dtype == torch.float32 and want.dtype == np.float32
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert not want[6:].any()
 
 
 def test_convert_round_trip():
