@@ -29,7 +29,20 @@ Phases (any failure exits non-zero; nothing is caught and carried on past):
            ``prefill`` (the kernel) and through 8 ``decode_step``s (plain
            attention over the cache), in bf16 and float32 compute, for
            weight seeds 0, 1 and 2, held together; then a profile of one
-           prefill and one decode step.
+           prefill and one decode step;
+6. rwkv    the same serving path on the full-width RWKV-6 7B (32 layers,
+           d_model 4096, 64 heads of 64, 30.1 GB of float32 weights), after
+           phase 5 has freed Yi-6B's: (a) ``LM.prefill`` of 4 prompts × 2000
+           tokens, one rwkv6_scan launch per layer and no other kernel;
+           (b) the engine with 4 slots serving 8 greedy requests, 32
+           rwkv6_scan launches per ``decode_step`` call; (c) prefill vs
+           token-by-token decode (both through the kernel, so the state
+           carries across calls) in bf16 and float32 compute for weight
+           seeds 0, 1 and 2: end to end on the first 2 layers, then each
+           of the 32 layers alone on the input the prefill path gives it
+           (float32 binds in both), and end to end on all 32 as a smoke
+           run beside what a one-ulp nudge of the input does there; then
+           a profile of one prefill and one decode step.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
 line before it lists the kernels as JSON.  Details also go to
@@ -39,6 +52,7 @@ result.  It imports neither JAX nor the JAX package.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -77,10 +91,10 @@ def gpu_line() -> str:
         check=True, timeout=60).stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, iters: int = 20) -> float:
+def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     """Mean device time of one call, from CUDA events over ``iters`` calls
-    after a warm-up (inputs stay warm in the 50 MB L2)."""
-    for _ in range(3):
+    after ``warmup`` calls (inputs stay warm in the 50 MB L2)."""
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -334,6 +348,71 @@ def check_flash(mod, report):
         f"{FLASH_MAIN_BF16_TOL})")
 
 
+RWKV_MAIN = (4, 64, 2000, 64)      # RWKV-6 7B prefill: B, H, S, N
+SCAN_TOL = dict(rtol=3e-4, atol=3e-4)         # tests/test_kernels.py
+
+
+def rwkv6_bound(rows, s, n):
+    """Bytes of r, k, v, w read and o written once, u read, s0 read and
+    s_fin written; operations: what the recurrence needs, 5 FLOPs for each
+    (t, i, j) (S <- w S + k v, a multiply and an FMA; o += r S, an FMA),
+    since the u term factors, sum_i r_i u_i k_i v_j = v_j sum_i r_i u_i k_i,
+    and costs O(N) a step, not O(N^2)."""
+    n_bytes = 4 * (5 * rows * s * n + rows * n + 2 * rows * n * n)
+    return bound_ms(n_bytes, 5 * rows * s * n * n)
+
+
+def check_rwkv6(mod, report):
+    rng = np.random.RandomState(46)
+    f32 = lambda a: torch.tensor(a, dtype=torch.float32, device="cuda")
+
+    def inputs(lead, s, n):
+        """tests/test_kernels.py's inputs: w uniform in [0.4, 0.9), s0 =
+        0.1·randn."""
+        r, k, v = (f32(rng.randn(*lead, s, n)) for _ in range(3))
+        return (r, k, v, f32(rng.rand(*lead, s, n) * 0.5 + 0.4),
+                f32(rng.randn(*lead, n)), f32(rng.randn(*lead, n, n) * 0.1))
+
+    def compare(args, what):
+        (o, sf), (po, psf) = mod.rwkv6_scan(*args), mod.plain(*args)
+        return max(max_err(o, po, SCAN_TOL, f"{what} o"),
+                   max_err(sf, psf, SCAN_TOL, f"{what} s_fin"))
+
+    # tests/test_kernels.py's sweep, ragged S, then the main shape as the
+    # JAX kernel takes it, (BH, S, N)
+    err = 0.0
+    for bh, s, n in [(2, 32, 16), (4, 64, 32), (1, 128, 64), (256, 1, 64),
+                     (8, 7, 64), (8, 77, 32)]:
+        err = max(err, compare(inputs((bh,), s, n), f"rwkv6 {bh, s, n}"))
+    b, h, s, n = RWKV_MAIN
+    err = max(err, compare(inputs((b * h,), s, n),
+                           f"rwkv6 main {(b * h, s, n)}"))
+    # the main path's call: (B, S, H, N) projections seen as (B, H, S, N),
+    # u (H, N) expanded over the batch, s0 from the cache
+    bshn = inputs((b, s), h, n)[:4]
+    args = (*(t.transpose(1, 2) for t in bshn),
+            f32(rng.randn(h, n)).expand(b, h, n),
+            f32(rng.randn(b, h, n, n) * 0.1))
+    err = max(err, compare(args, f"rwkv6 main layer views {RWKV_MAIN}"))
+    expect_raise(TypeError, lambda: mod.rwkv6_scan(
+        args[0].to(torch.bfloat16), *args[1:]), "rwkv6 bf16 r")
+    expect_raise(ValueError, lambda: mod.rwkv6_scan(
+        args[0], args[1][:, :, :7], *args[2:]), "rwkv6 mismatched k")
+    bms, by = rwkv6_bound(b * h, s, n)
+    report["rwkv6_scan"] = dict(
+        name="rwkv6_scan", route="cuda",
+        source="src/repro_torch/kernels/csrc/rwkv6_scan.cu",
+        replaces="src/repro/kernels/rwkv6_scan.py:54",
+        max_abs_err=err,
+        ms=time_ms(lambda: mod.rwkv6_scan(*args), iters=10),
+        plain_ms=time_ms(lambda: mod.plain(*args), iters=2, warmup=1),
+        bound_ms=bms, bound_by=by,
+        library_ms=None,      # no single PyTorch call runs this recurrence
+        shape=f"r/k/v/w (B,H,S,N)={RWKV_MAIN} head-split views, float32")
+    log(f"rwkv6_scan vs plain, max |err| over the sweep, S in {{1, 7, 77}} "
+        f"and the main shape (o and s_fin): {err:.3e} (held at {SCAN_TOL})")
+
+
 # ---------------------------------------------------------------------------
 # phase 3: the main path
 # ---------------------------------------------------------------------------
@@ -376,7 +455,7 @@ def main_path(counters, core, nn2sql, data_mod, result):
     expected = {"onehot_embed": 1,
                 "fused_sigmoid_matmul": 2 * ITERS + 2,
                 "relational_matmul": 5 * ITERS + 2,
-                "flash_attention": 0}
+                "flash_attention": 0, "rwkv6_scan": 0}
     if launches != expected:
         raise AssertionError(f"launches {launches}, expected {expected}")
 
@@ -624,15 +703,24 @@ def serve_path(counters, result):
     return launches
 
 
-def prefill_vs_decode(lm, params, seed: int, layers) -> list[dict]:
-    """PVD_PROMPTS prompts of PVD_LEN tokens through ``prefill`` (the
-    kernel) and through PVD_LEN ``decode_step``s (plain attention over the
-    cache), in each compute type of LOGIT_TOL: one reading per prompt."""
-    toks = torch.from_numpy(np.random.RandomState(7 + seed).randint(
-        0, lm.cfg.vocab, (PVD_PROMPTS, PVD_LEN)).astype(np.int32)).to(
-            lm.device)
+def prefill_vs_decode(lm, params, seed: int, layers, logit_tol=LOGIT_TOL,
+                      depth: int | None = None, ulp: bool = False
+                      ) -> list[dict]:
+    """PVD_PROMPTS prompts of PVD_LEN tokens through ``prefill`` and
+    through PVD_LEN ``decode_step``s, in each compute type of
+    ``logit_tol``: one reading per prompt.  ``depth`` cuts the model to its
+    first layers (the weights are views of the full model's).  A type whose
+    tolerance is None is a smoke run: its logits need only be finite.
+    ``ulp`` adds one more prefill, each of its embeddings scaled by 1 ± the
+    compute type's epsilon at random (about one ulp), and reads how far
+    that moves the logits: what rounding alone does at this depth."""
+    if depth is not None:
+        lm = type(lm)(dataclasses.replace(lm.cfg, n_layers=depth),
+                      device=lm.device)
+        params = dict(params, layers=slice_layers(params["layers"], 0, depth))
+    toks = pvd_tokens(lm, seed)
     readings = []
-    for dtype in LOGIT_TOL:
+    for dtype, tol in logit_tol.items():
         layers.COMPUTE_DTYPE = getattr(torch, dtype)
         try:
             logits_p, _ = lm.prefill(params, {"tokens": toks})
@@ -640,48 +728,333 @@ def prefill_vs_decode(lm, params, seed: int, layers) -> list[dict]:
             for t in range(PVD_LEN):
                 logits_d, kv = lm.decode_step(
                     params, {"tokens": toks[:, t:t + 1]}, kv, t)
+            if ulp:
+                x = lm.embed_inputs(params, {"tokens": toks})
+                sign = torch.randint(0, 2, x.shape, device=x.device,
+                                     generator=torch.Generator(
+                                         device=x.device).manual_seed(seed))
+                nudge = torch.finfo(x.dtype).eps * (2.0 * sign - 1.0)
+                x = (x.float() * (1.0 + nudge)).to(x.dtype)
+                logits_u = lm.prefill(params, {"embeds": x})[0][:, 0].float()
         finally:
             layers.COMPUTE_DTYPE = torch.bfloat16
         lp, ld = logits_p[:, 0].float(), logits_d[:, 0].float()
-        tol = LOGIT_TOL[dtype]
-        held = ((lp - ld).abs() <= tol["atol"] + tol["rtol"] * ld.abs()).all(-1)
+        held = torch.isfinite(lp).all(-1) & torch.isfinite(ld).all(-1)
+        if tol is not None:
+            held &= ((lp - ld).abs()
+                     <= tol["atol"] + tol["rtol"] * ld.abs()).all(-1)
         top2 = lp.topk(2, dim=-1).values
         for i in range(PVD_PROMPTS):
             readings.append(dict(
-                dtype=dtype, seed=seed, prompt=i,
+                dtype=dtype, seed=seed, prompt=i, layers=lm.cfg.n_layers,
                 max_abs_diff=float((lp[i] - ld[i]).abs().max()),
                 logit_abs_max=float(lp[i].abs().max()),
                 top1_margin=float(top2[i, 0] - top2[i, 1]),
                 argmax=(int(lp[i].argmax()), int(ld[i].argmax())),
-                held=bool(held[i])))
+                held=bool(held[i]))
+                | ({"ulp_abs_diff": float((logits_u[i] - lp[i]).abs().max())}
+                   if ulp else {}))
     return readings
 
 
-def hold_agreement(readings: list[dict]) -> dict:
-    """Print every reading of (c), then fail if one is past LOGIT_TOL or
-    the two paths pick another next token where the top-1 margin exceeds
-    their difference."""
+def pvd_tokens(lm, seed: int) -> torch.Tensor:
+    return torch.from_numpy(np.random.RandomState(7 + seed).randint(
+        0, lm.cfg.vocab, (PVD_PROMPTS, PVD_LEN)).astype(np.int32)).to(
+            lm.device)
+
+
+def slice_layers(tree, lo: int, hi: int):
+    return {k: slice_layers(v, lo, hi) if isinstance(v, dict) else v[lo:hi]
+            for k, v in tree.items()}
+
+
+def hold_agreement(readings: list[dict], logit_tol=LOGIT_TOL,
+                   what: str = "serve") -> dict:
+    """Print every reading of (c), then fail if one is past ``logit_tol``
+    (or, where a type's tolerance is None, not finite) or the two paths
+    pick another next token where the top-1 margin exceeds their
+    difference."""
     out = {}
-    for dtype, tol in LOGIT_TOL.items():
+    for dtype, tol in logit_tol.items():
         rs = [r for r in readings if r["dtype"] == dtype]
         for r in rs:
-            log(f"serve (c) {dtype} seed {r['seed']} prompt {r['prompt']}: "
+            ulp = (f", one-ulp input nudge moves them {r['ulp_abs_diff']:.4e}"
+                   if "ulp_abs_diff" in r else "")
+            log(f"{what} (c) {dtype} seed {r['seed']} prompt {r['prompt']}: "
                 f"prefill vs decode max |diff| {r['max_abs_diff']:.4e} "
                 f"(|logit| up to {r['logit_abs_max']:.4f}), top-1 margin "
                 f"{r['top1_margin']:.4e}, argmax {r['argmax'][0]} vs "
-                f"{r['argmax'][1]}")
+                f"{r['argmax'][1]}{ulp}")
         worst = max(r["max_abs_diff"] for r in rs)
-        log(f"serve (c) {dtype}: largest |diff| over {len(rs)} prompts "
-            f"{worst:.4e}, held at {tol}")
+        log(f"{what} (c) {dtype}: largest |diff| over {len(rs)} prompts "
+            f"{worst:.4e}, " + (f"held at {tol}" if tol is not None else
+                                "a smoke run: finite, no tolerance"))
         out[dtype] = dict(tolerance=tol, largest_abs_diff=worst, readings=rs)
     for r in readings:
         if not r["held"]:
-            raise AssertionError(f"(c) past {LOGIT_TOL[r['dtype']]}: {r}")
+            raise AssertionError(f"{what} (c) past {logit_tol[r['dtype']]}: "
+                                 f"{r}")
         if r["top1_margin"] > r["max_abs_diff"] and \
                 r["argmax"][0] != r["argmax"][1]:
-            raise AssertionError(f"(c) prefill and decode disagree on the "
-                                 f"next token: {r}")
+            raise AssertionError(f"{what} (c) prefill and decode disagree "
+                                 f"on the next token: {r}")
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase 6: the serving path on the full-width RWKV-6 7B
+# ---------------------------------------------------------------------------
+
+# (c) on RWKV-6: both paths run the rwkv6_scan kernel, the decode path one
+# token a call with the state carried in the cache.  Over 32 layers the
+# random full-width model amplifies rounding differences (the two paths'
+# products have other shapes, so cuBLAS sums in another order) by orders of
+# magnitude, so three readings per weight seed:
+#   - end to end on the first RWKV_BIND_DEPTH layers, held at
+#     RWKV_LOGIT_TOL;
+#   - every one of the 32 layers alone (``rwkv_layerwise``): each gets the
+#     same input on both paths, so rounding does not compound, held at
+#     RWKV_LAYER_TOL;
+#   - end to end at the full depth, a smoke run (finite logits), read
+#     beside the spread that a one-ulp nudge of the embeddings makes there.
+# float32 binds; bf16 is a sanity bound.  An NVIDIA H100 80GB HBM3 at
+# 700.00 W read, over 3 weight seeds x 4 prompts (PERF.md): at 2 layers at
+# most 1.955e-5 in float32 and 0.0352 in bf16.  The float32 atol is 1e-4,
+# about 5 x its reading (Yi-6B's too); the bf16 one 1.5 x, rounded up.
+RWKV_BIND_DEPTH = 2
+RWKV_LOGIT_TOL = {"bfloat16": dict(rtol=0.0, atol=0.06),
+                  "float32": dict(rtol=0.0, atol=1e-4)}
+RWKV_SMOKE_TOL = {"bfloat16": None, "float32": None}
+# layer by layer: the one-layer model's last-token logits (absolute, as
+# above) and its states (relative to each state's largest value).  Set
+# before the first reading; the same card then read, over 3 x 32 layers, at
+# most 9.239e-6 and 1.618e-6 in float32 (about 11 x and 6 x below their
+# bounds) and 0.03125 and 4.274e-3 in bf16.
+RWKV_LAYER_TOL = {"bfloat16": dict(logits=0.06, state=0.05),
+                  "float32": dict(logits=1e-4, state=1e-5)}
+
+
+def rwkv_layerwise(lm, params, seed: int, layers) -> list[dict]:
+    """Every layer of the full depth alone, in each compute type of
+    RWKV_LAYER_TOL.  Layer i's input is the residual stream that the
+    prefill path hands it for PVD_PROMPTS prompts of PVD_LEN tokens; a
+    one-layer model on layer i's weights runs ``prefill`` on it, and
+    PVD_LEN ``decode_step``s on its positions one by one, from zero states.
+    One reading per layer: the last-token logits' largest difference, and
+    the states' (x_prev, S, cm_prev) largest difference over their largest
+    value."""
+    one = type(lm)(dataclasses.replace(lm.cfg, n_layers=1), device=lm.device)
+    toks = pvd_tokens(lm, seed)
+    readings = []
+    for dtype in RWKV_LAYER_TOL:
+        layers.COMPUTE_DTYPE = getattr(torch, dtype)
+        try:
+            x = lm.embed_inputs(params, {"tokens": toks})
+            for i in range(lm.cfg.n_layers):
+                p = dict(params, layers=slice_layers(params["layers"], i,
+                                                     i + 1))
+                logits_p, cache_p = one.prefill(p, {"embeds": x})
+                cache = one.init_cache(PVD_PROMPTS, PVD_LEN)
+                for t in range(PVD_LEN):
+                    logits_d, cache = one.decode_step(
+                        p, {"embeds": x[:, t:t + 1]}, cache, t)
+                state = max(float((a - b).abs().max()
+                                  / a.abs().max().clamp_min(1e-30))
+                            for a, b in zip(cache_leaves(cache_p),
+                                            cache_leaves(cache)))
+                lp, ld = logits_p.float(), logits_d.float()
+                readings.append(dict(
+                    dtype=dtype, seed=seed, layer=i,
+                    logits=float((lp - ld).abs().max()),
+                    logit_abs_max=float(lp.abs().max()), state=state,
+                    finite=bool(torch.isfinite(lp).all()
+                                and torch.isfinite(ld).all())))
+                x = one.backbone(p, {"embeds": x})[0]
+        finally:
+            layers.COMPUTE_DTYPE = torch.bfloat16
+    return readings
+
+
+def cache_leaves(tree):
+    if isinstance(tree, tuple):
+        return [leaf for t in tree for leaf in cache_leaves(t)]
+    return [tree]
+
+
+def hold_layerwise(readings: list[dict]) -> dict:
+    """Print the worst layer of each weight seed and type, then fail if a
+    reading is past RWKV_LAYER_TOL or not finite."""
+    out = {}
+    for dtype, tol in RWKV_LAYER_TOL.items():
+        rs = [r for r in readings if r["dtype"] == dtype]
+        for seed in sorted({r["seed"] for r in rs}):
+            mine = [r for r in rs if r["seed"] == seed]
+            wl = max(mine, key=lambda r: r["logits"])
+            ws = max(mine, key=lambda r: r["state"])
+            log(f"rwkv (c) layer by layer, {dtype} seed {seed}, "
+                f"{len(mine)} layers: logits max |diff| {wl['logits']:.4e} "
+                f"(layer {wl['layer']}, |logit| up to "
+                f"{wl['logit_abs_max']:.4f}), states max relative diff "
+                f"{ws['state']:.4e} (layer {ws['layer']})")
+        worst = {k: max(r[k] for r in rs) for k in ("logits", "state")}
+        log(f"rwkv (c) layer by layer, {dtype}: largest over {len(rs)} "
+            f"layer readings {worst}, held at {tol}")
+        out[dtype] = dict(tolerance=tol, largest=worst, readings=rs)
+    for r in readings:
+        tol = RWKV_LAYER_TOL[r["dtype"]]
+        if not r["finite"] or r["logits"] > tol["logits"] or \
+                r["state"] > tol["state"]:
+            raise AssertionError(f"rwkv (c) layer by layer past {tol}: {r}")
+    return out
+
+
+def serve_rwkv(counters, result):
+    """Drive the RWKV-6 serving path; every counter is zeroed before (a)
+    and read after it, then (b) and (c) are checked for their own rwkv6_scan
+    launches."""
+    from repro_torch import obs
+    from repro_torch.configs import get_config
+    from repro_torch.nn import layers
+    from repro_torch.nn.model import LM
+    from repro_torch.serving import Request, ServingEngine
+
+    card, scan = result["card"], counters["rwkv6_scan"]
+    cfg = get_config("rwkv6_7b")
+    lm = LM(cfg)
+    gen = torch.Generator(device=lm.device)
+    gen.manual_seed(0)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params, t_init = timed(lambda: lm.init(gen))
+    n_params = sum(t.numel() for t in leaves(params))
+    param_bytes = sum(t.numel() * t.element_size() for t in leaves(params))
+    log(f"rwkv: {cfg.name}, {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.d_model // cfg.ssm.head_dim} heads of {cfg.ssm.head_dim}, "
+        f"d_ff {cfg.d_ff}, vocab {cfg.vocab}: {n_params} parameters, "
+        f"{param_bytes / 1e9:.2f} GB float32, made in {t_init:.2f} s")
+
+    # (a) bulk prefill, one rwkv6_scan launch per layer and no other kernel
+    rng = np.random.RandomState(0)
+    tokens = torch.from_numpy(rng.randint(
+        0, cfg.vocab, (PREFILL_BATCH, PREFILL_LEN)).astype(np.int32)).to(
+            lm.device)
+    for fn in counters.values():
+        fn.launches = 0
+    (logits, cache), t_prefill = timed(
+        lambda: lm.prefill(params, {"tokens": tokens}))
+    launches = {name: fn.launches for name, fn in counters.items()}
+    expected = {name: 0 for name in counters} | {"rwkv6_scan": cfg.n_layers}
+    if launches != expected:
+        raise AssertionError(f"rwkv prefill launches {launches}, expected "
+                             f"{expected}")
+    shapes = lambda c: [(tuple(t.shape), t.dtype) for t in
+                        (c[0][0], c[0][1], c[1])]
+    want = shapes(lm.init_cache(PREFILL_BATCH, PREFILL_LEN))
+    if logits.shape != (PREFILL_BATCH, 1, cfg.vocab) or \
+            not torch.isfinite(logits).all() or shapes(cache) != want or \
+            not all(torch.isfinite(t).all() for t in
+                    (cache[0][0], cache[0][1], cache[1])):
+        raise AssertionError(f"rwkv prefill gave logits "
+                             f"{tuple(logits.shape)}, cache {shapes(cache)}, "
+                             f"expected {want}")
+    del cache
+
+    # (b) continuous batching, greedy: every decode_step call (admission
+    # and decoding alike) runs the kernel once per layer
+    eng = ServingEngine(lm, params, max_len=MAX_LEN, batch_slots=SLOTS)
+    eng.tracer = obs.Tracer()
+    for uid in range(REQUESTS):
+        eng.submit(Request(uid, rng.randint(0, cfg.vocab, int(
+            rng.randint(4, 33))).astype(np.int32), max_new_tokens=NEW_TOKENS))
+    done, t_serve = timed(eng.run_to_completion)
+    calls = (eng.tracer.counters["serve.prefill_tokens"]
+             + eng.tracer.histograms["serve.step_ms"]["count"])
+    if scan.launches != cfg.n_layers * (1 + calls):
+        raise AssertionError(f"the engine made {calls} decode_step calls "
+                             f"and {scan.launches - cfg.n_layers} rwkv6_scan "
+                             "launches")
+    if sorted(r.uid for r in done) != list(range(REQUESTS)) or any(
+            len(r.generated) != NEW_TOKENS for r in done):
+        raise AssertionError("the engine left requests unserved: "
+                             f"{[(r.uid, len(r.generated)) for r in done]}")
+    n_generated = sum(len(r.generated) for r in done)
+    tokens4 = torch.zeros((SLOTS, 1), dtype=torch.int32, device=lm.device)
+    step = lambda: lm.decode_step(params, {"tokens": tokens4}, eng.cache, 0)
+    timed(step)
+    step_ms = min(timed(step)[1] for _ in range(3)) * 1e3
+
+    # (c) prefill vs decode at RWKV_BIND_DEPTH layers, layer by layer and
+    # at the full depth, weight seed 0 here; seeds 1 and 2 after the
+    # profiles
+    def pvd(seed):
+        return dict(
+            bind=prefill_vs_decode(lm, params, seed, layers, RWKV_LOGIT_TOL,
+                                   RWKV_BIND_DEPTH),
+            layerwise=rwkv_layerwise(lm, params, seed, layers),
+            smoke=prefill_vs_decode(lm, params, seed, layers, RWKV_SMOKE_TOL,
+                                    ulp=True))
+
+    before = scan.launches
+    readings = pvd(0)
+    # (1 + PVD_LEN) calls a layer per type at RWKV_BIND_DEPTH and at full
+    # depth, with one more prefill there; layer by layer, (2 + PVD_LEN)
+    # calls (backbone, prefill, decode steps) of one layer
+    want = (len(RWKV_LOGIT_TOL) * (1 + PVD_LEN) * RWKV_BIND_DEPTH
+            + (len(RWKV_SMOKE_TOL) + len(RWKV_LAYER_TOL)) * (2 + PVD_LEN)
+            * cfg.n_layers)
+    if scan.launches - before != want:
+        raise AssertionError(f"rwkv (c) launched {scan.launches - before} "
+                             f"rwkv6_scan kernels, expected {want}")
+    peak = torch.cuda.max_memory_allocated()
+
+    prefill = lambda: lm.prefill(params, {"tokens": tokens})
+    wall = timed(prefill)[1] * 1e3
+    out = dict(
+        model=cfg.name, layers=cfg.n_layers, parameters=n_params,
+        param_bytes=param_bytes, init_s=t_init,
+        prefill=dict(shape=f"{PREFILL_BATCH} x {PREFILL_LEN} tokens",
+                     first_s=t_prefill, warm_ms=wall,
+                     tokens_per_s=PREFILL_BATCH * PREFILL_LEN / wall * 1e3,
+                     launches=launches),
+        engine=dict(slots=SLOTS, requests=REQUESTS, new_tokens=NEW_TOKENS,
+                    wall_s=t_serve, generated=n_generated,
+                    decode_step_calls=calls,
+                    tokens_per_s=n_generated / t_serve,
+                    counters=eng.tracer.counters,
+                    step_ms=eng.tracer.histograms.get("serve.step_ms")),
+        decode_step=dict(slots=SLOTS, ms=step_ms,
+                         tokens_per_s=SLOTS / step_ms * 1e3),
+        peak_bytes=peak)
+    log(f"rwkv (a) prefill {PREFILL_BATCH} x {PREFILL_LEN} on {card}: first "
+        f"call {t_prefill:.4f} s, warm {wall:.4f} ms "
+        f"({out['prefill']['tokens_per_s']:.1f} tokens/s), launches "
+        f"{launches}")
+    log(f"rwkv (b) engine on {card}: {len(done)} requests, {n_generated} "
+        f"tokens in {t_serve:.4f} s ({n_generated / t_serve:.2f} tokens/s), "
+        f"{calls} decode_step calls, counters {eng.tracer.counters}; decode "
+        f"step at {SLOTS} slots {step_ms:.4f} ms "
+        f"({SLOTS / step_ms * 1e3:.2f} tokens/s)")
+    log(f"rwkv peak device memory {peak / 2**30:.2f} GiB")
+    out["profile"] = dict(
+        prefill=device_profile(prefill, wall, "rwkv prefill 4 x 2000", card),
+        decode_step=device_profile(step, step_ms,
+                                   "rwkv decode step at 4 slots", card))
+
+    eng = step = prefill = None
+    for seed in PVD_SEEDS[1:]:
+        params = None
+        torch.cuda.empty_cache()
+        params = lm.init(gen.manual_seed(seed))
+        more = pvd(seed)
+        readings = {k: v + more[k] for k, v in readings.items()}
+    out["prefill_vs_decode"] = dict(
+        bind=hold_agreement(readings["bind"], RWKV_LOGIT_TOL,
+                            f"rwkv {RWKV_BIND_DEPTH} layers"),
+        smoke=hold_agreement(readings["smoke"], RWKV_SMOKE_TOL,
+                             f"rwkv {cfg.n_layers} layers"),
+        layerwise=hold_layerwise(readings["layerwise"]))
+    result["rwkv"] = out
+    return launches
 
 
 def main() -> int:
@@ -700,7 +1073,7 @@ def main() -> int:
     from repro_torch import data as data_mod
     from repro_torch.kernels import build, flash_attention
     from repro_torch.kernels import fused_sigmoid_matmul, onehot_embed
-    from repro_torch.kernels import relational_matmul
+    from repro_torch.kernels import relational_matmul, rwkv6_scan
 
     card = gpu_line()
     log(card)
@@ -726,11 +1099,13 @@ def main() -> int:
     check_fused(fused_sigmoid_matmul, data, report)
     check_onehot(onehot_embed, data, report)
     check_flash(flash_attention, report)
+    check_rwkv6(rwkv6_scan, report)
     torch.cuda.synchronize()
     for r in report.values():
         lib = r["library_ms"]
+        lib = "none" if lib is None else f"{lib:.4f} ms"
         log(f"kernel {r['name']} at {r['shape']}: {r['ms']:.4f} ms, plain "
-            f"{r['plain_ms']:.4f} ms, library {lib:.4f} ms, bound "
+            f"{r['plain_ms']:.4f} ms, library {lib}, bound "
             f"{r['bound_ms']:.4f} ms ({r['bound_by']}), max |err| "
             f"{r['max_abs_err']:.3e}")
 
@@ -739,13 +1114,16 @@ def main() -> int:
                 "fused_sigmoid_matmul":
                     fused_sigmoid_matmul.fused_sigmoid_matmul,
                 "onehot_embed": onehot_embed.onehot_embed,
-                "flash_attention": flash_attention.flash_attention}
+                "flash_attention": flash_attention.flash_attention,
+                "rwkv6_scan": rwkv6_scan.rwkv6_scan}
     launches = main_path(counters, core, nn2sql, data_mod, result)
     profile_step(core, nn2sql, data_mod, result)
     # each kernel's launches on the path that runs it: kernels 1-3 on the
-    # paper's pipeline (phase 3), flash_attention on the serving path
+    # paper's pipeline (phase 3), flash_attention on Yi-6B's serving path
+    # (phase 5), rwkv6_scan on RWKV-6's (phase 6)
     launches["flash_attention"] = serve_path(counters, result)[
         "flash_attention"]
+    launches["rwkv6_scan"] = serve_rwkv(counters, result)["rwkv6_scan"]
 
     line = {"kernels": [
         {k: r[k] for k in ("name", "route", "source", "replaces")}

@@ -15,6 +15,7 @@ from .flash_attention import flash_attention as _flash_cuda
 from .fused_sigmoid_matmul import fused_sigmoid_matmul as _fsm_cuda
 from .onehot_embed import onehot_embed as _embed_cuda
 from .relational_matmul import relational_matmul as _relmm_cuda
+from .rwkv6_scan import rwkv6_scan as _rwkv6_cuda
 
 
 def _on_host(*operands: torch.Tensor) -> bool:
@@ -52,3 +53,13 @@ def flash_attention(q, k, v, causal: bool = True, scale=None) -> torch.Tensor:
         return ref.flash_attention(q, k, v, causal=causal, scale=scale)
     q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
     return _flash_cuda(q, k, v, causal=causal, scale=scale)
+
+
+def rwkv6_scan(r, k, v, w, u, s0):
+    """(o, s_fin) of the RWKV-6 recurrence; see ``rwkv6_scan.py`` for the
+    shapes ((BH, S, N) or (B, H, S, N))."""
+    if _on_host(r, k, v, w, u, s0):
+        return ref.rwkv6_scan(r, k, v, w, u, s0)
+    r, k, v, w, u = (t if t.stride(-1) == 1 else t.contiguous()
+                     for t in (r, k, v, w, u))
+    return _rwkv6_cuda(r, k, v, w, u, s0.contiguous())

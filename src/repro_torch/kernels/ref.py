@@ -57,3 +57,25 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("bhqk,bhkd->bhqd", probs, v.to(torch.float32))
     return out.to(q.dtype)
+
+
+def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               w: torch.Tensor, u: torch.Tensor, s0: torch.Tensor
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """RWKV-6 recurrence, a Python loop over time on float32 state:
+    o_t = r_t·(S + diag(u) k_t v_tᵀ);  S ← diag(w_t) S + k_t v_tᵀ.
+
+    r/k/v/w: (..., S, N); u: (..., N); s0: (..., N, N), with the same
+    leading axes: (BH,) as the JAX oracle takes them, or (B, H).
+    Returns (o (..., S, N), s_fin (..., N, N)), both float32 (float64
+    where s0 is float64).
+    """
+    acc = torch.promote_types(s0.dtype, torch.float32)
+    r, k, v, w, u, state = (t.to(acc) for t in (r, k, v, w, u, s0))
+    outs = []
+    for t in range(r.shape[-2]):
+        kv = k[..., t, :, None] * v[..., t, None, :]
+        outs.append(torch.einsum("...i,...ij->...j", r[..., t, :],
+                                 state + u[..., :, None] * kv))
+        state = w[..., t, :, None] * state + kv
+    return torch.stack(outs, dim=-2), state

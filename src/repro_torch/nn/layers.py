@@ -22,6 +22,11 @@ import torch.nn.functional as F
 from ..kernels import ops
 
 COMPUTE_DTYPE = torch.bfloat16
+#: the norms' statistics, and the ssm family's decay, recurrence, group norm
+#: and carried states: float32, as in the JAX package (a test raises both
+#: types to float64 to see the model's prefill and decode paths agree
+#: without rounding)
+ACCUM_DTYPE = torch.float32
 
 
 def cdt(x: torch.Tensor) -> torch.Tensor:
@@ -58,7 +63,7 @@ def rmsnorm_init(d: int, lead=(), device="cpu"):
 
 
 def rmsnorm(p, x, eps: float = 1e-6):
-    xf = x.to(torch.float32)
+    xf = x.to(ACCUM_DTYPE)
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     return (xf * torch.rsqrt(var + eps) * p["w"]).to(x.dtype)
 
@@ -69,7 +74,7 @@ def layernorm_init(d: int, lead=(), device="cpu"):
 
 
 def layernorm(p, x, eps: float = 1e-5):
-    xf = x.to(torch.float32)
+    xf = x.to(ACCUM_DTYPE)
     mu = torch.mean(xf, dim=-1, keepdim=True)
     var = torch.var(xf, dim=-1, keepdim=True, unbiased=False)
     return ((xf - mu) * torch.rsqrt(var + eps) * p["w"] + p["b"]).to(x.dtype)

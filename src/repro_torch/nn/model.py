@@ -1,9 +1,10 @@
-"""Architecture assembly, PyTorch port of ``repro.nn.model.LM`` for the
-families whose block is GQA attention plus an MLP:
+"""Architecture assembly, PyTorch port of ``repro.nn.model.LM`` for these
+families:
 
   dense   — llama-style GQA + SwiGLU (yi, qwen3, qwen2.5, granite)
   vlm     — dense backbone, stub vision frontend feeds embeddings (internvl2)
   audio   — MHA + LayerNorm + GELU over stub EnCodec frame embeds (musicgen)
+  ssm     — RWKV-6 time mix + channel mix, no attention (rwkv6)
 
 The parameter tree is the JAX package's: nested dicts, the layer stack
 under ``params["layers"]`` with a leading L axis, float32 storage cast to
@@ -14,14 +15,16 @@ JAX ``LM.init`` tree into this class's parameters unchanged.  The JAX
 Entry points:
   init(generator) → params
   forward(params, batch) → (logits (B,S,V), aux)
-  prefill(params, batch) → (last-token logits, cache)   [flash kernel]
-  decode_step(params, batch, cache, pos) → (logits, cache)
+  prefill(params, batch) → (last-token logits, cache)   [flash or rwkv6_scan]
+  decode_step(params, batch, cache, pos) → (logits, cache)   [ssm: rwkv6_scan]
 
 Full-sequence attention (``forward``, ``prefill``) goes through the
 ``flash_attention`` kernel on the card, one launch per layer; the decode
-step attends over the cache in plain PyTorch.  ``decode_step`` writes the
-step's K/V into ``cache`` in place (the JAX version returns a new cache),
-so serving holds one cache, not two.
+step attends over the cache in plain PyTorch.  The ssm family's time mix
+goes through the ``rwkv6_scan`` kernel in every layer, in prefill and in
+each decode step.  ``decode_step`` writes the step's K/V, or the ssm
+family's new states, into ``cache`` in place (the JAX version returns a
+new cache), so serving holds one cache, not two.
 """
 from __future__ import annotations
 
@@ -32,15 +35,14 @@ import torch
 from ..configs.base import ArchConfig
 from ..device import resolve
 from . import layers as L
+from . import ssm as S
 
 #: what this slice leaves out, and the ROADMAP.md item that brings it
 _LATER = {
     "moe": "family 'moe' (routed experts, MLA) comes with the MoE slice "
            "(ROADMAP.md queue 1, item 13, and queue 2, kernel 4)",
-    "ssm": "family 'ssm' (RWKV-6) comes with the RWKV-6 slice (ROADMAP.md "
-           "queue 1, item 14, and queue 2, kernel 6)",
     "hybrid": "family 'hybrid' (Mamba-2 + shared attention) comes with "
-              "ROADMAP.md queue 1, item 14",
+              "the Mamba-2 slice (ROADMAP.md queue 1, item 14)",
     "attn_impl": "attn_impl={!r}: only 'flash' is ported; the chunked "
                  "schedule and the dense path come with ROADMAP.md queue 1, "
                  "item 12",
@@ -65,7 +67,7 @@ def _depth(tree) -> int:
 
 class LM:
     def __init__(self, cfg: ArchConfig, device="cuda"):
-        if cfg.family not in ("dense", "vlm", "audio"):
+        if cfg.family not in ("dense", "vlm", "audio", "ssm"):
             raise NotImplementedError(_LATER[cfg.family])
         if cfg.attn_impl != "flash":
             raise NotImplementedError(_LATER["attn_impl"].format(
@@ -95,13 +97,20 @@ class LM:
         layers: dict[str, Any] = {
             "norm1": self._norm_init(d, (n,)),
             "norm2": self._norm_init(d, (n,)),
-            "attn": L.gqa_init(generator, d, cfg.n_heads, cfg.n_kv_heads,
-                               cfg.d_head, qkv_bias=cfg.qkv_bias,
-                               qk_norm=cfg.qk_norm, lead=(n,)),
-            "mlp": (L.swiglu_init(generator, d, cfg.d_ff, lead=(n,))
-                    if cfg.mlp == "swiglu"
-                    else L.gelu_mlp_init(generator, d, cfg.d_ff, lead=(n,))),
         }
+        if cfg.family == "ssm":
+            layers["tmix"] = S.rwkv6_init(generator, d, self._ssm_heads,
+                                          lead=(n,))
+            layers["cmix"] = S.rwkv6_channel_mix_init(generator, d, cfg.d_ff,
+                                                      lead=(n,))
+        else:
+            layers["attn"] = L.gqa_init(
+                generator, d, cfg.n_heads, cfg.n_kv_heads, cfg.d_head,
+                qkv_bias=cfg.qkv_bias, qk_norm=cfg.qk_norm, lead=(n,))
+            layers["mlp"] = (
+                L.swiglu_init(generator, d, cfg.d_ff, lead=(n,))
+                if cfg.mlp == "swiglu"
+                else L.gelu_mlp_init(generator, d, cfg.d_ff, lead=(n,)))
         params: dict[str, Any] = {
             "embed": L.dense_init(generator, (v, d), scale=0.02),
             "layers": layers,
@@ -114,6 +123,10 @@ class LM:
                           if a.dim() >= 2 and a.dtype == torch.float32
                           else a, params)
         return params
+
+    @property
+    def _ssm_heads(self) -> int:
+        return self.cfg.d_model // self.cfg.ssm.head_dim
 
     # ------------------------------------------------------------- embedding
     def embed_inputs(self, params, batch) -> torch.Tensor:
@@ -169,6 +182,16 @@ class LM:
         cfg = self.cfg
         norm = L.rmsnorm if cfg.norm == "rmsnorm" else L.layernorm
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        if cfg.family == "ssm":
+            o, st_t = S.rwkv6_time_mix(
+                p["tmix"], norm(p["norm1"], x), self._ssm_heads,
+                state=None if cache is None else cache[0])
+            x = x + o
+            o, st_c = S.rwkv6_channel_mix(
+                p["cmix"], norm(p["norm2"], x),
+                state=None if cache is None else cache[1])
+            x = x + o
+            return x, aux, (st_t, st_c)
         attn_out, kv = self._attn_block(p["attn"], norm(p["norm1"], x),
                                         cos, sin, cache=cache, pos=pos)
         x = x + attn_out
@@ -216,7 +239,17 @@ class LM:
 
     # ------------------------------------------------------------- serving
     def init_cache(self, batch_size: int, max_len: int):
+        """dense/vlm/audio: (K, V), each (L, B, Hkv, max_len, dh) in the
+        compute type; ssm: ((x_prev (L,B,1,d), S (L,B,H,N,N)), cm_prev
+        (L,B,1,d)) in float32, whatever ``max_len``."""
         cfg = self.cfg
+        if cfg.family == "ssm":
+            n = cfg.ssm.head_dim
+            z = lambda *s: torch.zeros(s, dtype=L.ACCUM_DTYPE,
+                                       device=self.device)
+            return ((z(cfg.n_layers, batch_size, 1, cfg.d_model),
+                     z(cfg.n_layers, batch_size, self._ssm_heads, n, n)),
+                    z(cfg.n_layers, batch_size, 1, cfg.d_model))
         shape = (cfg.n_layers, batch_size, cfg.n_kv_heads, max_len,
                  cfg.d_head)
         return (torch.zeros(shape, dtype=L.COMPUTE_DTYPE, device=self.device),
@@ -225,8 +258,11 @@ class LM:
     def decode_step(self, params, batch, cache, pos: int):
         """One token for every sequence. batch: {"tokens": (B,1)} or
         {"embeds": (B,1,d)}; pos: the current write position, shared by
-        every sequence.  Writes into ``cache`` and returns it."""
+        every sequence (unused by the ssm family, as in JAX).  Writes into
+        ``cache`` and returns it."""
         x = self.embed_inputs_decode(params, batch, pos)
+        if self.cfg.family == "ssm":
+            return self._decode_ssm(params, x, cache)
         cos, sin = self._rope_at(pos, x.device) if self.cfg.rope \
             else (None, None)
         ck, cv = cache
@@ -238,6 +274,20 @@ class LM:
 
         x, _ = self._scan(body, x, params["layers"], ck, cv)
         return self.unembed(params, x), (ck, cv)
+
+    def _decode_ssm(self, params, x, cache):
+        (xp, st), cm = cache
+
+        def body(carry, lp, xp_l, st_l, cm_l):
+            out, _, ((nxp, nst), ncm) = self._block(
+                lp, carry, None, None, cache=((xp_l, st_l), cm_l))
+            xp_l.copy_(nxp)
+            st_l.copy_(nst)
+            cm_l.copy_(ncm)
+            return out, None
+
+        x, _ = self._scan(body, x, params["layers"], xp, st, cm)
+        return self.unembed(params, x), cache
 
     def embed_inputs_decode(self, params, batch, pos: int):
         if "embeds" in batch:
@@ -263,7 +313,9 @@ class LM:
 
     def prefill(self, params, batch):
         """Full-context forward that also materialises the decode cache.
-        Returns (last-position logits, cache (K, V), each (L,B,Hkv,S,dh))."""
+        Returns (last-position logits, cache): (K, V), each
+        (L,B,Hkv,S,dh), or the ssm family's states in ``init_cache``'s
+        shapes."""
         x = self.embed_inputs(params, batch)
         cos, sin = self._rope(x.shape[1], x.device)
 
@@ -271,10 +323,16 @@ class LM:
             out, _, kv = self._block(lp, carry, cos, sin)
             return out, kv
 
-        x, kvs = self._scan(body, x, params["layers"])
-        cache = (torch.stack([k for k, _ in kvs]),
-                 torch.stack([v for _, v in kvs]))
-        return self.unembed(params, x[:, -1:]), cache
+        x, states = self._scan(body, x, params["layers"])
+        return self.unembed(params, x[:, -1:]), _stack(states)
+
+
+def _stack(trees: list):
+    """Per-layer trees of nested tuples → one tree, each leaf stacked along
+    a new leading L axis (what ``lax.scan`` does with its outputs)."""
+    if isinstance(trees[0], tuple):
+        return tuple(_stack(list(leaves)) for leaves in zip(*trees))
+    return torch.stack(trees)
 
 
 def _map(fn, tree):

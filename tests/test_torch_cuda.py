@@ -19,11 +19,13 @@ from repro_torch.kernels import fused_sigmoid_matmul as fsm_mod
 from repro_torch.kernels import onehot_embed as embed_mod
 from repro_torch.kernels import ops
 from repro_torch.kernels import relational_matmul as relmm_mod
+from repro_torch.kernels import rwkv6_scan as scan_mod
 
 pytestmark = pytest.mark.cuda
 
 F32 = dict(rtol=2e-4, atol=2e-5)
 BF16 = dict(rtol=6e-2, atol=3e-2)
+SCAN = dict(rtol=3e-4, atol=3e-4)               # tests/test_kernels.py
 
 
 @pytest.fixture
@@ -152,3 +154,58 @@ def test_flash_attention_kernel_refuses_other_head_dims(cuda):
     q = torch.zeros(1, 2, 8, 48, device=cuda)
     with pytest.raises(ValueError, match="head dim"):
         flash_mod.flash_attention(q, q, q)
+
+
+def scan_inputs(rng, lead, s, n, device):
+    """tests/test_kernels.py's inputs: w uniform in [0.4, 0.9), s0 =
+    0.1·randn."""
+    r, k, v = (rnd(rng, *lead, s, n, device=device) for _ in range(3))
+    w = torch.tensor(rng.rand(*lead, s, n) * 0.5 + 0.4, dtype=torch.float32,
+                     device=device)
+    return (r, k, v, w, rnd(rng, *lead, n, device=device),
+            rnd(rng, *lead, n, n, device=device) * 0.1)
+
+
+@pytest.mark.parametrize("bh,s,n", [(2, 32, 16), (4, 64, 32), (1, 128, 64),
+                                    (3, 1, 64), (3, 7, 32), (5, 77, 64)])
+def test_rwkv6_scan_kernel(cuda, bh, s, n):
+    args = scan_inputs(np.random.RandomState(s + n), (bh,), s, n, cuda)
+    before = scan_mod.rwkv6_scan.launches
+    o, s_fin = ops.rwkv6_scan(*args)
+    assert scan_mod.rwkv6_scan.launches == before + 1
+    o_ref, s_ref = scan_mod.plain(*args)
+    torch.testing.assert_close(o, o_ref, **SCAN)
+    torch.testing.assert_close(s_fin, s_ref, **SCAN)
+
+
+def test_rwkv6_scan_kernel_takes_head_split_views(cuda):
+    """The layer hands over (B, S, H, N) projections viewed as (B, H, S, N)
+    and u (H, N) expanded over the batch; s0 is left as it was."""
+    rng = np.random.RandomState(1)
+    b, h, s, n = 2, 3, 40, 64
+    r, k, v, w = (t.transpose(1, 2) for t in scan_inputs(
+        rng, (b, s), h, n, cuda)[:4])
+    u = rnd(rng, h, n, device=cuda).expand(b, h, n)
+    s0 = rnd(rng, b, h, n, n, device=cuda)
+    s0_before = s0.clone()
+    o, s_fin = scan_mod.rwkv6_scan(r, k, v, w, u, s0)
+    assert o.shape == r.shape and o.transpose(1, 2).is_contiguous()
+    o_ref, s_ref = scan_mod.plain(r, k, v, w, u, s0)
+    torch.testing.assert_close(o, o_ref, **SCAN)
+    torch.testing.assert_close(s_fin, s_ref, **SCAN)
+    assert torch.equal(s0, s0_before)
+
+
+def test_rwkv6_scan_kernel_refusals(cuda):
+    r, k, v, w, u, s0 = scan_inputs(np.random.RandomState(2), (2,), 8, 32,
+                                    cuda)
+    with pytest.raises(TypeError, match="float32"):
+        scan_mod.rwkv6_scan(r.to(torch.bfloat16), k, v, w, u, s0)
+    with pytest.raises(ValueError, match="takes u"):
+        scan_mod.rwkv6_scan(r, k, v, w, u[:1], s0)
+    with pytest.raises(ValueError):
+        scan_mod.rwkv6_scan(r, k[:, :4], v, w, u, s0)
+    r, k, v, w, u, s0 = scan_inputs(np.random.RandomState(3), (2,), 8, 48,
+                                    cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        scan_mod.rwkv6_scan(r, k, v, w, u, s0)

@@ -64,14 +64,15 @@ def requests(cls, vocab):
                 max_new_tokens=3 + uid) for uid in range(4)]
 
 
-def run_both(monkeypatch, tracers=(None, None)):
-    """The JAX and the port engine, float32 compute, reduced yi_6b with the
-    JAX init's weights, 2 slots, 4 requests; returns both finished lists."""
+def run_both(monkeypatch, tracers=(None, None), arch="yi_6b"):
+    """The JAX and the port engine, float32 compute, reduced ``arch`` with
+    the JAX init's weights, 2 slots, 4 requests; returns both finished
+    lists."""
     monkeypatch.setattr(JL, "COMPUTE_DTYPE", jnp.float32)
     monkeypatch.setattr(TL, "COMPUTE_DTYPE", torch.float32)
-    jlm = JLM(jget_config("yi_6b", reduced=True))
+    jlm = JLM(jget_config(arch, reduced=True))
     jp = jax.jit(jlm.init)(jax.random.PRNGKey(0))
-    lm = LM(get_config("yi_6b", reduced=True), device="cpu")
+    lm = LM(get_config(arch, reduced=True), device="cpu")
     out = []
     for eng, req in [
             (JServingEngine(jlm, jp, max_len=32, batch_slots=2), JRequest),
@@ -86,6 +87,17 @@ def run_both(monkeypatch, tracers=(None, None)):
 
 def test_engine_emits_the_jax_engines_tokens(monkeypatch):
     jdone, tdone = run_both(monkeypatch)
+    assert [r.uid for r in tdone] == [r.uid for r in jdone]
+    for j, t in zip(jdone, tdone):
+        assert t.generated == [int(x) for x in j.generated], t.uid
+
+
+def test_rwkv6_engine_emits_the_jax_engines_tokens(monkeypatch):
+    """The recurrent cache through both engines, token for token: the
+    admission that feeds every slot's current token through
+    ``decode_step`` (and so advances every other slot's state) and never
+    resets a freed slot's state is the reference's, kept as it is."""
+    jdone, tdone = run_both(monkeypatch, arch="rwkv6_7b")
     assert [r.uid for r in tdone] == [r.uid for r in jdone]
     for j, t in zip(jdone, tdone):
         assert t.generated == [int(x) for x in j.generated], t.uid
@@ -145,6 +157,15 @@ def test_serve_launcher_on_the_cpu(capsys):
                        "--requests", "3", "--slots", "2", "--max-new", "4"])
     assert sorted(r.uid for r in done) == [0, 1, 2]
     assert "3 requests" in capsys.readouterr().out
+
+
+def test_serve_launcher_serves_rwkv6_on_the_cpu(capsys):
+    done = serve.main(["--arch", "rwkv6_7b", "--reduced", "--device", "cpu",
+                       "--requests", "3", "--slots", "2", "--max-new", "4"])
+    assert sorted(r.uid for r in done) == [0, 1, 2]
+    assert all(len(r.generated) == 4 for r in done)
+    assert "rwkv6-reduced on cpu: 3 requests, 12 tokens" in \
+        capsys.readouterr().out
 
 
 def test_serve_launcher_defaults_to_the_card():
