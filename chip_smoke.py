@@ -8,7 +8,8 @@ Phases (any failure exits non-zero; nothing is caught and carried on past):
 1. build   every CUDA kernel from ``src/repro_torch/kernels/csrc`` for
            sm_90a (one nvcc per source, in parallel) and print ptxas's report;
 2. kernels each kernel against its plain PyTorch version on the card, over
-           the ``tests/test_kernels.py`` sweeps and the main paths' shapes,
+           the ``tests/test_kernels.py`` sweeps and the main paths' shapes
+           (flash at Yi-6B's and at MLA's),
            with the reference's tolerances; then its time beside the plain
            version's, one PyTorch library call's (a yardstick only) and the
            card's bound for the same work;
@@ -42,7 +43,20 @@ Phases (any failure exits non-zero; nothing is caught and carried on past):
            of the 32 layers alone on the input the prefill path gives it
            (float32 binds in both), and end to end on all 32 as a smoke
            run beside what a one-ulp nudge of the input does there; then
-           a profile of one prefill and one decode step.
+           a profile of one prefill and one decode step;
+7. moe     the same serving path on the full-width DeepSeek-V2-Lite (27
+           layers: MLA attention, a dense first layer, then 26 layers of
+           64 routed experts top-6 and 2 shared; 62.8 GB of float32
+           weights) with the relational MoE (``impl="sort"``), after phase
+           6 has freed RWKV-6's: (a) ``LM.prefill`` of 4 prompts × 2000
+           tokens, 27 flash_attention launches (q/k of head dim 192, v of
+           128) and 26 each of moe_dispatch and relational_matmul, with the
+           dropped assignments of each layer; (b) the engine with 4 slots
+           serving 8 greedy requests, 26 + 26 launches per ``decode_step``;
+           (c) prefill vs token-by-token decode as phase 6 reads it, with
+           every routing difference reported; (d) one full-width MoE layer
+           on 8000 tokens, einsum against sort; and a profile of one
+           prefill and one decode step.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
 line before it lists the kernels as JSON.  Details also go to
@@ -280,7 +294,63 @@ def check_onehot(mod, data, report):
         shape=f"({t},) ids into eye({N_CLS})")
 
 
+MOE_MAIN = (8000, 64, 944, 2048)     # DeepSeek-V2-Lite prefill: T, E, cap, d
+MOE_LIVE = 8000 * 6                  # slots that take a token (top-6)
+
+
+def check_moe_dispatch(mod, report):
+    """tests/test_kernels.py's shapes, then the bucket fill of one
+    DeepSeek-V2-Lite prefill layer: 8000 tokens into 64 x 944 slots, of
+    which 48000 take a token with gate 1 and the rest row 0 with gate 0.
+    Exact in float32 and bf16."""
+    rng = np.random.RandomState(47)
+    t, e, cap, d = MOE_MAIN
+    slots = e * cap
+    cases = [(32, 64, 64), (64, 96, 128), (t, slots, d)]
+    for n, n_slots, width in cases:
+        idx = torch.tensor(rng.randint(0, n, n_slots), dtype=torch.int32,
+                           device="cuda")
+        gates = torch.tensor(rng.rand(n_slots), dtype=torch.float32,
+                             device="cuda")
+        for dtype in (torch.float32, torch.bfloat16):
+            x = torch.tensor(rng.randn(n, width), dtype=torch.float32,
+                             device="cuda").to(dtype)
+            max_err(mod.moe_dispatch(x, idx, gates), mod.plain(x, idx, gates),
+                    None, f"moe_dispatch {n, n_slots, width} {dtype}")
+    live = torch.zeros(slots, dtype=torch.bool, device="cuda")
+    live[torch.tensor(rng.permutation(slots)[:MOE_LIVE], device="cuda")] = True
+    idx = torch.where(live, torch.tensor(rng.randint(0, t, slots),
+                                         dtype=torch.int32, device="cuda"), 0)
+    idx = idx.to(torch.int32)
+    gates = live.to(torch.float32)
+    x = torch.tensor(rng.randn(t, d), dtype=torch.float32,
+                     device="cuda").to(torch.bfloat16)
+    err = max_err(mod.moe_dispatch(x, idx, gates), mod.plain(x, idx, gates),
+                  None, "moe_dispatch main bucket fill bf16")
+    expect_raise(ValueError, lambda: mod.moe_dispatch(x, idx + t, gates),
+                 "moe_dispatch index out of range")
+    bms, by = bound_ms(8 * slots + 2 * t * d + 2 * slots * d, slots * d)
+    report["moe_dispatch"] = dict(
+        name="moe_dispatch", route="cuda",
+        source="src/repro_torch/kernels/csrc/moe_dispatch.cu",
+        replaces="src/repro/kernels/moe_dispatch.py:27",
+        max_abs_err=err,
+        ms=time_ms(lambda: mod.moe_dispatch(x, idx, gates)),
+        plain_ms=time_ms(lambda: mod.plain(x, idx, gates)),
+        bound_ms=bms, bound_by=by,
+        # two PyTorch calls, a yardstick: no single call gathers and scales
+        library_ms=time_ms(lambda: x.index_select(0, idx)
+                           * gates.to(x.dtype)[:, None]),
+        library="two PyTorch calls: x.index_select(0, idx) * gates",
+        shape=f"x ({t},{d}) bf16 into {e}x{cap} = {slots} slots, "
+              f"{MOE_LIVE} live")
+    log(f"moe_dispatch vs plain: exact over the sweep and the main shape "
+        f"in float32 and bf16")
+
+
 FLASH_MAIN = (4, 32, 4, 2000, 128)      # Yi-6B prefill: B, Hq, Hkv, S, D
+# DeepSeek-V2-Lite's MLA prefill: B, H, S, Dqk (128 + 64), Dv
+FLASH_MLA = (4, 16, 2000, 192, 128)
 # bf16 at the main shape: both sides round the same float32 value to bf16,
 # so they may differ by one bf16 ulp, at most 2^-7 of the value; typical
 # outputs are about 0.05 here, so the sweep's atol 3e-2 would hide a wrong
@@ -288,14 +358,16 @@ FLASH_MAIN = (4, 32, 4, 2000, 128)      # Yi-6B prefill: B, Hq, Hkv, S, D
 FLASH_MAIN_BF16_TOL = dict(rtol=1e-2, atol=1e-2)
 
 
-def flash_bound(b, hq, hkv, s, d, dtype, causal=True):
-    """Operations of the score pairs this call needs (QKᵀ and PV, 2 FLOPs a
-    multiply-add each) and bytes of q, k, v read and out written once."""
+def flash_bound(b, hq, hkv, s, d, dtype, causal=True, dv=None):
+    """Operations of the score pairs this call needs (QKᵀ over d and PV
+    over dv, 2 FLOPs a multiply-add each) and bytes of q, k, v read and out
+    written once."""
+    dv = d if dv is None else dv
     pairs = s * (s + 1) // 2 if causal else s * s
     size = torch.tensor([], dtype=dtype).element_size()
-    n_bytes = size * (2 * b * hq * s * d + 2 * b * hkv * s * d)
+    n_bytes = size * (b * hq * s * (d + dv) + b * hkv * s * (d + dv))
     peak = BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS
-    return bound_ms(n_bytes, 4 * b * hq * pairs * d, peak)
+    return bound_ms(n_bytes, 2 * b * hq * pairs * (d + dv), peak)
 
 
 def check_flash(mod, report):
@@ -331,6 +403,7 @@ def check_flash(mod, report):
                   FLASH_MAIN_BF16_TOL, f"flash main {FLASH_MAIN} bf16 causal")
     bms, by = flash_bound(*FLASH_MAIN, torch.bfloat16)
     sdpa = torch.nn.functional.scaled_dot_product_attention
+    mla = check_flash_mla(mod, inputs, sdpa)
     report["flash_attention"] = dict(
         name="flash_attention", route="cuda",
         source="src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -342,10 +415,52 @@ def check_flash(mod, report):
         library_ms=time_ms(lambda: sdpa(q, k, v, is_causal=True,
                                         enable_gqa=True)),
         shape=f"q ({b},{hq},{s},{d}), k/v ({b},{hkv},{s},{d}) bf16 causal",
-        max_abs_err_f32_sweep=err32, max_abs_err_f32_main=err32_main)
+        max_abs_err_f32_sweep=err32, max_abs_err_f32_main=err32_main,
+        mla=mla)
     log(f"flash vs plain, max |err|: float32 sweep {err32:.3e}, float32 "
         f"main {err32_main:.3e}, bf16 main {err:.3e} (held at "
         f"{FLASH_MAIN_BF16_TOL})")
+
+
+def check_flash_mla(mod, inputs, sdpa):
+    """MLA's prefill attention, q/k of head dim 192 and v of 128: a small
+    sweep of (D, Dv) pairs with Dv < D and a ragged S, then the main shape
+    in float32 (the tests' tolerance) and bf16 (the Yi shape's), timed."""
+    err32 = 0.0
+    for b, h, s, d, dv in [(1, 4, 77, 64, 32), (2, 4, 130, 128, 64),
+                           (1, 4, 100, 192, 128), (1, 2, 65, 192, 32)]:
+        for causal in (True, False):
+            for dtype, tol in ((torch.float32, F32_TOL),
+                               (torch.bfloat16, BF16_TOL)):
+                q, k = inputs(b, h, h, s, d, dtype)[:2]
+                v = inputs(b, h, h, s, dv, dtype)[2]
+                e = max_err(mod.flash_attention(q, k, v, causal=causal),
+                            mod.plain(q, k, v, causal=causal), tol,
+                            f"flash {b, h, s, d, dv} causal={causal} {dtype}")
+                if dtype == torch.float32:
+                    err32 = max(err32, e)
+    b, h, s, d, dv = FLASH_MLA
+    q, k = inputs(b, h, h, s, d, torch.float32)[:2]
+    v = inputs(b, h, h, s, dv, torch.float32)[2]
+    err32_main = max_err(mod.flash_attention(q, k, v), mod.plain(q, k, v),
+                         F32_TOL, f"flash MLA {FLASH_MLA} float32 causal")
+    q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
+    err = max_err(mod.flash_attention(q, k, v), mod.plain(q, k, v),
+                  FLASH_MAIN_BF16_TOL, f"flash MLA {FLASH_MLA} bf16 causal")
+    bms, by = flash_bound(b, h, h, s, d, torch.bfloat16, dv=dv)
+    out = dict(
+        shape=f"q, k ({b},{h},{s},{d}), v ({b},{h},{s},{dv}) bf16 causal",
+        max_abs_err=err, max_abs_err_f32_main=err32_main,
+        max_abs_err_f32_sweep=err32,
+        ms=time_ms(lambda: mod.flash_attention(q, k, v), iters=10),
+        plain_ms=time_ms(lambda: mod.plain(q, k, v), iters=5),
+        bound_ms=bms, bound_by=by,
+        library_ms=time_ms(lambda: sdpa(q, k, v, is_causal=True)))
+    log(f"flash MLA vs plain, max |err|: float32 sweep {err32:.3e}, float32 "
+        f"main {err32_main:.3e}, bf16 main {err:.3e}; {out['ms']:.4f} ms, "
+        f"plain {out['plain_ms']:.4f} ms, SDPA {out['library_ms']:.4f} ms, "
+        f"bound {bms:.4f} ms ({by})")
+    return out
 
 
 RWKV_MAIN = (4, 64, 2000, 64)      # RWKV-6 7B prefill: B, H, S, N
@@ -455,7 +570,7 @@ def main_path(counters, core, nn2sql, data_mod, result):
     expected = {"onehot_embed": 1,
                 "fused_sigmoid_matmul": 2 * ITERS + 2,
                 "relational_matmul": 5 * ITERS + 2,
-                "flash_attention": 0, "rwkv6_scan": 0}
+                "moe_dispatch": 0, "flash_attention": 0, "rwkv6_scan": 0}
     if launches != expected:
         raise AssertionError(f"launches {launches}, expected {expected}")
 
@@ -717,7 +832,9 @@ def prefill_vs_decode(lm, params, seed: int, layers, logit_tol=LOGIT_TOL,
     if depth is not None:
         lm = type(lm)(dataclasses.replace(lm.cfg, n_layers=depth),
                       device=lm.device)
-        params = dict(params, layers=slice_layers(params["layers"], 0, depth))
+        n_dense = lm.cfg.moe.first_k_dense if lm.cfg.moe else 0
+        params = dict(params, layers=slice_layers(params["layers"], 0,
+                                                  depth - n_dense))
     toks = pvd_tokens(lm, seed)
     readings = []
     for dtype, tol in logit_tol.items():
@@ -1057,6 +1174,451 @@ def serve_rwkv(counters, result):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the serving path on the full-width DeepSeek-V2-Lite
+# ---------------------------------------------------------------------------
+
+# (c) on DeepSeek-V2-Lite, as phase 6 reads RWKV-6: end to end on the first
+# DS_BIND_DEPTH layers (the dense prologue layer and the first MoE layer),
+# each of the 27 layers alone on the input the prefill path gives it, and
+# the full depth as a smoke run beside a one-ulp nudge.  float32 binds, at
+# Yi-6B's and RWKV-6's atol; bf16 is a sanity bound (1 / 4 of the random
+# model's logits' spread, about 1), set before the first reading.  The
+# layer-by-layer caches (c_kv, k_rope) are compared relative to their
+# largest value, as RWKV-6's states are.
+DS_BIND_DEPTH = 2
+DS_LOGIT_TOL = {"bfloat16": dict(rtol=0.0, atol=0.25),
+                "float32": dict(rtol=0.0, atol=1e-4)}
+DS_SMOKE_TOL = {"bfloat16": None, "float32": None}
+DS_LAYER_TOL = {"bfloat16": dict(logits=0.25, state=0.05),
+                "float32": dict(logits=1e-4, state=1e-5)}
+MOE_IMPL_TOL = dict(rtol=2e-3, atol=2e-4)      # tests/test_moe.py
+# jax.eval_shape(repro.nn.model.LM(CONFIG).init, ...) of
+# configs/deepseek_v2_lite_16b.py, counted leaf by leaf
+DS_PARAMS = 15_706_484_224
+
+
+class RouteLog:
+    """Records every routing call of ``nn/moe.py`` while active: each
+    token's router probabilities (float32, recomputed as ``_route`` does),
+    its chosen experts, and the assignments the call's capacity drops."""
+
+    def __init__(self, moe):
+        self.moe, self.calls = moe, []
+
+    def __enter__(self):
+        self.route = route = self.moe._route
+
+        def logged(p, x, cfg):
+            gates, idx, aux = route(p, x, cfg)
+            probs = torch.softmax(x.float() @ p["router"].float(), dim=-1)
+            counts = torch.nn.functional.one_hot(
+                idx.reshape(idx.shape[0], -1), cfg.n_experts).sum(1)
+            cap = self.moe._capacity(x.shape[-2], cfg)
+            self.calls.append(dict(
+                probs=probs.reshape(-1, cfg.n_experts),
+                idx=idx.reshape(-1, cfg.top_k).sort(-1).values,
+                drops=int((counts - cap).clamp(min=0).sum())))
+            return gates, idx, aux
+
+        self.moe._route = logged
+        return self
+
+    def __exit__(self, *exc):
+        self.moe._route = self.route
+
+
+def routing_flips(prefill_calls, decode_calls, n_moe, what) -> list[dict]:
+    """Pair the prefill's routing of token (b, t) in MoE layer l with the
+    t-th decode step's (prefill rows b·S + t, decode rows b), and report
+    every token whose chosen experts differ: the margin between its k-th
+    and (k+1)-th probability on the prefill path, and the largest
+    difference of its probabilities between the paths, delta.  The paths
+    can choose differently only where margin <= 2·delta; a flip above
+    that is a fault."""
+    flips = []
+    for layer in range(n_moe):
+        pre = prefill_calls[layer]
+        for t in range(PVD_LEN):
+            dec = decode_calls[t * n_moe + layer]
+            rows = torch.arange(PVD_PROMPTS, device=dec["idx"].device)
+            pi, pp = pre["idx"][rows * PVD_LEN + t], \
+                pre["probs"][rows * PVD_LEN + t]
+            differ = (pi != dec["idx"]).any(-1)
+            for b in differ.nonzero().flatten().tolist():
+                k = pi.shape[-1]
+                top = pp[b].topk(k + 1).values
+                flip = dict(what=what, layer=layer, prompt=b, position=t,
+                            margin=float(top[k - 1] - top[k]),
+                            delta=float((pp[b] - dec["probs"][b]).abs().max()),
+                            prefill=pi[b].tolist(),
+                            decode=dec["idx"][b].tolist())
+                log(f"deepseek (c) routing differs, {what}: MoE layer "
+                    f"{layer}, prompt {b}, position {t}: experts "
+                    f"{flip['prefill']} vs {flip['decode']}, margin "
+                    f"{flip['margin']:.4e}, delta {flip['delta']:.4e}")
+                if flip["margin"] > 2 * flip["delta"]:
+                    raise AssertionError(f"routing flip above the rounding: "
+                                         f"{flip}")
+                flips.append(flip)
+    return flips
+
+
+def waive_last_token_flips(readings, flips, last_moe_layer):
+    """A reading whose last token's experts differ in the model's last MoE
+    layer (by a near-tie, routing_flips has checked that) compares two
+    different mixtures of experts: it is reported, and not held to the
+    tolerance."""
+    for f in flips:
+        if f["layer"] == last_moe_layer and f["position"] == PVD_LEN - 1:
+            for r in readings:
+                if r["prompt"] == f["prompt"] and not r["held"]:
+                    r["held"], r["waived"] = True, f
+
+
+def deepseek_pvd(lm, params, seed, layers, moe, logit_tol, depth=None,
+                 ulp=False):
+    """prefill_vs_decode on DeepSeek-V2-Lite, one compute type at a time,
+    with its routing logged and every flip reported."""
+    cfg = lm.cfg
+    n_moe = (depth or cfg.n_layers) - cfg.moe.first_k_dense
+    readings, flips = [], []
+    for dtype, tol in logit_tol.items():
+        with RouteLog(moe) as rl:
+            rs = prefill_vs_decode(lm, params, seed, layers, {dtype: tol},
+                                   depth, ulp)
+        what = f"{dtype} seed {seed}, {depth or cfg.n_layers} layers"
+        fl = routing_flips(rl.calls[:n_moe],
+                           rl.calls[n_moe:(1 + PVD_LEN) * n_moe], n_moe, what)
+        if tol is not None:
+            waive_last_token_flips(rs, fl, n_moe - 1)
+        readings += rs
+        flips += fl
+    return readings, flips
+
+
+def deepseek_layerwise(lm, params, seed, layers, moe):
+    """Every layer of the full depth alone, as rwkv_layerwise reads RWKV-6:
+    layer i's input is the residual stream the prefill path hands it; a
+    one-layer model on layer i's weights (the prologue's dense layer runs
+    as a one-layer stack with its SwiGLU) runs ``prefill`` on it and
+    PVD_LEN ``decode_step``s.  One reading per layer: the last-token
+    logits' largest difference, the caches' (c_kv, k_rope) over their
+    largest value, and the routing flips."""
+    n_dense = lm.cfg.moe.first_k_dense
+    one = type(lm)(dataclasses.replace(
+        lm.cfg, n_layers=1, moe=dataclasses.replace(lm.cfg.moe,
+                                                    first_k_dense=0)),
+        device=lm.device)
+    toks = pvd_tokens(lm, seed)
+    readings, flips = [], []
+    for dtype in DS_LAYER_TOL:
+        layers.COMPUTE_DTYPE = getattr(torch, dtype)
+        try:
+            x = lm.embed_inputs(params, {"tokens": toks})
+            for i in range(lm.cfg.n_layers):
+                stack, j = (("prologue", i) if i < n_dense
+                            else ("layers", i - n_dense))
+                p = {k: v for k, v in params.items() if k != "prologue"}
+                p["layers"] = slice_layers(params[stack], j, j + 1)
+                with RouteLog(moe) as rl:
+                    logits_p, cache_p = one.prefill(p, {"embeds": x})
+                    cache = one.init_cache(PVD_PROMPTS, PVD_LEN)
+                    for t in range(PVD_LEN):
+                        logits_d, cache = one.decode_step(
+                            p, {"embeds": x[:, t:t + 1]}, cache, t)
+                n_moe = int(stack == "layers")
+                fl = routing_flips(rl.calls[:n_moe], rl.calls[n_moe:], n_moe,
+                                   f"{dtype} seed {seed}, layer {i} alone")
+                state = max(float((a - b).abs().max()
+                                  / a.abs().max().clamp_min(1e-30))
+                            for a, b in zip(cache_leaves(cache_p),
+                                            cache_leaves(cache)))
+                lp, ld = logits_p.float(), logits_d.float()
+                last = [f for f in fl if f["position"] == PVD_LEN - 1]
+                kept = [b for b in range(PVD_PROMPTS)
+                        if b not in {f["prompt"] for f in last}]
+                readings.append(dict(
+                    dtype=dtype, seed=seed, layer=i,
+                    logits=float((lp - ld).abs().max()),
+                    logits_unflipped=float((lp[kept] - ld[kept]).abs().max())
+                    if kept else 0.0,
+                    logit_abs_max=float(lp.abs().max()), state=state,
+                    flips=len(fl), last_token_flips=len(last),
+                    finite=bool(torch.isfinite(lp).all()
+                                and torch.isfinite(ld).all())))
+                flips += fl
+                x = one.backbone(p, {"embeds": x})[0]
+        finally:
+            layers.COMPUTE_DTYPE = torch.bfloat16
+    return readings, flips
+
+
+def hold_deepseek_layerwise(readings: list[dict]) -> dict:
+    """Print the worst layer of each weight seed and type, then fail if a
+    reading is past DS_LAYER_TOL (the logits of prompts whose last token
+    kept its experts; the caches, which the routing does not touch) or not
+    finite."""
+    out = {}
+    for dtype, tol in DS_LAYER_TOL.items():
+        rs = [r for r in readings if r["dtype"] == dtype]
+        for seed in sorted({r["seed"] for r in rs}):
+            mine = [r for r in rs if r["seed"] == seed]
+            wl = max(mine, key=lambda r: r["logits_unflipped"])
+            ws = max(mine, key=lambda r: r["state"])
+            log(f"deepseek (c) layer by layer, {dtype} seed {seed}, "
+                f"{len(mine)} layers: logits max |diff| "
+                f"{wl['logits_unflipped']:.4e} (layer {wl['layer']}, |logit| "
+                f"up to {wl['logit_abs_max']:.4f}), caches max relative diff "
+                f"{ws['state']:.4e} (layer {ws['layer']}), "
+                f"{sum(r['flips'] for r in mine)} routing flips "
+                f"({sum(r['last_token_flips'] for r in mine)} at the last "
+                f"token)")
+        worst = {k: max(r[k] for r in rs)
+                 for k in ("logits", "logits_unflipped", "state")}
+        log(f"deepseek (c) layer by layer, {dtype}: largest over {len(rs)} "
+            f"layer readings {worst}, held at {tol}")
+        out[dtype] = dict(tolerance=tol, largest=worst, readings=rs)
+    for r in readings:
+        tol = DS_LAYER_TOL[r["dtype"]]
+        if not r["finite"] or r["logits_unflipped"] > tol["logits"] or \
+                r["state"] > tol["state"]:
+            raise AssertionError(f"deepseek (c) layer by layer past {tol}: "
+                                 f"{r}")
+    return out
+
+
+def serve_deepseek(counters, result):
+    """Drive the DeepSeek-V2-Lite serving path with the relational MoE
+    (impl="sort"); every counter is zeroed before (a) and read after it,
+    then (b) is checked for its own launches."""
+    from repro_torch import obs
+    from repro_torch.configs import get_config
+    from repro_torch.nn import layers, moe
+    from repro_torch.nn.model import LM
+    from repro_torch.serving import Request, ServingEngine
+
+    card = result["card"]
+    base = get_config("deepseek_v2_lite_16b")
+    cfg = dataclasses.replace(base, moe=dataclasses.replace(base.moe,
+                                                            impl="sort"))
+    n_moe = cfg.n_layers - cfg.moe.first_k_dense
+    lm = LM(cfg)
+    gen = torch.Generator(device=lm.device)
+    gen.manual_seed(0)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params, t_init = timed(lambda: lm.init(gen))
+    n_params = sum(t.numel() for t in leaves(params))
+    param_bytes = sum(t.numel() * t.element_size() for t in leaves(params))
+    log(f"deepseek: {cfg.name}, {cfg.n_layers} layers ({n_moe} MoE of "
+        f"{cfg.moe.n_experts} experts of {cfg.moe.d_ff_expert}, top-"
+        f"{cfg.moe.top_k}, {cfg.moe.n_shared} shared; impl "
+        f"{cfg.moe.impl!r}), d_model {cfg.d_model}, MLA kv_lora "
+        f"{cfg.mla.kv_lora}, {cfg.n_heads} heads of "
+        f"{cfg.mla.d_nope}+{cfg.mla.d_rope} / {cfg.mla.d_v}, vocab "
+        f"{cfg.vocab}: {n_params} parameters, {param_bytes / 1e9:.2f} GB "
+        f"float32, made in {t_init:.2f} s")
+    if n_params != DS_PARAMS:
+        raise AssertionError(f"{n_params} parameters, not the JAX init's "
+                             f"{DS_PARAMS}")
+
+    # (a) bulk prefill: flash in every layer, moe_dispatch and
+    # relational_matmul in every MoE layer, nothing else
+    rng = np.random.RandomState(0)
+    tokens = torch.from_numpy(rng.randint(
+        0, cfg.vocab, (PREFILL_BATCH, PREFILL_LEN)).astype(np.int32)).to(
+            lm.device)
+    for fn in counters.values():
+        fn.launches = 0
+    with RouteLog(moe) as rl:
+        (logits, cache), t_prefill = timed(
+            lambda: lm.prefill(params, {"tokens": tokens}))
+    launches = {name: fn.launches for name, fn in counters.items()}
+    expected = {name: 0 for name in counters} | {
+        "flash_attention": cfg.n_layers, "moe_dispatch": n_moe,
+        "relational_matmul": n_moe}
+    if launches != expected:
+        raise AssertionError(f"deepseek prefill launches {launches}, "
+                             f"expected {expected}")
+    peak_prefill = torch.cuda.max_memory_allocated()
+    drops = [c["drops"] for c in rl.calls]
+    shapes = lambda c: [tuple(t.shape) for t in cache_leaves(c)]
+    want = shapes(lm.init_cache(PREFILL_BATCH, PREFILL_LEN))
+    if logits.shape != (PREFILL_BATCH, 1, cfg.vocab) or \
+            not torch.isfinite(logits).all() or shapes(cache) != want or \
+            len(drops) != n_moe:
+        raise AssertionError(f"deepseek prefill gave logits "
+                             f"{tuple(logits.shape)}, cache {shapes(cache)} "
+                             f"(expected {want}), {len(drops)} routings")
+    del cache
+    assignments = PREFILL_BATCH * PREFILL_LEN * cfg.moe.top_k
+    log(f"deepseek (a) dropped assignments per MoE layer at capacity factor "
+        f"{cfg.moe.capacity_factor} (of {assignments}): {drops}")
+
+    # (b) continuous batching, greedy: every decode_step call runs
+    # moe_dispatch and relational_matmul once per MoE layer, and no flash
+    eng = ServingEngine(lm, params, max_len=MAX_LEN, batch_slots=SLOTS)
+    eng.tracer = obs.Tracer()
+    for uid in range(REQUESTS):
+        eng.submit(Request(uid, rng.randint(0, cfg.vocab, int(
+            rng.randint(4, 33))).astype(np.int32), max_new_tokens=NEW_TOKENS))
+    done, t_serve = timed(eng.run_to_completion)
+    calls = (eng.tracer.counters["serve.prefill_tokens"]
+             + eng.tracer.histograms["serve.step_ms"]["count"])
+    got = {name: fn.launches - launches[name] for name, fn in counters.items()}
+    want = {name: 0 for name in counters} | {
+        "moe_dispatch": n_moe * calls, "relational_matmul": n_moe * calls}
+    if got != want:
+        raise AssertionError(f"the engine made {calls} decode_step calls and "
+                             f"launched {got}, expected {want}")
+    if sorted(r.uid for r in done) != list(range(REQUESTS)) or any(
+            len(r.generated) != NEW_TOKENS for r in done):
+        raise AssertionError("the engine left requests unserved: "
+                             f"{[(r.uid, len(r.generated)) for r in done]}")
+    n_generated = sum(len(r.generated) for r in done)
+    tokens4 = torch.zeros((SLOTS, 1), dtype=torch.int32, device=lm.device)
+    step = lambda: lm.decode_step(params, {"tokens": tokens4}, eng.cache, 100)
+    timed(step)
+    step_ms = min(timed(step)[1] for _ in range(3)) * 1e3
+
+    prefill = lambda: lm.prefill(params, {"tokens": tokens})
+    wall = timed(prefill)[1] * 1e3
+    out = dict(
+        model=cfg.name, impl=cfg.moe.impl, layers=cfg.n_layers,
+        parameters=n_params, param_bytes=param_bytes, init_s=t_init,
+        prefill=dict(shape=f"{PREFILL_BATCH} x {PREFILL_LEN} tokens",
+                     first_s=t_prefill, warm_ms=wall,
+                     tokens_per_s=PREFILL_BATCH * PREFILL_LEN / wall * 1e3,
+                     launches=launches, dropped_assignments=drops,
+                     assignments_per_layer=assignments,
+                     peak_bytes=peak_prefill),
+        engine=dict(slots=SLOTS, requests=REQUESTS, new_tokens=NEW_TOKENS,
+                    wall_s=t_serve, generated=n_generated,
+                    decode_step_calls=calls,
+                    tokens_per_s=n_generated / t_serve,
+                    counters=eng.tracer.counters,
+                    step_ms=eng.tracer.histograms.get("serve.step_ms")),
+        decode_step=dict(slots=SLOTS, ms=step_ms,
+                         tokens_per_s=SLOTS / step_ms * 1e3))
+    log(f"deepseek (a) prefill {PREFILL_BATCH} x {PREFILL_LEN} on {card}: "
+        f"first call {t_prefill:.4f} s, warm {wall:.4f} ms "
+        f"({out['prefill']['tokens_per_s']:.1f} tokens/s), launches "
+        f"{launches}, peak device memory {peak_prefill / 2**30:.2f} GiB")
+    log(f"deepseek (b) engine on {card}: {len(done)} requests, {n_generated} "
+        f"tokens in {t_serve:.4f} s ({n_generated / t_serve:.2f} tokens/s), "
+        f"{calls} decode_step calls, counters {eng.tracer.counters}; decode "
+        f"step at {SLOTS} slots {step_ms:.4f} ms "
+        f"({SLOTS / step_ms * 1e3:.2f} tokens/s)")
+    out["profile"] = dict(
+        prefill=device_profile(prefill, wall, "deepseek prefill 4 x 2000",
+                               card),
+        decode_step=device_profile(step, step_ms,
+                                   "deepseek decode step at 4 slots", card))
+    eng = step = prefill = None
+
+    # (c) prefill vs token-by-token decode.  Capacity is per group, and the
+    # two paths group differently (the prefill routes B·S tokens as one
+    # group, a decode step B), so at the published capacity factor they
+    # may drop different assignments by the reference's own rule; at
+    # n_experts / top_k no assignment can drop on either path.
+    lm_c = LM(dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=cfg.moe.n_experts / cfg.moe.top_k)))
+
+    def pvd(seed):
+        bind, f1 = deepseek_pvd(lm_c, params, seed, layers, moe,
+                                DS_LOGIT_TOL, DS_BIND_DEPTH)
+        lw, f2 = deepseek_layerwise(lm_c, params, seed, layers, moe)
+        smoke, f3 = deepseek_pvd(lm_c, params, seed, layers, moe,
+                                 DS_SMOKE_TOL, ulp=True)
+        return dict(bind=bind, layerwise=lw, smoke=smoke, flips=f1 + f2 + f3)
+
+    before = {name: fn.launches for name, fn in counters.items()}
+    readings = pvd(0)
+    for seed in PVD_SEEDS[1:]:
+        params = None
+        torch.cuda.empty_cache()
+        params = lm.init(gen.manual_seed(seed))
+        more = pvd(seed)
+        readings = {k: v + more[k] for k, v in readings.items()}
+    ran = {name: fn.launches - before[name] for name, fn in counters.items()}
+    if ran["moe_dispatch"] == 0 or ran["moe_dispatch"] != \
+            ran["relational_matmul"] or ran["rwkv6_scan"]:
+        raise AssertionError(f"deepseek (c) launched {ran}")
+    out["prefill_vs_decode"] = dict(
+        capacity_factor=lm_c.cfg.moe.capacity_factor,
+        bind=hold_agreement(readings["bind"], DS_LOGIT_TOL,
+                            f"deepseek {DS_BIND_DEPTH} layers"),
+        smoke=hold_agreement(readings["smoke"], DS_SMOKE_TOL,
+                             f"deepseek {cfg.n_layers} layers"),
+        layerwise=hold_deepseek_layerwise(readings["layerwise"]),
+        routing_flips=readings["flips"], launches=ran)
+    log(f"deepseek (c): {len(readings['flips'])} routing flips over 3 seeds, "
+        f"every one a near-tie (margin <= 2 delta)")
+
+    # (d) one full-width MoE layer alone on 8000 tokens, float32: the
+    # array representation (einsum) against the relational one (sort)
+    first = lambda tree: {k: first(v) if isinstance(v, dict)
+                          else v[0].clone() for k, v in tree.items()}
+    layer = first(params["layers"]["moe"])
+    params = None
+    torch.cuda.empty_cache()
+    out["one_layer"] = one_moe_layer(layer, cfg, moe, layers, card, counters)
+    result["deepseek"] = out
+    return launches
+
+
+def one_moe_layer(p, cfg, moe, layers, card, counters) -> dict:
+    """The paper's array-against-relational comparison at one full-width
+    DeepSeek-V2-Lite MoE layer: 8000 tokens (one group), float32 compute,
+    each impl's output, kernel launches, time and peak memory above the
+    layer's weights."""
+    from repro_torch.nn.model import _moe_cfg
+
+    t = PREFILL_BATCH * PREFILL_LEN
+    dev = p["router"].device
+    x = torch.randn((t, cfg.d_model), device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(0))
+    layers.COMPUTE_DTYPE = torch.float32
+    out = {}
+    try:
+        for impl in ("einsum", "sort"):
+            mcfg = dataclasses.replace(_moe_cfg(cfg), impl=impl)
+            run = lambda: moe.moe_ffn(p, x, mcfg)
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            before = {n: fn.launches for n, fn in counters.items()}
+            (y, aux), _ = timed(run)
+            peak = torch.cuda.max_memory_allocated() - base
+            launched = {n: fn.launches - before[n]
+                        for n, fn in counters.items() if fn.launches > before[n]}
+            out[impl] = dict(y=y, aux=float(aux), peak_bytes=peak,
+                             launches=launched,
+                             ms=time_ms(run, iters=3, warmup=1))
+    finally:
+        layers.COMPUTE_DTYPE = torch.bfloat16
+    # the array form runs no kernel; the relational one its join and
+    # group-by once each
+    if out["einsum"]["launches"] or out["sort"]["launches"] != {
+            "moe_dispatch": 1, "relational_matmul": 1}:
+        raise AssertionError(f"deepseek (d) launches: einsum "
+                             f"{out['einsum']['launches']}, sort "
+                             f"{out['sort']['launches']}")
+    ys, ye = out["sort"]["y"], out["einsum"]["y"]
+    err = max_err(ys, ye, MOE_IMPL_TOL, "deepseek (d) einsum vs sort")
+    differ = int((ys != ye).sum())
+    for impl, r in out.items():
+        r.pop("y")
+        log(f"deepseek (d) one MoE layer, {t} tokens, float32, {impl} on "
+            f"{card}: {r['ms']:.4f} ms, peak {r['peak_bytes'] / 2**30:.3f} "
+            f"GiB above the inputs, kernel launches {r['launches']}")
+    log(f"deepseek (d) einsum vs sort max |diff| {err:.3e} (held at "
+        f"{MOE_IMPL_TOL}); {differ} of {ys.numel()} elements differ")
+    return dict(tokens=t, max_abs_diff=err, elements_differ=differ,
+                tolerance=MOE_IMPL_TOL, **out)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to drive", file=sys.stderr)
@@ -1071,7 +1633,7 @@ def main() -> int:
     from repro_torch.core import nn2sql
     from repro_torch.core.relational import RelTensor
     from repro_torch import data as data_mod
-    from repro_torch.kernels import build, flash_attention
+    from repro_torch.kernels import build, flash_attention, moe_dispatch
     from repro_torch.kernels import fused_sigmoid_matmul, onehot_embed
     from repro_torch.kernels import relational_matmul, rwkv6_scan
 
@@ -1098,6 +1660,7 @@ def main() -> int:
     check_relational(relational_matmul, RelTensor, data, report)
     check_fused(fused_sigmoid_matmul, data, report)
     check_onehot(onehot_embed, data, report)
+    check_moe_dispatch(moe_dispatch, report)
     check_flash(flash_attention, report)
     check_rwkv6(rwkv6_scan, report)
     torch.cuda.synchronize()
@@ -1114,16 +1677,20 @@ def main() -> int:
                 "fused_sigmoid_matmul":
                     fused_sigmoid_matmul.fused_sigmoid_matmul,
                 "onehot_embed": onehot_embed.onehot_embed,
+                "moe_dispatch": moe_dispatch.moe_dispatch,
                 "flash_attention": flash_attention.flash_attention,
                 "rwkv6_scan": rwkv6_scan.rwkv6_scan}
     launches = main_path(counters, core, nn2sql, data_mod, result)
     profile_step(core, nn2sql, data_mod, result)
     # each kernel's launches on the path that runs it: kernels 1-3 on the
     # paper's pipeline (phase 3), flash_attention on Yi-6B's serving path
-    # (phase 5), rwkv6_scan on RWKV-6's (phase 6)
+    # (phase 5), rwkv6_scan on RWKV-6's (phase 6), moe_dispatch on
+    # DeepSeek-V2-Lite's (phase 7)
     launches["flash_attention"] = serve_path(counters, result)[
         "flash_attention"]
     launches["rwkv6_scan"] = serve_rwkv(counters, result)["rwkv6_scan"]
+    launches["moe_dispatch"] = serve_deepseek(counters, result)[
+        "moe_dispatch"]
 
     line = {"kernels": [
         {k: r[k] for k in ("name", "route", "source", "replaces")}

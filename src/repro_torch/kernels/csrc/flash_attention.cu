@@ -3,7 +3,8 @@
 //
 //   out[b, h, i, :] = sum_j softmax_j(scale * q[b,h,i,:] . k[b,h/G,j,:]) v[b,h/G,j,:]
 //
-// (G = Hq / Hkv query heads share one KV head; causal keeps j <= i.)
+// (G = Hq / Hkv query heads share one KV head; causal keeps j <= i.  q and
+// k have head dim D, v and out Dv <= D: MLA's 192 / 128.)
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/flash_attention.py::
 // flash_attention.  Plain twin: repro_torch.kernels.ref.flash_attention
@@ -13,7 +14,9 @@
 // prefill, B=4, Hq=32, Hkv=4, S=2000, D=128, bf16, causal) the live score
 // pairs need about 131 GFLOP (QK^T and PV) against 147 MB moved (q, k, v
 // read once, out written once): ~900 FLOP/byte, far above the card's ridge.
-// The tensor-core bound is 131 GFLOP at 989 TFLOP/s, 0.13 ms.
+// The tensor-core bound is 131 GFLOP at 989 TFLOP/s, 0.13 ms.  At MLA's
+// (DeepSeek-V2-Lite prefill, B=4, H=16, S=2000, D=192, Dv=128) it is
+// 82 GFLOP, 0.083 ms.
 //
 // Design (simple and right first; wgmma and TMA are later work).  One block
 // of 256 threads owns one (b, h, 64-row query tile) and loops over 64-row
@@ -27,14 +30,16 @@
 //   - four threads own each query row's running max m (from -1e30) and
 //     normaliser l (from 0) in registers, turn the scores into p = exp(s - m)
 //     in place and publish the rescale factor alpha = exp(m_old - m_new);
-//   - V replaces K^T in the same buffer, and each thread updates its 4 x D/16
-//     slice of the float32 accumulator: acc = acc * alpha + P V.
+//   - V replaces K^T in the same buffer, and each thread updates its
+//     4 x Dv/16 slice of the float32 accumulator: acc = acc * alpha + P V.
 // When causal, KV tiles strictly in the future of the whole query tile are
 // never visited (skipped, not masked), and query tiles are scheduled
 // longest first.  Query head h reads KV head h / G in place: K/V are never
 // repeated in memory.  The output is acc / l, rounded to q's type.  Ragged
-// S is masked, not refused.  D is a template parameter (32, 64, 128) and
-// d_v == D.
+// S is masked, not refused.  D (32, 64, 128, 192) and Dv (32, 64, 128,
+// at most D) are template parameters, so P V costs Dv, not D, columns and v
+// is never padded.  Shared memory at D = 128 is 83.7 KB (two blocks an SM);
+// at D = 192, Dv = 128 it is 117.0 KB (one block an SM).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -57,31 +62,33 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16_rn(v);
 }
 
-// Shared memory, in floats: Q^T [D][kBQ+1], the K^T [D][kBK+1] / V [kBK][D]
+// Shared memory, in floats: Q^T [D][kBQ+1], the K^T [D][kBK+1] / V [kBK][Dv]
 // buffer, S/P [kBQ][kBK+1], alpha [kBQ] and l [kBQ].  The +1 pads keep the
 // transposed stores and the row-wise softmax off a single bank.
-template <int D>
+template <int D, int DV>
 struct Layout {
   static constexpr int kQt = D * (kBQ + 1);
-  static constexpr int kKV = D * (kBK + 1);
+  static constexpr int kKV =
+      D * (kBK + 1) > kBK * DV ? D * (kBK + 1) : kBK * DV;
   static constexpr int kS = kBQ * (kBK + 1);
   static constexpr size_t kBytes = (kQt + kKV + kS + 2 * kBQ) * sizeof(float);
 };
 
-template <typename T, int D>
+template <typename T, int D, int DV>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
           const T* __restrict__ v, T* __restrict__ out, int S, int Hq,
           int group, int64_t q_b, int64_t q_h, int64_t q_s, int64_t k_b,
           int64_t k_h, int64_t k_s, int64_t v_b, int64_t v_h, int64_t v_s,
           float scale, int causal) {
-  static_assert(D % 16 == 0, "D must be a multiple of 16");
-  constexpr int kTD = D / 16;          // columns of O per thread
+  static_assert(D % 16 == 0 && DV % 16 == 0 && DV <= D,
+                "D and DV multiples of 16, DV <= D");
+  constexpr int kTD = DV / 16;         // columns of O per thread
   extern __shared__ float smem[];
   float* qt = smem;
-  float* kv = qt + Layout<D>::kQt;
-  float* ss = kv + Layout<D>::kKV;
-  float* alpha_s = ss + Layout<D>::kS;
+  float* kv = qt + Layout<D, DV>::kQt;
+  float* ss = kv + Layout<D, DV>::kKV;
+  float* alpha_s = ss + Layout<D, DV>::kS;
   float* l_s = alpha_s + kBQ;
 
   const int tid = threadIdx.x;
@@ -179,10 +186,10 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
       m_run = m_new;
       if (spart == 0) alpha_s[srow] = alpha;
     }
-    for (int e = tid; e < kBK * D; e += kThreads) {   // V replaces K^T
-      const int r = e / D, d = e % D;
+    for (int e = tid; e < kBK * DV; e += kThreads) {  // V replaces K^T
+      const int r = e / DV, d = e % DV;
       const int pos = k0 + r;
-      kv[r * D + d] = pos < S ? to_float(vb[pos * v_s + d]) : 0.f;
+      kv[r * DV + d] = pos < S ? to_float(vb[pos * v_s + d]) : 0.f;
     }
     __syncthreads();
 
@@ -198,7 +205,7 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int i = 0; i < kTR; ++i) p[i] = ss[(ty + 16 * i) * (kBK + 1) + c];
 #pragma unroll
-      for (int j = 0; j < kTD; ++j) vv[j] = kv[c * D + tx + 16 * j];
+      for (int j = 0; j < kTD; ++j) vv[j] = kv[c * DV + tx + 16 * j];
 #pragma unroll
       for (int i = 0; i < kTR; ++i)
 #pragma unroll
@@ -208,7 +215,7 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
 
   if (spart == 0) l_s[srow] = l_run;
   __syncthreads();
-  T* ob = out + (static_cast<int64_t>(b) * Hq + h) * S * D;
+  T* ob = out + (static_cast<int64_t>(b) * Hq + h) * S * DV;
 #pragma unroll
   for (int i = 0; i < kTR; ++i) {
     const int r = ty + 16 * i;
@@ -217,21 +224,21 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
     const float l = l_s[r];
 #pragma unroll
     for (int j = 0; j < kTD; ++j)
-      store(ob + static_cast<int64_t>(pos) * D + tx + 16 * j, acc[i][j] / l);
+      store(ob + static_cast<int64_t>(pos) * DV + tx + 16 * j, acc[i][j] / l);
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, int DV>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
                    int batch, int hq, int hkv, int s, const long long* st,
                    float scale, int causal, cudaStream_t stream) {
-  const size_t bytes = Layout<D>::kBytes;
+  const size_t bytes = Layout<D, DV>::kBytes;
   cudaError_t e = cudaFuncSetAttribute(
-      flash_fwd<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_fwd<T, D, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(bytes));
   if (e != cudaSuccess) return e;
   const dim3 grid((s + kBQ - 1) / kBQ, hq, batch);
-  flash_fwd<T, D><<<grid, kThreads, bytes, stream>>>(
+  flash_fwd<T, D, DV><<<grid, kThreads, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(out), s, hq, hq / hkv,
       st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], scale,
@@ -239,37 +246,42 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
   return cudaGetLastError();
 }
 
+// The (D, Dv) pairs built: D in {32, 64, 128, 192}, Dv in {32, 64, 128},
+// Dv <= D.
 template <typename T>
 cudaError_t launch_d(const void* q, const void* k, const void* v, void* out,
-                     int batch, int hq, int hkv, int s, int d,
+                     int batch, int hq, int hkv, int s, int d, int dv,
                      const long long* st, float scale, int causal,
                      cudaStream_t stream) {
-  switch (d) {
-    case 32:
-      return launch<T, 32>(q, k, v, out, batch, hq, hkv, s, st, scale, causal,
-                           stream);
-    case 64:
-      return launch<T, 64>(q, k, v, out, batch, hq, hkv, s, st, scale, causal,
-                           stream);
-    case 128:
-      return launch<T, 128>(q, k, v, out, batch, hq, hkv, s, st, scale,
+#define FLASH_CASE(D, DV)                                                   \
+  if (d == D && dv == DV)                                                   \
+    return launch<T, D, DV>(q, k, v, out, batch, hq, hkv, s, st, scale,     \
                             causal, stream);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  FLASH_CASE(32, 32)
+  FLASH_CASE(64, 32)
+  FLASH_CASE(64, 64)
+  FLASH_CASE(128, 32)
+  FLASH_CASE(128, 64)
+  FLASH_CASE(128, 128)
+  FLASH_CASE(192, 32)
+  FLASH_CASE(192, 64)
+  FLASH_CASE(192, 128)
+#undef FLASH_CASE
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// q: [batch, hq, s, d], k/v: [batch, hkv, s, d], each with unit stride in d
-// and the element strides of its batch, head and sequence axes in
-// strides[0..2] (q), [3..5] (k), [6..8] (v); out: [batch, hq, s, d]
-// contiguous.  All of one type: dtype 0 = float32, 1 = bfloat16.
-// hq % hkv == 0 and d in {32, 64, 128}.  Returns cudaGetLastError() after
-// the launch (or the error of the shared-memory attribute).
+// q: [batch, hq, s, d], k: [batch, hkv, s, d], v: [batch, hkv, s, dv], each
+// with unit stride in its last axis and the element strides of its batch,
+// head and sequence axes in strides[0..2] (q), [3..5] (k), [6..8] (v); out:
+// [batch, hq, s, dv] contiguous.  All of one type: dtype 0 = float32,
+// 1 = bfloat16.  hq % hkv == 0 and (d, dv) one of launch_d's pairs.
+// Returns cudaGetLastError() after the launch (or the error of the
+// shared-memory attribute).
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* out, int batch,
-                                      int hq, int hkv, int s, int d,
+                                      int hq, int hkv, int s, int d, int dv,
                                       const void* strides, float scale,
                                       int causal, int dtype, int device,
                                       void* stream) {
@@ -279,10 +291,10 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   const long long* st = static_cast<const long long*>(strides);
   cudaStream_t cs = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch_d<float>(q, k, v, out, batch, hq, hkv, s, d, st, scale,
+    return launch_d<float>(q, k, v, out, batch, hq, hkv, s, d, dv, st, scale,
                            causal, cs);
   if (dtype == 1)
-    return launch_d<__nv_bfloat16>(q, k, v, out, batch, hq, hkv, s, d, st,
-                                   scale, causal, cs);
+    return launch_d<__nv_bfloat16>(q, k, v, out, batch, hq, hkv, s, d, dv,
+                                   st, scale, causal, cs);
   return cudaErrorInvalidValue;
 }

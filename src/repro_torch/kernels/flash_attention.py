@@ -3,9 +3,11 @@
 the source says why and what bounds it).  It replaces the Pallas TPU kernel
 ``repro.kernels.flash_attention``; ``plain`` is its PyTorch twin.
 
-q (B, Hq, S, D) and k, v (B, Hkv, S, D), all float32 or all bfloat16,
-Hq a multiple of Hkv, D in {32, 64, 128}; any ragged S.  Each operand needs
-unit stride in D only: the head-split views of the model go in as they are.
+q (B, Hq, S, D), k (B, Hkv, S, D) and v (B, Hkv, S, Dv), all float32 or
+all bfloat16, Hq a multiple of Hkv, (D, Dv) in ``HEAD_DIMS`` (Dv = D, or
+MLA's D = 192 with Dv = 128, among others); any ragged S.  Each operand
+needs unit stride in its last axis only: the head-split views of the model
+go in as they are.
 """
 from __future__ import annotations
 
@@ -19,17 +21,21 @@ plain = ref.flash_attention
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {"flash_attention_launch": [
-    _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, ctypes.c_float, _I, _I, _I, _P]}
+    _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, ctypes.c_float, _I, _I, _I,
+    _P]}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (32, 64, 128)
+#: the (D, Dv) pairs the kernel is built for: D in {32, 64, 128, 192}, Dv in
+#: {32, 64, 128}, Dv <= D
+HEAD_DIMS = tuple((d, dv) for d in (32, 64, 128, 192) for dv in (32, 64, 128)
+                  if dv <= d)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True, scale: float | None = None
                     ) -> torch.Tensor:
     """softmax(scale · q kᵀ [causal mask]) v per query head, with query
-    head h reading KV head h // (Hq / Hkv); returned contiguous in q's
-    type."""
+    head h reading KV head h // (Hq / Hkv); returned (B, Hq, S, Dv)
+    contiguous in q's type.  The scale defaults to D ** -0.5."""
     dev = q.device
     if dev.type != "cuda" or k.device != dev or v.device != dev:
         raise ValueError("flash_attention kernel: q, k, v on one CUDA "
@@ -37,7 +43,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError("flash_attention kernel: q, k, v all float32 or all "
                         f"bfloat16, got {q.dtype}, {k.dtype}, {v.dtype}")
-    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4 \
+            or k.shape[:3] != v.shape[:3]:
         raise ValueError(f"flash_attention kernel: q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)}")
     b, hq, s, d = q.shape
@@ -46,14 +53,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             or hq % hkv:
         raise ValueError(f"flash_attention kernel: q {tuple(q.shape)} and "
                          f"k/v {tuple(k.shape)} are not GQA-compatible")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"flash_attention kernel: head dim {d} not in "
-                         f"{HEAD_DIMS}")
+    dv = v.shape[3]
+    if (d, dv) not in HEAD_DIMS:
+        raise ValueError(f"flash_attention kernel: head dims (q/k {d}, v "
+                         f"{dv}) not in {HEAD_DIMS}")
     if any(t.stride(-1) != 1 for t in (q, k, v)):
         raise ValueError("flash_attention kernel: unit stride in D")
     if max(b, hq, s) >= 2 ** 31 - 1 or hq > 65535 or b > 65535:
         raise ValueError("flash_attention kernel: sizes beyond the grid")
-    out = torch.empty((b, hq, s, d), dtype=q.dtype, device=dev)
+    out = torch.empty((b, hq, s, dv), dtype=q.dtype, device=dev)
     if out.numel() == 0:
         return out
     if scale is None:
@@ -64,7 +72,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     device, stream = build.device_and_stream(q)
     build.check(lib.flash_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, hq, hkv,
-        s, d, ctypes.addressof(strides), float(scale), int(bool(causal)),
+        s, d, dv, ctypes.addressof(strides), float(scale), int(bool(causal)),
         _DTYPES[q.dtype], device, stream), "flash_attention")
     flash_attention.launches += 1
     return out

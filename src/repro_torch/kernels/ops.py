@@ -13,6 +13,7 @@ import torch
 from . import ref
 from .flash_attention import flash_attention as _flash_cuda
 from .fused_sigmoid_matmul import fused_sigmoid_matmul as _fsm_cuda
+from .moe_dispatch import moe_dispatch as _moe_cuda
 from .onehot_embed import onehot_embed as _embed_cuda
 from .relational_matmul import relational_matmul as _relmm_cuda
 from .rwkv6_scan import rwkv6_scan as _rwkv6_cuda
@@ -46,6 +47,30 @@ def onehot_embed(ids, table) -> torch.Tensor:
     if _on_host(ids, table):
         return ref.onehot_embed(ids, table)
     return _embed_cuda(ids.to(torch.int32).contiguous(), table.contiguous())
+
+
+def moe_dispatch(x, sort_idx, gates) -> torch.Tensor:
+    """out[s, :] = gates[s] · x[sort_idx[s], :], the gate cast to x's type
+    first: the MoE layer's bucket fill (the join)."""
+    if _on_host(x, sort_idx, gates):
+        return ref.moe_dispatch(x, sort_idx, gates)
+    return _moe_cuda(x.contiguous(), sort_idx.to(torch.int32).contiguous(),
+                     gates.to(torch.float32).contiguous())
+
+
+def moe_combine(expert_out, row_ids, n_tokens: int) -> torch.Tensor:
+    """Group the gated slot rows by destination token and sum, in float32,
+    cast back to their type; on the card, relational_matmul's aggregation
+    with unit values (the MoE layer itself folds the gates into the
+    relation and calls ``relational_matmul``)."""
+    if _on_host(expert_out, row_ids):
+        return ref.moe_combine(expert_out, row_ids, n_tokens)
+    s = expert_out.shape[0]
+    cols = torch.arange(s, dtype=torch.int32, device=expert_out.device)
+    ones = torch.ones(s, dtype=torch.float32, device=expert_out.device)
+    out = _relmm_cuda(row_ids.to(torch.int32).contiguous(), cols, ones,
+                      expert_out.to(torch.float32).contiguous(), n_tokens)
+    return out.to(expert_out.dtype)
 
 
 def flash_attention(q, k, v, causal: bool = True, scale=None) -> torch.Tensor:

@@ -15,14 +15,16 @@ def relational_matmul(row_ids: torch.Tensor, col_ids: torch.Tensor,
                       ) -> torch.Tensor:
     """The paper's join + group-by matmul over a COO relation.
 
-    out[i, :] = Σ_{t: row_ids[t]=i} vals[t] · b[col_ids[t], :], in float32.
+    out[i, :] = Σ_{t: row_ids[t]=i} vals[t] · b[col_ids[t], :], in float32
+    (float64 where vals and b are, an oracle free of float32 rounding).
     Tuples whose row lies outside 0..m-1 (the padding, ``row_ids == m``)
     are dropped, as ``segment_sum`` drops them.
     """
-    joined = vals[:, None].to(torch.float32) * b[col_ids].to(torch.float32)
+    acc = torch.promote_types(torch.promote_types(vals.dtype, b.dtype),
+                              torch.float32)
+    joined = vals[:, None].to(acc) * b[col_ids].to(acc)
     rows = torch.where((row_ids >= 0) & (row_ids < m), row_ids, m)
-    out = torch.zeros((m + 1, b.shape[1]), dtype=torch.float32,
-                      device=b.device)
+    out = torch.zeros((m + 1, b.shape[1]), dtype=acc, device=b.device)
     out.index_add_(0, rows.long(), joined)       # row m collects the drops
     return out[:m]
 
@@ -38,11 +40,33 @@ def onehot_embed(ids: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     return table[ids]
 
 
+def moe_dispatch(x: torch.Tensor, sort_idx: torch.Tensor,
+                 gates: torch.Tensor) -> torch.Tensor:
+    """Dispatch side of the token→expert relation: gather each slot's token
+    row and scale it by the slot's gate (the join's select clause), the
+    gate cast to x's type before the product."""
+    return x[sort_idx.long()] * gates[:, None].to(x.dtype)
+
+
+def moe_combine(expert_out: torch.Tensor, row_ids: torch.Tensor,
+                n_tokens: int) -> torch.Tensor:
+    """Combine side: group the relation by destination token and sum, in
+    float32, cast back to the input's type (relational_matmul's
+    aggregation with the values already applied)."""
+    out = torch.zeros((n_tokens, expert_out.shape[1]), dtype=torch.float32,
+                      device=expert_out.device)
+    rows = row_ids.long()
+    live = (rows >= 0) & (rows < n_tokens)         # segment_sum drops the rest
+    out.index_add_(0, rows[live], expert_out[live].to(torch.float32))
+    return out.to(expert_out.dtype)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True, scale: float | None = None
                     ) -> torch.Tensor:
-    """Dense-softmax attention. q: (B, Hq, S, D); k/v: (B, Hkv, S, D) with
-    Hq a multiple of Hkv (GQA: K/V repeated per query-head group)."""
+    """Dense-softmax attention. q: (B, Hq, S, D); k: (B, Hkv, S, D); v:
+    (B, Hkv, S, Dv) with Hq a multiple of Hkv (GQA: K/V repeated per
+    query-head group); the scale defaults to D ** -0.5 (q's head dim)."""
     b, hq, s, d = q.shape
     group = hq // k.shape[1]
     if scale is None:

@@ -11,8 +11,9 @@ Conventions, as in the JAX package:
     normalisation statistics and losses are f32.
 
 Full-sequence attention (``attend_flash``) is the ``flash_attention``
-kernel on the card (``kernels.ops``); the decode path's ``attend`` over a
-cache is plain PyTorch, as the JAX package's is plain jnp.
+kernel on the card (``kernels.ops``), MLA's prefill included; the decode
+path's ``attend`` over a cache is plain PyTorch, as the JAX package's is
+plain jnp.
 """
 from __future__ import annotations
 
@@ -209,8 +210,8 @@ def attend_flash(q, k, v, causal: bool = True):
 
     Same function as the JAX package's online-softmax ``attend_flash``
     (and the dense ``attend`` it falls back to for a ragged S): GQA
-    softmax attention with scale d_head**-0.5 over as many keys as
-    queries.  The kernel tiles by itself and takes any S, so the JAX
+    softmax attention with scale d_head**-0.5 (q's head dim; v's may be
+    narrower, as MLA's is) over as many keys as queries.  The kernel tiles by itself and takes any S, so the JAX
     version's ``chunk`` has no counterpart; its ``bf16_scores`` waits for
     the kernel's tensor-core rewrite.
     """
@@ -220,3 +221,42 @@ def attend_flash(q, k, v, causal: bool = True):
 def merge_heads(x):
     b, h, s, dh = x.shape
     return x.transpose(1, 2).reshape(b, s, h * dh)
+
+
+# ---------------------------------------------------------------------------
+# MLA — DeepSeek-V2 multi-head latent attention (kv_lora compression)
+# ---------------------------------------------------------------------------
+
+def mla_init(gen: torch.Generator, d: int, n_heads: int, kv_lora: int,
+             d_nope: int, d_rope: int, d_v: int, lead=()):
+    return {
+        "wq": dense_init(gen, (*lead, d, n_heads * (d_nope + d_rope))),
+        "wkv_a": dense_init(gen, (*lead, d, kv_lora)),         # compress
+        "kv_a_norm": rmsnorm_init(kv_lora, lead, gen.device),
+        "wk_b": dense_init(gen, (*lead, kv_lora, n_heads * d_nope)),
+        "wv_b": dense_init(gen, (*lead, kv_lora, n_heads * d_v)),
+        "wk_rope": dense_init(gen, (*lead, d, d_rope)),        # shared rope key
+        "wo": dense_init(gen, (*lead, n_heads * d_v, d)),
+    }
+
+
+def mla_qkv(p, x, n_heads: int, d_nope: int, d_rope: int, d_v: int,
+            cos, sin):
+    """Returns q (B,H,S,d_nope+d_rope), k (same), v (B,H,S,d_v) and the
+    latent c_kv (B,S,kv_lora).
+
+    The latent and the shared k_rope (B,S,d_rope) are what the serving
+    cache stores; here they expand to full heads for the attention product
+    (the decode step attends in the latent space instead)."""
+    b, s, _ = x.shape
+    q = (x @ cdt(p["wq"])).reshape(b, s, n_heads, d_nope + d_rope)
+    q = q.transpose(1, 2)
+    q = torch.cat([q[..., :d_nope], apply_rope(q[..., d_nope:], cos, sin)],
+                  dim=-1)
+    c_kv = rmsnorm(p["kv_a_norm"], x @ cdt(p["wkv_a"]))
+    k_nope = (c_kv @ cdt(p["wk_b"])).reshape(b, s, n_heads, d_nope)
+    k_rope = apply_rope((x @ cdt(p["wk_rope"]))[:, None], cos, sin)
+    k = torch.cat([k_nope.transpose(1, 2),
+                   k_rope.expand(b, n_heads, s, d_rope)], dim=-1)
+    v = (c_kv @ cdt(p["wv_b"])).reshape(b, s, n_heads, d_v).transpose(1, 2)
+    return q, k, v, c_kv

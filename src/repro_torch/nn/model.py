@@ -2,6 +2,8 @@
 families:
 
   dense   — llama-style GQA + SwiGLU (yi, qwen3, qwen2.5, granite)
+  moe     — GQA or MLA attention + routed experts (dbrx, deepseek-v2-lite);
+            leading dense-FFN layers live under ``params["prologue"]``
   vlm     — dense backbone, stub vision frontend feeds embeddings (internvl2)
   audio   — MHA + LayerNorm + GELU over stub EnCodec frame embeds (musicgen)
   ssm     — RWKV-6 time mix + channel mix, no attention (rwkv6)
@@ -19,12 +21,17 @@ Entry points:
   decode_step(params, batch, cache, pos) → (logits, cache)   [ssm: rwkv6_scan]
 
 Full-sequence attention (``forward``, ``prefill``) goes through the
-``flash_attention`` kernel on the card, one launch per layer; the decode
-step attends over the cache in plain PyTorch.  The ssm family's time mix
+``flash_attention`` kernel on the card, one launch per layer (MLA's too,
+with q/k of head dim d_nope + d_rope and v of d_v); the decode step
+attends over the cache in plain PyTorch (MLA's in the compressed latent
+space, the absorbed-matmul form, in float32).  The ssm family's time mix
 goes through the ``rwkv6_scan`` kernel in every layer, in prefill and in
-each decode step.  ``decode_step`` writes the step's K/V, or the ssm
-family's new states, into ``cache`` in place (the JAX version returns a
-new cache), so serving holds one cache, not two.
+each decode step.  The moe family's routed experts go through
+``nn/moe.py``: with ``impl="sort"``, ``moe_dispatch`` and
+``relational_matmul`` once each per MoE layer, in prefill and in each
+decode step.  ``decode_step`` writes the step's K/V (MLA: latent and
+rope key), or the ssm family's new states, into ``cache`` in place (the
+JAX version returns a new cache), so serving holds one cache, not two.
 """
 from __future__ import annotations
 
@@ -35,12 +42,11 @@ import torch
 from ..configs.base import ArchConfig
 from ..device import resolve
 from . import layers as L
+from . import moe as M
 from . import ssm as S
 
 #: what this slice leaves out, and the ROADMAP.md item that brings it
 _LATER = {
-    "moe": "family 'moe' (routed experts, MLA) comes with the MoE slice "
-           "(ROADMAP.md queue 1, item 13, and queue 2, kernel 4)",
     "hybrid": "family 'hybrid' (Mamba-2 + shared attention) comes with "
               "the Mamba-2 slice (ROADMAP.md queue 1, item 14)",
     "attn_impl": "attn_impl={!r}: only 'flash' is ported; the chunked "
@@ -52,6 +58,15 @@ _LATER = {
                         "kernel's tensor-core rewrite (ROADMAP.md queue 2, "
                         "kernel 5 follow-on)",
 }
+
+
+def _moe_cfg(cfg: ArchConfig) -> M.MoEConfig:
+    m = cfg.moe
+    return M.MoEConfig(
+        n_experts=m.n_experts, top_k=m.top_k, d_model=cfg.d_model,
+        d_ff=m.d_ff_expert, n_shared=m.n_shared,
+        capacity_factor=m.capacity_factor,
+        router_softmax=m.router_softmax, impl=m.impl)
 
 
 def _index(tree, i: int):
@@ -67,7 +82,7 @@ def _depth(tree) -> int:
 
 class LM:
     def __init__(self, cfg: ArchConfig, device="cuda"):
-        if cfg.family not in ("dense", "vlm", "audio", "ssm"):
+        if cfg.family not in ("dense", "moe", "vlm", "audio", "ssm"):
             raise NotImplementedError(_LATER[cfg.family])
         if cfg.attn_impl != "flash":
             raise NotImplementedError(_LATER["attn_impl"].format(
@@ -93,7 +108,9 @@ class LM:
             raise ValueError(f"generator on {generator.device}, model on "
                              f"{self.device}")
         cfg = self.cfg
-        d, v, n = cfg.d_model, cfg.vocab, cfg.n_layers
+        d, v = cfg.d_model, cfg.vocab
+        n_dense = cfg.moe.first_k_dense if cfg.moe else 0
+        n = cfg.n_layers - n_dense
         layers: dict[str, Any] = {
             "norm1": self._norm_init(d, (n,)),
             "norm2": self._norm_init(d, (n,)),
@@ -104,13 +121,16 @@ class LM:
             layers["cmix"] = S.rwkv6_channel_mix_init(generator, d, cfg.d_ff,
                                                       lead=(n,))
         else:
-            layers["attn"] = L.gqa_init(
-                generator, d, cfg.n_heads, cfg.n_kv_heads, cfg.d_head,
-                qkv_bias=cfg.qkv_bias, qk_norm=cfg.qk_norm, lead=(n,))
-            layers["mlp"] = (
-                L.swiglu_init(generator, d, cfg.d_ff, lead=(n,))
-                if cfg.mlp == "swiglu"
-                else L.gelu_mlp_init(generator, d, cfg.d_ff, lead=(n,)))
+            layers["attn"] = self._attn_init(generator, (n,))
+            if cfg.family == "moe":
+                layers["moe"] = M.init_moe(generator, _moe_cfg(cfg),
+                                           lead=(n,))
+            elif cfg.mlp == "swiglu":
+                layers["mlp"] = L.swiglu_init(generator, d, cfg.d_ff,
+                                              lead=(n,))
+            else:
+                layers["mlp"] = L.gelu_mlp_init(generator, d, cfg.d_ff,
+                                                lead=(n,))
         params: dict[str, Any] = {
             "embed": L.dense_init(generator, (v, d), scale=0.02),
             "layers": layers,
@@ -118,11 +138,31 @@ class LM:
         }
         if not cfg.tie_embeddings:
             params["lm_head"] = L.dense_init(generator, (d, v))
+        if n_dense:
+            # the leading dense-FFN layers (DeepSeek); their GQA attention,
+            # if any, without bias or qk-norm, as the JAX init has it
+            params["prologue"] = {
+                "norm1": self._norm_init(d, (n_dense,)),
+                "norm2": self._norm_init(d, (n_dense,)),
+                "attn": self._attn_init(generator, (n_dense,), plain=True),
+                "mlp": L.swiglu_init(generator, d, cfg.moe.d_ff_dense,
+                                     lead=(n_dense,)),
+            }
         if cfg.param_dtype == "bfloat16":
             params = _map(lambda a: a.to(torch.bfloat16)
                           if a.dim() >= 2 and a.dtype == torch.float32
                           else a, params)
         return params
+
+    def _attn_init(self, generator, lead, plain: bool = False):
+        cfg = self.cfg
+        if cfg.mla is not None:
+            m = cfg.mla
+            return L.mla_init(generator, cfg.d_model, cfg.n_heads, m.kv_lora,
+                              m.d_nope, m.d_rope, m.d_v, lead=lead)
+        return L.gqa_init(generator, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                          cfg.d_head, qkv_bias=cfg.qkv_bias and not plain,
+                          qk_norm=cfg.qk_norm and not plain, lead=lead)
 
     @property
     def _ssm_heads(self) -> int:
@@ -158,9 +198,20 @@ class LM:
 
     # ------------------------------------------------------ layer-stack body
     def _attn_block(self, p, x, cos, sin, cache=None, pos=None):
-        """Returns (out, kv): this call's K/V (full sequence) or the cache
-        with this step's K/V written at ``pos`` (decode)."""
+        """Returns (out, kv): this call's K/V (full sequence; MLA: the
+        latent c_kv and the rope key) or the cache with this step's
+        entries written at ``pos`` (decode)."""
         cfg = self.cfg
+        if cfg.mla is not None:
+            if cache is not None:
+                return self._mla_attn_decode(p, x, cos, sin, cache, pos)
+            m = cfg.mla
+            q, k, v, c_kv = L.mla_qkv(p, x, cfg.n_heads, m.d_nope, m.d_rope,
+                                      m.d_v, cos, sin)
+            o = L.attend_flash(q, k, v)
+            # every head's rope key is the shared one
+            k_rope = k[:, 0, :, m.d_nope:].contiguous()
+            return L.merge_heads(o) @ L.cdt(p["wo"]), (c_kv, k_rope)
         q, k, v = L.gqa_project_qkv(p, x, cfg.n_heads, cfg.n_kv_heads,
                                     cfg.d_head, cos, sin)
         if cache is None:
@@ -176,6 +227,43 @@ class LM:
         o = L.attend(q, ck.to(q.dtype), cv.to(q.dtype), causal=False,
                      kv_len_mask=valid.expand(x.shape[0], ck.shape[2]))
         return L.merge_heads(o) @ L.cdt(p["wo"]), (ck, cv)
+
+    def _mla_attn_decode(self, p, x, cos, sin, cache, pos):
+        """Absorbed-matmul MLA decode: attend in the compressed latent
+        space, in float32.  The cache holds (c_kv (B,S,kv_lora), k_rope
+        (B,S,d_rope)) only, the MLA memory saving; this step's entries are
+        written at ``pos`` in place."""
+        cfg, m = self.cfg, self.cfg.mla
+        b, s, _ = x.shape
+        f32 = torch.float32
+        q = (x @ L.cdt(p["wq"])).reshape(b, s, cfg.n_heads,
+                                         m.d_nope + m.d_rope).transpose(1, 2)
+        q_nope = q[..., :m.d_nope]
+        q_rope = L.apply_rope(q[..., m.d_nope:], cos, sin)
+        c_kv_t = L.rmsnorm(p["kv_a_norm"], x @ L.cdt(p["wkv_a"]))
+        k_rope_t = L.apply_rope((x @ L.cdt(p["wk_rope"]))[:, None], cos,
+                                sin)[:, 0]
+        ckv, krope = cache
+        at = min(max(pos, 0), ckv.shape[1] - s)
+        ckv[:, at:at + s] = c_kv_t.to(ckv.dtype)
+        krope[:, at:at + s] = k_rope_t.to(krope.dtype)
+        # q_abs (B,H,kv_lora) = q_nope · wk_bᵀ, so the product with the
+        # cache runs in the latent space
+        wk_b = p["wk_b"].reshape(m.kv_lora, cfg.n_heads, m.d_nope)
+        q_abs = torch.einsum("bhd,chd->bhc", q_nope[:, :, 0].to(f32),
+                             wk_b.to(f32))
+        logits = (torch.einsum("bhc,bsc->bhs", q_abs, ckv.to(f32))
+                  + torch.einsum("bhr,bsr->bhs", q_rope[:, :, 0].to(f32),
+                                 krope.to(f32)))
+        logits = logits * ((m.d_nope + m.d_rope) ** -0.5)
+        valid = (torch.arange(ckv.shape[1], device=x.device) <= pos)
+        logits = torch.where(valid[None, None], logits, -1e30)
+        probs = torch.softmax(logits, dim=-1)
+        lat = torch.einsum("bhs,bsc->bhc", probs, ckv.to(f32))
+        wv_b = p["wv_b"].reshape(m.kv_lora, cfg.n_heads, m.d_v)
+        o = torch.einsum("bhc,chd->bhd", lat, wv_b.to(f32))
+        o = o.reshape(b, 1, cfg.n_heads * m.d_v).to(x.dtype)
+        return o @ L.cdt(p["wo"]), (ckv, krope)
 
     def _block(self, p, x, cos, sin, cache=None, pos=None):
         """One transformer block. Returns (x, aux_loss, new_cache)."""
@@ -196,8 +284,14 @@ class LM:
                                         cos, sin, cache=cache, pos=pos)
         x = x + attn_out
         h = norm(p["norm2"], x)
-        x = x + (L.swiglu(p["mlp"], h) if cfg.mlp == "swiglu"
-                 else L.gelu_mlp(p["mlp"], h))
+        if "moe" in p:
+            b, s, d = h.shape
+            out, aux = M.moe_ffn(p["moe"], h.reshape(b * s, d),
+                                 _moe_cfg(cfg))
+            x = x + out.reshape(b, s, d)
+        else:
+            x = x + (L.swiglu(p["mlp"], h) if cfg.mlp == "swiglu"
+                     else L.gelu_mlp(p["mlp"], h))
         return x, aux, kv
 
     def _scan(self, body, carry, stacked, *per_layer):
@@ -212,10 +306,21 @@ class LM:
         return carry, ys
 
     # ------------------------------------------------------------- forward
+    def _rope_dim(self) -> int:
+        """MLA ropes only its d_rope slice of each head."""
+        cfg = self.cfg
+        return cfg.mla.d_rope if cfg.mla is not None else cfg.d_head
+
     def _rope(self, s: int, device):
         cfg = self.cfg
-        return (L.rope_table(s, cfg.d_head, cfg.rope_theta, device=device)
+        return (L.rope_table(s, self._rope_dim(), cfg.rope_theta,
+                             device=device)
                 if cfg.rope else (None, None))
+
+    def _stacks(self, params) -> list[str]:
+        """The stacked layer trees in order: the dense-FFN prologue, if
+        any, then the layers."""
+        return [k for k in ("prologue", "layers") if k in params]
 
     def backbone(self, params, batch):
         """Full-sequence forward up to (but excluding) the LM head.
@@ -228,9 +333,10 @@ class LM:
             out, a, _ = self._block(lp, xx, cos, sin)
             return (out, aux + a), None
 
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        (x, aux), _ = self._scan(body, (x, aux), params["layers"])
-        return x, aux
+        carry = (x, torch.zeros((), dtype=torch.float32, device=x.device))
+        for stack in self._stacks(params):
+            carry, _ = self._scan(body, carry, params[stack])
+        return carry
 
     def forward(self, params, batch):
         """Full-sequence forward → (logits (B,S,V), aux_loss)."""
@@ -239,9 +345,12 @@ class LM:
 
     # ------------------------------------------------------------- serving
     def init_cache(self, batch_size: int, max_len: int):
-        """dense/vlm/audio: (K, V), each (L, B, Hkv, max_len, dh) in the
-        compute type; ssm: ((x_prev (L,B,1,d), S (L,B,H,N,N)), cm_prev
-        (L,B,1,d)) in float32, whatever ``max_len``."""
+        """dense/vlm/audio and GQA moe: (K, V), each (L, B, Hkv, max_len,
+        dh) in the compute type; MLA: (c_kv (L,B,max_len,kv_lora), k_rope
+        (L,B,max_len,d_rope)) in the compute type, as (prologue's, layers')
+        where a dense-FFN prologue leads; ssm: ((x_prev (L,B,1,d), S
+        (L,B,H,N,N)), cm_prev (L,B,1,d)) in float32, whatever
+        ``max_len``."""
         cfg = self.cfg
         if cfg.family == "ssm":
             n = cfg.ssm.head_dim
@@ -250,10 +359,16 @@ class LM:
             return ((z(cfg.n_layers, batch_size, 1, cfg.d_model),
                      z(cfg.n_layers, batch_size, self._ssm_heads, n, n)),
                     z(cfg.n_layers, batch_size, 1, cfg.d_model))
-        shape = (cfg.n_layers, batch_size, cfg.n_kv_heads, max_len,
-                 cfg.d_head)
-        return (torch.zeros(shape, dtype=L.COMPUTE_DTYPE, device=self.device),
-                torch.zeros(shape, dtype=L.COMPUTE_DTYPE, device=self.device))
+        z = lambda *s: torch.zeros(s, dtype=L.COMPUTE_DTYPE,
+                                   device=self.device)
+        n_dense = cfg.moe.first_k_dense if cfg.moe else 0
+        ls = cfg.n_layers - n_dense
+        if cfg.mla is not None:
+            lat = lambda n: (z(n, batch_size, max_len, cfg.mla.kv_lora),
+                             z(n, batch_size, max_len, cfg.mla.d_rope))
+            return (lat(n_dense), lat(ls)) if n_dense else lat(ls)
+        shape = (ls, batch_size, cfg.n_kv_heads, max_len, cfg.d_head)
+        return (z(*shape), z(*shape))
 
     def decode_step(self, params, batch, cache, pos: int):
         """One token for every sequence. batch: {"tokens": (B,1)} or
@@ -265,15 +380,16 @@ class LM:
             return self._decode_ssm(params, x, cache)
         cos, sin = self._rope_at(pos, x.device) if self.cfg.rope \
             else (None, None)
-        ck, cv = cache
 
-        def body(carry, lp, k_l, v_l):
-            out, _, _ = self._block(lp, carry, cos, sin, cache=(k_l, v_l),
+        def body(carry, lp, *kv_l):
+            out, _, _ = self._block(lp, carry, cos, sin, cache=kv_l,
                                     pos=pos)
             return out, None
 
-        x, _ = self._scan(body, x, params["layers"], ck, cv)
-        return self.unembed(params, x), (ck, cv)
+        caches = cache if "prologue" in params else (cache,)
+        for stack, kv in zip(self._stacks(params), caches, strict=True):
+            x, _ = self._scan(body, x, params[stack], *kv)
+        return self.unembed(params, x), cache
 
     def _decode_ssm(self, params, x, cache):
         (xp, st), cm = cache
@@ -304,7 +420,7 @@ class LM:
         return x
 
     def _rope_at(self, pos: int, device):
-        dim = self.cfg.d_head
+        dim = self._rope_dim()
         inv = 1.0 / (self.cfg.rope_theta ** (
             torch.arange(0, dim, 2, dtype=torch.float32, device=device)
             / dim))
@@ -313,9 +429,10 @@ class LM:
 
     def prefill(self, params, batch):
         """Full-context forward that also materialises the decode cache.
-        Returns (last-position logits, cache): (K, V), each
-        (L,B,Hkv,S,dh), or the ssm family's states in ``init_cache``'s
-        shapes."""
+        Returns (last-position logits, cache) in ``init_cache``'s layout:
+        (K, V), each (L,B,Hkv,S,dh); MLA's latent caches, each (L,B,S,.),
+        as (prologue's, layers') where a prologue leads; or the ssm
+        family's states."""
         x = self.embed_inputs(params, batch)
         cos, sin = self._rope(x.shape[1], x.device)
 
@@ -323,8 +440,12 @@ class LM:
             out, _, kv = self._block(lp, carry, cos, sin)
             return out, kv
 
-        x, states = self._scan(body, x, params["layers"])
-        return self.unembed(params, x[:, -1:]), _stack(states)
+        caches = []
+        for stack in self._stacks(params):
+            x, states = self._scan(body, x, params[stack])
+            caches.append(_stack(states))
+        cache = tuple(caches) if "prologue" in params else caches[0]
+        return self.unembed(params, x[:, -1:]), cache
 
 
 def _stack(trees: list):

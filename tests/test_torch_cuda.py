@@ -16,6 +16,7 @@ import torch
 from repro_torch.core.relational import RelTensor
 from repro_torch.kernels import flash_attention as flash_mod
 from repro_torch.kernels import fused_sigmoid_matmul as fsm_mod
+from repro_torch.kernels import moe_dispatch as moe_mod
 from repro_torch.kernels import onehot_embed as embed_mod
 from repro_torch.kernels import ops
 from repro_torch.kernels import relational_matmul as relmm_mod
@@ -45,19 +46,27 @@ def rnd(rng, *shape, device, dtype=torch.float32):
 @pytest.mark.parametrize("m,k,n", [(8, 16, 128), (12, 16, 384), (50, 30, 10),
                                    (200, 784, 200)])
 def test_relational_matmul_kernel(cuda, m, k, n):
+    """Held against the plain version in float64: a float32 oracle sums up
+    to 784 products with ``index_add_``'s atomics, in an order that changes
+    from run to run, so where they cancel to near 0 its own rounding can
+    exceed the float32 tolerance."""
     rng = np.random.RandomState(m)
     rel = RelTensor.from_dense(rnd(rng, m, k, device=cuda))
     b = rnd(rng, k, n, device=cuda)
+
+    def oracle(r, rhs, rows):
+        return relmm_mod.plain(r.i, r.j, r.v.double(), rhs.double(),
+                               rows).float()
+
     before = relmm_mod.relational_matmul.launches
     got = ops.relational_matmul(rel.i, rel.j, rel.v, b, m)
     assert relmm_mod.relational_matmul.launches == before + 1
-    torch.testing.assert_close(got, relmm_mod.plain(rel.i, rel.j, rel.v, b, m),
-                               **F32)
+    torch.testing.assert_close(got, oracle(rel, b, m), **F32)
     rel_t = rel.transpose()                     # the backward layout
     c = rnd(rng, m, n, device=cuda)
     torch.testing.assert_close(
         ops.relational_matmul(rel_t.i, rel_t.j, rel_t.v, c, k),
-        relmm_mod.plain(rel_t.i, rel_t.j, rel_t.v, c, k), **F32)
+        oracle(rel_t, c, k), **F32)
 
 
 @pytest.mark.parametrize("nnz,pad", [(32, 0), (48, 16), (8, 56)])
@@ -140,6 +149,27 @@ def test_flash_attention_kernel(cuda, b, hq, hkv, s, d, causal, dtype):
         **(F32 if dtype == torch.float32 else BF16))
 
 
+@pytest.mark.parametrize("b,hq,hkv,s,d,dv", [(1, 4, 4, 77, 64, 32),
+                                            (2, 4, 2, 130, 128, 64),
+                                            (1, 4, 4, 100, 192, 128),
+                                            (1, 2, 2, 65, 192, 32),
+                                            (2, 4, 4, 2000, 192, 128)])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_v_head_dim(cuda, b, hq, hkv, s, d, dv, causal,
+                                           dtype):
+    """v narrower than q/k (MLA: 192 / 128), ragged S; scale D ** -0.5."""
+    rng = np.random.RandomState(s + d + dv)
+    q = rnd(rng, b, hq, s, d, device=cuda, dtype=dtype)
+    k = rnd(rng, b, hkv, s, d, device=cuda, dtype=dtype)
+    v = rnd(rng, b, hkv, s, dv, device=cuda, dtype=dtype)
+    got = ops.flash_attention(q, k, v, causal=causal)
+    assert got.dtype == dtype and got.shape == (b, hq, s, dv)
+    torch.testing.assert_close(
+        got.float(), flash_mod.plain(q, k, v, causal=causal).float(),
+        **(F32 if dtype == torch.float32 else BF16))
+
+
 def test_flash_attention_kernel_takes_head_split_views(cuda):
     """The model hands over (B, S, H, D) projections viewed as (B, H, S, D)."""
     rng = np.random.RandomState(0)
@@ -154,6 +184,53 @@ def test_flash_attention_kernel_refuses_other_head_dims(cuda):
     q = torch.zeros(1, 2, 8, 48, device=cuda)
     with pytest.raises(ValueError, match="head dim"):
         flash_mod.flash_attention(q, q, q)
+
+
+@pytest.mark.parametrize("t,slots,d", [(32, 64, 64), (64, 96, 128),
+                                      (8000, 60416, 2048)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_dispatch_kernel(cuda, t, slots, d, dtype):
+    """tests/test_kernels.py's shapes and DeepSeek-V2-Lite's prefill bucket
+    fill (8000 tokens into 64 x 944 slots), equal bit for bit."""
+    rng = np.random.RandomState(t)
+    x = rnd(rng, t, d, device=cuda, dtype=dtype)
+    idx = torch.tensor(rng.randint(0, t, slots), dtype=torch.int32,
+                       device=cuda)
+    gates = torch.tensor(rng.rand(slots), dtype=torch.float32, device=cuda)
+    gates[::7] = 0.0                            # the empty slots' gate
+    before = moe_mod.moe_dispatch.launches
+    got = ops.moe_dispatch(x, idx, gates)
+    assert moe_mod.moe_dispatch.launches == before + 1
+    assert got.dtype == dtype and got.shape == (slots, d)
+    assert torch.equal(got, moe_mod.plain(x, idx, gates))
+
+
+def test_moe_dispatch_kernel_refusals(cuda):
+    x = torch.ones(4, 16, device=cuda)
+    gates = torch.ones(3, device=cuda)
+    with pytest.raises(ValueError, match="outside"):
+        moe_mod.moe_dispatch(x, torch.tensor([0, 4, 1], dtype=torch.int32,
+                                             device=cuda), gates)
+    with pytest.raises(ValueError, match="outside"):
+        moe_mod.moe_dispatch(x, torch.tensor([0, -1, 1], dtype=torch.int32,
+                                             device=cuda), gates)
+    idx = torch.zeros(3, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        moe_mod.moe_dispatch(torch.ones(4, 12, device=cuda), idx, gates)
+    with pytest.raises(TypeError):
+        moe_mod.moe_dispatch(x.double(), idx, gates)
+    assert moe_mod.moe_dispatch(x, idx[:0], gates[:0]).shape == (0, 16)
+
+
+def test_moe_combine_on_the_card_is_the_plain_version(cuda):
+    rng = np.random.RandomState(9)
+    ys = rnd(rng, 40, 64, device=cuda)
+    rows = torch.tensor(np.sort(rng.randint(0, 12, 40)), dtype=torch.int32,
+                        device=cuda)
+    before = relmm_mod.relational_matmul.launches
+    got = ops.moe_combine(ys, rows, 12)
+    assert relmm_mod.relational_matmul.launches == before + 1
+    torch.testing.assert_close(got, ops.ref.moe_combine(ys, rows, 12), **F32)
 
 
 def scan_inputs(rng, lead, s, n, device):

@@ -39,6 +39,7 @@ def test_the_port_has_modules():
             "repro_torch/kernels/flash_attention.py",
             "repro_torch/nn/layers.py", "repro_torch/nn/model.py",
             "repro_torch/nn/ssm.py", "repro_torch/kernels/rwkv6_scan.py",
+            "repro_torch/nn/moe.py", "repro_torch/kernels/moe_dispatch.py",
             "repro_torch/serving/engine.py",
             "repro_torch/launch/serve.py"} <= names
 

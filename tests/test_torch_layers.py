@@ -237,3 +237,60 @@ def test_flash_on_the_cpu_is_the_plain_version_and_counts_no_launch():
     assert flash_mod.flash_attention.launches == before
     with pytest.raises(ValueError):       # the kernel itself takes no CPU
         flash_mod.flash_attention(tq, tk, tv)
+
+
+# ---------------------------------------------------------------------------
+# MLA: projections, and full-sequence attention with v narrower than q/k
+# ---------------------------------------------------------------------------
+
+MLA_DIMS = [(4, 32, 16, 8, 16), (2, 64, 128, 64, 128)]   # H, lora, nope, rope, v
+
+
+@pytest.mark.parametrize("h,lora,nope,rope,dv", MLA_DIMS)
+def test_mla_qkv(compute, h, lora, nope, rope, dv):
+    """q, k (B,H,S,nope+rope), v (B,H,S,dv) and the latent c_kv; the
+    reduced DeepSeek-V2-Lite's widths and the full ones' head dims."""
+    rng = np.random.RandomState(h + lora)
+    jp = JL.mla_init(jax.random.PRNGKey(2), 48, h, lora, nope, rope, dv)
+    jp = dict(jp, kv_a_norm={"w": jnp.asarray(rng.rand(lora) + 0.5,
+                                              jnp.float32)})
+    jx, tx = pair(rng, (2, 6, 48), compute)
+    jcos, jsin = JL.rope_table(6, rope, 1e4)
+    cos, sin = TL.rope_table(6, rope, 1e4)
+    got = TL.mla_qkv(params_of(jp), tx, h, nope, rope, dv, cos, sin)
+    want = JL.mla_qkv(jp, jx, h, nope, rope, dv, jcos, jsin)
+    for t, j, shape in zip(got, want, [(2, h, 6, nope + rope),
+                                       (2, h, 6, nope + rope),
+                                       (2, h, 6, dv), (2, 6, lora)]):
+        assert tuple(t.shape) == shape and t.dtype == tx.dtype
+        close(t, j, DTYPES[compute][2])
+
+
+def test_mla_init_has_the_jax_structure():
+    t = TL.mla_init(torch.Generator().manual_seed(0), 48, 4, 32, 16, 8, 16,
+                    lead=(3,))
+    j = JL.mla_init(jax.random.PRNGKey(0), 48, 4, 32, 16, 8, 16)
+    assert set(t) == set(j)
+    for name, leaf in t.items():
+        jleaf = j[name]["w"] if isinstance(leaf, dict) else j[name]
+        tleaf = leaf["w"] if isinstance(leaf, dict) else leaf
+        assert tuple(tleaf.shape) == (3,) + tuple(jleaf.shape), name
+
+
+@pytest.mark.parametrize("b,h,s,d,dv,chunk", [(2, 4, 256, 24, 16, 128),
+                                              (1, 2, 128, 192, 128, 64),
+                                              (2, 2, 77, 64, 32, 64)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_attend_flash_with_a_narrower_v(b, h, s, d, dv, chunk, dtype):
+    """MLA's attention: q/k of head dim d, v of dv < d, scale d ** -0.5,
+    against the JAX attend_flash (online softmax; dense attend at a
+    ragged S) and the JAX oracle."""
+    rng = np.random.RandomState(d + dv)
+    jq, tq = pair(rng, (b, h, s, d), dtype)
+    jk, tk = pair(rng, (b, h, s, d), dtype)
+    jv, tv = pair(rng, (b, h, s, dv), dtype)
+    got = TL.attend_flash(tq, tk, tv)
+    assert got.shape == (b, h, s, dv) and got.dtype == tq.dtype
+    tol = DTYPES[dtype][2]
+    close(got, JL.attend_flash(jq, jk, jv, chunk=chunk), tol)
+    close(got, jref.flash_attention(jq, jk, jv, causal=True), tol)

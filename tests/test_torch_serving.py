@@ -64,15 +64,22 @@ def requests(cls, vocab):
                 max_new_tokens=3 + uid) for uid in range(4)]
 
 
-def run_both(monkeypatch, tracers=(None, None), arch="yi_6b"):
-    """The JAX and the port engine, float32 compute, reduced ``arch`` with
-    the JAX init's weights, 2 slots, 4 requests; returns both finished
-    lists."""
+def run_both(monkeypatch, tracers=(None, None), arch="yi_6b", moe_impl=None):
+    """The JAX and the port engine, float32 compute, reduced ``arch`` (with
+    its MoE impl set to ``moe_impl``, if given) with the JAX init's
+    weights, 2 slots, 4 requests; returns both finished lists."""
     monkeypatch.setattr(JL, "COMPUTE_DTYPE", jnp.float32)
     monkeypatch.setattr(TL, "COMPUTE_DTYPE", torch.float32)
-    jlm = JLM(jget_config(arch, reduced=True))
+
+    def cfg(c):
+        if moe_impl is None:
+            return c
+        return dataclasses.replace(c, moe=dataclasses.replace(c.moe,
+                                                              impl=moe_impl))
+
+    jlm = JLM(cfg(jget_config(arch, reduced=True)))
     jp = jax.jit(jlm.init)(jax.random.PRNGKey(0))
-    lm = LM(get_config(arch, reduced=True), device="cpu")
+    lm = LM(cfg(get_config(arch, reduced=True)), device="cpu")
     out = []
     for eng, req in [
             (JServingEngine(jlm, jp, max_len=32, batch_slots=2), JRequest),
@@ -98,6 +105,17 @@ def test_rwkv6_engine_emits_the_jax_engines_tokens(monkeypatch):
     ``decode_step`` (and so advances every other slot's state) and never
     resets a freed slot's state is the reference's, kept as it is."""
     jdone, tdone = run_both(monkeypatch, arch="rwkv6_7b")
+    assert [r.uid for r in tdone] == [r.uid for r in jdone]
+    for j, t in zip(jdone, tdone):
+        assert t.generated == [int(x) for x in j.generated], t.uid
+
+
+@pytest.mark.parametrize("arch", ["deepseek_v2_lite_16b", "dbrx_132b"])
+def test_moe_engine_emits_the_jax_engines_tokens(monkeypatch, arch):
+    """The moe family with the relational (sort) MoE through both engines,
+    token for token: MLA's latent cache (DeepSeek-V2-Lite, with its dense
+    prologue layer) and GQA's (DBRX)."""
+    jdone, tdone = run_both(monkeypatch, arch=arch, moe_impl="sort")
     assert [r.uid for r in tdone] == [r.uid for r in jdone]
     for j, t in zip(jdone, tdone):
         assert t.generated == [int(x) for x in j.generated], t.uid
@@ -166,6 +184,17 @@ def test_serve_launcher_serves_rwkv6_on_the_cpu(capsys):
     assert all(len(r.generated) == 4 for r in done)
     assert "rwkv6-reduced on cpu: 3 requests, 12 tokens" in \
         capsys.readouterr().out
+
+
+@pytest.mark.parametrize("arch,name", [
+    ("deepseek_v2_lite_16b", "deepseek-v2-lite-reduced"),
+    ("dbrx_132b", "dbrx-reduced")])
+def test_serve_launcher_serves_moe_on_the_cpu(capsys, arch, name):
+    done = serve.main(["--arch", arch, "--reduced", "--device", "cpu",
+                       "--requests", "3", "--slots", "2", "--max-new", "4"])
+    assert sorted(r.uid for r in done) == [0, 1, 2]
+    assert all(len(r.generated) == 4 for r in done)
+    assert f"{name} on cpu: 3 requests, 12 tokens" in capsys.readouterr().out
 
 
 def test_serve_launcher_defaults_to_the_card():
