@@ -9,10 +9,13 @@ Phases (any failure exits non-zero; nothing is caught and carried on past):
            sm_90a (one nvcc per source, in parallel) and print ptxas's report;
 2. kernels each kernel against its plain PyTorch version on the card, over
            the ``tests/test_kernels.py`` sweeps and the main paths' shapes
-           (flash at Yi-6B's and at MLA's),
-           with the reference's tolerances; then its time beside the plain
-           version's, one PyTorch library call's (a yardstick only) and the
-           card's bound for the same work;
+           (flash at Yi-6B's and at MLA's, bf16 also against the
+           bf16-scores plain version), with the reference's tolerances;
+           then its time beside the plain version's, one PyTorch library
+           call's (a yardstick only) and the card's bound for the same work
+           (flash: also its achieved TFLOP/s, share of the bound, ratio to
+           SDPA, the float32 kernel's time, and the HGMMA instructions in
+           the bf16 library's SASS, which must not be 0);
 3. main    the paper's pipeline at the full width of Fig. 10 (2000 rows,
            784 → 200 → 10, random weights from Listing 2's seed): one-hot
            labels, 5 training steps and inference on Engine("dense") and
@@ -351,23 +354,50 @@ def check_moe_dispatch(mod, report):
 FLASH_MAIN = (4, 32, 4, 2000, 128)      # Yi-6B prefill: B, Hq, Hkv, S, D
 # DeepSeek-V2-Lite's MLA prefill: B, H, S, Dqk (128 + 64), Dv
 FLASH_MLA = (4, 16, 2000, 192, 128)
-# bf16 at the main shape: both sides round the same float32 value to bf16,
-# so they may differ by one bf16 ulp, at most 2^-7 of the value; typical
-# outputs are about 0.05 here, so the sweep's atol 3e-2 would hide a wrong
-# row, and 1e-2 does not.
+# bf16 at the main shape: the kernel rounds P to bf16 before P V (and sums
+# the rounded P), the plain version keeps P in float32, and both round the
+# output to bf16, so they differ by P's rounding (2^-9 of each weight, which
+# averages out over 2000 keys) and by one bf16 ulp of the output, at most
+# 2^-7 of the value.  Typical outputs are about 0.05 here, so the sweep's
+# atol 3e-2 would hide a wrong row, and 1e-2 does not.
 FLASH_MAIN_BF16_TOL = dict(rtol=1e-2, atol=1e-2)
 
 
-def flash_bound(b, hq, hkv, s, d, dtype, causal=True, dv=None):
-    """Operations of the score pairs this call needs (QKᵀ over d and PV
-    over dv, 2 FLOPs a multiply-add each) and bytes of q, k, v read and out
-    written once."""
-    dv = d if dv is None else dv
+def flash_flops(b, hq, s, d, dv, causal=True):
+    """Operations of the score pairs the call needs: QKᵀ over d and PV over
+    dv, 2 FLOPs a multiply-add."""
     pairs = s * (s + 1) // 2 if causal else s * s
+    return 2 * b * hq * pairs * (d + dv)
+
+
+def flash_bound(b, hq, hkv, s, d, dtype, causal=True, dv=None):
+    """The card's least time for one call: the operations of
+    ``flash_flops`` at the type's peak, or the bytes of q, k, v read and
+    out written once."""
+    dv = d if dv is None else dv
     size = torch.tensor([], dtype=dtype).element_size()
     n_bytes = size * (b * hq * s * (d + dv) + b * hkv * s * (d + dv))
     peak = BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS
-    return bound_ms(n_bytes, 2 * b * hq * pairs * (d + dv), peak)
+    return bound_ms(n_bytes, flash_flops(b, hq, s, d, dv, causal), peak)
+
+
+def hgmma_count() -> int:
+    """HGMMA (wgmma) instructions in the SASS of the bf16 flash library."""
+    from repro_torch.kernels import build
+    cuobjdump = Path(build._nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "--dump-sass",
+                           str(build.target("flash_attention_tc"))],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    return sum("HGMMA" in line for line in sass.splitlines())
+
+
+def flash_rates(out: dict, flops: float) -> dict:
+    """Achieved TFLOP/s, share of the bound and the ratio to SDPA, from the
+    times in ``out``."""
+    return dict(tflops=flops / out["ms"] * 1e-9,
+                bound_share=out["bound_ms"] / out["ms"],
+                sdpa_ratio=out["ms"] / out["library_ms"])
 
 
 def check_flash(mod, report):
@@ -394,32 +424,52 @@ def check_flash(mod, report):
                     err32 = max(err32, e)
     # the main shape in both types: float32 (the path of phase 5 (c)'s
     # float32 check) at the tests' tolerance, bf16 tighter than the sweep's
+    # and against the bf16-scores plain version, whose numerics it has
     b, hq, hkv, s, d = FLASH_MAIN
     q, k, v = inputs(*FLASH_MAIN, torch.float32)
     err32_main = max_err(mod.flash_attention(q, k, v), mod.plain(q, k, v),
                          F32_TOL, f"flash main {FLASH_MAIN} float32 causal")
+    f32_ms = time_ms(lambda: mod.flash_attention(q, k, v), iters=5)
     q, k, v = inputs(*FLASH_MAIN, torch.bfloat16)
     err = max_err(mod.flash_attention(q, k, v), mod.plain(q, k, v),
                   FLASH_MAIN_BF16_TOL, f"flash main {FLASH_MAIN} bf16 causal")
+    err_scores = max_err(mod.flash_attention(q, k, v),
+                         mod.plain(q, k, v, bf16_scores=True),
+                         FLASH_MAIN_BF16_TOL,
+                         f"flash main {FLASH_MAIN} bf16 vs bf16 scores")
     bms, by = flash_bound(*FLASH_MAIN, torch.bfloat16)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     mla = check_flash_mla(mod, inputs, sdpa)
-    report["flash_attention"] = dict(
+    hgmma = hgmma_count()
+    log(f"flash_attention_tc SASS: {hgmma} HGMMA instructions")
+    if not hgmma:
+        raise AssertionError("the bf16 flash library has no HGMMA "
+                             "instruction: not on the tensor cores")
+    out = dict(
         name="flash_attention", route="cuda",
-        source="src/repro_torch/kernels/csrc/flash_attention.cu",
+        source="src/repro_torch/kernels/csrc/flash_attention_tc.cu",
         replaces="src/repro/kernels/flash_attention.py:69",
         max_abs_err=err,
-        ms=time_ms(lambda: mod.flash_attention(q, k, v), iters=10),
+        ms=time_ms(lambda: mod.flash_attention(q, k, v), iters=20),
         plain_ms=time_ms(lambda: mod.plain(q, k, v), iters=5),
         bound_ms=bms, bound_by=by,
         library_ms=time_ms(lambda: sdpa(q, k, v, is_causal=True,
                                         enable_gqa=True)),
         shape=f"q ({b},{hq},{s},{d}), k/v ({b},{hkv},{s},{d}) bf16 causal",
+        max_abs_err_bf16_scores=err_scores,
         max_abs_err_f32_sweep=err32, max_abs_err_f32_main=err32_main,
-        mla=mla)
+        f32_ms=f32_ms, f32_source="src/repro_torch/kernels/csrc/"
+                                  "flash_attention.cu",
+        hgmma=hgmma, mla=mla)
+    out |= flash_rates(out, flash_flops(b, hq, s, d, d))
+    report["flash_attention"] = out
     log(f"flash vs plain, max |err|: float32 sweep {err32:.3e}, float32 "
-        f"main {err32_main:.3e}, bf16 main {err:.3e} (held at "
-        f"{FLASH_MAIN_BF16_TOL})")
+        f"main {err32_main:.3e}, bf16 main {err:.3e}, bf16 main vs "
+        f"bf16-scores plain {err_scores:.3e} (held at "
+        f"{FLASH_MAIN_BF16_TOL}); Yi shape {out['ms']:.4f} ms = "
+        f"{out['tflops']:.1f} TFLOP/s, {out['bound_share']:.3f} of the "
+        f"bound, {out['sdpa_ratio']:.2f} x SDPA; float32 kernel "
+        f"{f32_ms:.4f} ms")
 
 
 def check_flash_mla(mod, inputs, sdpa):
@@ -444,22 +494,32 @@ def check_flash_mla(mod, inputs, sdpa):
     v = inputs(b, h, h, s, dv, torch.float32)[2]
     err32_main = max_err(mod.flash_attention(q, k, v), mod.plain(q, k, v),
                          F32_TOL, f"flash MLA {FLASH_MLA} float32 causal")
+    f32_ms = time_ms(lambda: mod.flash_attention(q, k, v), iters=5)
     q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
     err = max_err(mod.flash_attention(q, k, v), mod.plain(q, k, v),
                   FLASH_MAIN_BF16_TOL, f"flash MLA {FLASH_MLA} bf16 causal")
+    err_scores = max_err(mod.flash_attention(q, k, v),
+                         mod.plain(q, k, v, bf16_scores=True),
+                         FLASH_MAIN_BF16_TOL,
+                         f"flash MLA {FLASH_MLA} bf16 vs bf16 scores")
     bms, by = flash_bound(b, h, h, s, d, torch.bfloat16, dv=dv)
     out = dict(
         shape=f"q, k ({b},{h},{s},{d}), v ({b},{h},{s},{dv}) bf16 causal",
-        max_abs_err=err, max_abs_err_f32_main=err32_main,
-        max_abs_err_f32_sweep=err32,
-        ms=time_ms(lambda: mod.flash_attention(q, k, v), iters=10),
+        max_abs_err=err, max_abs_err_bf16_scores=err_scores,
+        max_abs_err_f32_main=err32_main, max_abs_err_f32_sweep=err32,
+        f32_ms=f32_ms,
+        ms=time_ms(lambda: mod.flash_attention(q, k, v), iters=20),
         plain_ms=time_ms(lambda: mod.plain(q, k, v), iters=5),
         bound_ms=bms, bound_by=by,
         library_ms=time_ms(lambda: sdpa(q, k, v, is_causal=True)))
+    out |= flash_rates(out, flash_flops(b, h, s, d, dv))
     log(f"flash MLA vs plain, max |err|: float32 sweep {err32:.3e}, float32 "
-        f"main {err32_main:.3e}, bf16 main {err:.3e}; {out['ms']:.4f} ms, "
-        f"plain {out['plain_ms']:.4f} ms, SDPA {out['library_ms']:.4f} ms, "
-        f"bound {bms:.4f} ms ({by})")
+        f"main {err32_main:.3e}, bf16 main {err:.3e}, bf16 main vs "
+        f"bf16-scores plain {err_scores:.3e}; {out['ms']:.4f} ms = "
+        f"{out['tflops']:.1f} TFLOP/s, {out['bound_share']:.3f} of the "
+        f"bound ({bms:.4f} ms, {by}), {out['sdpa_ratio']:.2f} x SDPA "
+        f"({out['library_ms']:.4f} ms), plain {out['plain_ms']:.4f} ms, "
+        f"float32 kernel {f32_ms:.4f} ms")
     return out
 
 
@@ -646,9 +706,13 @@ def device_profile(fn, wall_ms: float, what: str, card: str) -> dict:
         "events (device time not measured)")
     for name, ms in top.items():
         log(f"  {ms:9.4f} ms  {name[:100]}")
+    flash_ms = sum(ms for name, ms in by_name.items() if "flash" in name)
+    if flash_ms:
+        log(f"  flash_attention kernels: {flash_ms:.4f} ms, "
+            f"{flash_ms / device:.4f} of device time")
     return dict(wall_ms=wall_ms, device_ms=device,
                 busy_share=device / wall_ms, device_events=n_events,
-                top_ms=top)
+                top_ms=top, flash_ms=flash_ms)
 
 
 def profile_step(core, nn2sql, data_mod, result):

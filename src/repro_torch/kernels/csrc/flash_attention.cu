@@ -1,5 +1,5 @@
-// Causal or full GQA softmax attention with an online softmax, for Hopper
-// (sm_90a), hand-written CUDA C++.
+// Causal or full GQA softmax attention with an online softmax on float32
+// operands, for Hopper (sm_90a), hand-written CUDA C++:
 //
 //   out[b, h, i, :] = sum_j softmax_j(scale * q[b,h,i,:] . k[b,h/G,j,:]) v[b,h/G,j,:]
 //
@@ -7,23 +7,22 @@
 // k have head dim D, v and out Dv <= D: MLA's 192 / 128.)
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/flash_attention.py::
-// flash_attention.  Plain twin: repro_torch.kernels.ref.flash_attention
-// (repeat K/V, float32 logits, -1e30 mask, softmax, cast to q's type).
+// flash_attention for float32 operands; bf16 operands go to
+// csrc/flash_attention_tc.cu, on the tensor cores.  Plain twin:
+// repro_torch.kernels.ref.flash_attention (repeat K/V, float32 logits,
+// -1e30 mask, softmax, cast to q's type).
 //
-// What bounds it on an H100: operations.  At the main path's shape (Yi-6B
-// prefill, B=4, Hq=32, Hkv=4, S=2000, D=128, bf16, causal) the live score
-// pairs need about 131 GFLOP (QK^T and PV) against 147 MB moved (q, k, v
-// read once, out written once): ~900 FLOP/byte, far above the card's ridge.
-// The tensor-core bound is 131 GFLOP at 989 TFLOP/s, 0.13 ms.  At MLA's
-// (DeepSeek-V2-Lite prefill, B=4, H=16, S=2000, D=192, Dv=128) it is
-// 82 GFLOP, 0.083 ms.
+// Why IEEE float32 SIMT and not the tensor cores: this path is what the
+// serving checks hold prefill against decode with in float32, at 1e-4 on
+// the logits of a 32-layer model; TF32 keeps about three decimal digits and
+// cannot meet that.  So it is bounded by the card's 67 TFLOP/s float32: the
+// Yi-6B prefill's live score pairs (B=4, Hq=32, Hkv=4, S=2000, D=128,
+// causal) need about 131 GFLOP against 295 MB moved, 1.96 ms at that rate.
 //
-// Design (simple and right first; wgmma and TMA are later work).  One block
-// of 256 threads owns one (b, h, 64-row query tile) and loops over 64-row
-// KV tiles; nothing carries across blocks.  Inside the block, everything is
-// IEEE float32 SIMT FMAs from shared memory, so the float32 path stays
-// float32 (no TF32) and bf16 operands are widened with __bfloat162float on
-// the way into shared memory:
+// Design (simple and right first).  One block of 256 threads owns one
+// (b, h, 64-row query tile) and loops over 64-row KV tiles; nothing carries
+// across blocks.  Inside the block, everything is float32 FMAs from shared
+// memory:
 //   - Q^T is staged once; each KV tile stages K^T, the block forms the
 //     64x64 score tile (each thread a 4x4 register tile), scales it, and
 //     masks future keys (causal) and keys past a ragged S to -1e30;
@@ -35,12 +34,11 @@
 // When causal, KV tiles strictly in the future of the whole query tile are
 // never visited (skipped, not masked), and query tiles are scheduled
 // longest first.  Query head h reads KV head h / G in place: K/V are never
-// repeated in memory.  The output is acc / l, rounded to q's type.  Ragged
-// S is masked, not refused.  D (32, 64, 128, 192) and Dv (32, 64, 128,
-// at most D) are template parameters, so P V costs Dv, not D, columns and v
-// is never padded.  Shared memory at D = 128 is 83.7 KB (two blocks an SM);
-// at D = 192, Dv = 128 it is 117.0 KB (one block an SM).
-#include <cuda_bf16.h>
+// repeated in memory.  The output is acc / l.  Ragged S is masked, not
+// refused.  D (32, 64, 128, 192) and Dv (32, 64, 128, at most D) are
+// template parameters, so P V costs Dv, not D, columns and v is never
+// padded.  Shared memory at D = 128 is 83.7 KB (two blocks an SM); at
+// D = 192, Dv = 128 it is 117.0 KB (one block an SM).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -52,15 +50,6 @@ constexpr int kThreads = 256;          // 16 x 16
 constexpr int kTR = kBQ / 16;          // rows of S and O per thread
 constexpr int kTC = kBK / 16;          // columns of S per thread
 constexpr float kNegInf = -1e30f;      // the reference's mask value
-
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16_rn(v);
-}
 
 // Shared memory, in floats: Q^T [D][kBQ+1], the K^T [D][kBK+1] / V [kBK][Dv]
 // buffer, S/P [kBQ][kBK+1], alpha [kBQ] and l [kBQ].  The +1 pads keep the
@@ -74,10 +63,10 @@ struct Layout {
   static constexpr size_t kBytes = (kQt + kKV + kS + 2 * kBQ) * sizeof(float);
 };
 
-template <typename T, int D, int DV>
+template <int D, int DV>
 __global__ void __launch_bounds__(kThreads)
-flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
-          const T* __restrict__ v, T* __restrict__ out, int S, int Hq,
+flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
+          const float* __restrict__ v, float* __restrict__ out, int S, int Hq,
           int group, int64_t q_b, int64_t q_h, int64_t q_s, int64_t k_b,
           int64_t k_h, int64_t k_s, int64_t v_b, int64_t v_h, int64_t v_s,
           float scale, int causal) {
@@ -97,14 +86,14 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
   const int q0 = (n_q - 1 - static_cast<int>(blockIdx.x)) * kBQ;
   const int h = blockIdx.y, b = blockIdx.z;
   const int hk = h / group;
-  const T* qb = q + b * q_b + h * q_h;
-  const T* kb = k + b * k_b + hk * k_h;
-  const T* vb = v + b * v_b + hk * v_h;
+  const float* qb = q + b * q_b + h * q_h;
+  const float* kb = k + b * k_b + hk * k_h;
+  const float* vb = v + b * v_b + hk * v_h;
 
   for (int e = tid; e < kBQ * D; e += kThreads) {
     const int r = e / D, d = e % D;
     const int pos = q0 + r;
-    qt[d * (kBQ + 1) + r] = pos < S ? to_float(qb[pos * q_s + d]) : 0.f;
+    qt[d * (kBQ + 1) + r] = pos < S ? qb[pos * q_s + d] : 0.f;
   }
 
   // the softmax phase: threads 4r .. 4r+3 own query row r of the tile
@@ -129,7 +118,7 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
     for (int e = tid; e < kBK * D; e += kThreads) {
       const int r = e / D, d = e % D;
       const int pos = k0 + r;
-      kv[d * (kBK + 1) + r] = pos < S ? to_float(kb[pos * k_s + d]) : 0.f;
+      kv[d * (kBK + 1) + r] = pos < S ? kb[pos * k_s + d] : 0.f;
     }
     __syncthreads();
 
@@ -189,7 +178,7 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
     for (int e = tid; e < kBK * DV; e += kThreads) {  // V replaces K^T
       const int r = e / DV, d = e % DV;
       const int pos = k0 + r;
-      kv[r * DV + d] = pos < S ? to_float(vb[pos * v_s + d]) : 0.f;
+      kv[r * DV + d] = pos < S ? vb[pos * v_s + d] : 0.f;
     }
     __syncthreads();
 
@@ -215,7 +204,7 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
 
   if (spart == 0) l_s[srow] = l_run;
   __syncthreads();
-  T* ob = out + (static_cast<int64_t>(b) * Hq + h) * S * DV;
+  float* ob = out + (static_cast<int64_t>(b) * Hq + h) * S * DV;
 #pragma unroll
   for (int i = 0; i < kTR; ++i) {
     const int r = ty + 16 * i;
@@ -224,23 +213,23 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
     const float l = l_s[r];
 #pragma unroll
     for (int j = 0; j < kTD; ++j)
-      store(ob + static_cast<int64_t>(pos) * DV + tx + 16 * j, acc[i][j] / l);
+      ob[static_cast<int64_t>(pos) * DV + tx + 16 * j] = acc[i][j] / l;
   }
 }
 
-template <typename T, int D, int DV>
+template <int D, int DV>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
                    int batch, int hq, int hkv, int s, const long long* st,
                    float scale, int causal, cudaStream_t stream) {
   const size_t bytes = Layout<D, DV>::kBytes;
   cudaError_t e = cudaFuncSetAttribute(
-      flash_fwd<T, D, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_fwd<D, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(bytes));
   if (e != cudaSuccess) return e;
   const dim3 grid((s + kBQ - 1) / kBQ, hq, batch);
-  flash_fwd<T, D, DV><<<grid, kThreads, bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), s, hq, hq / hkv,
+  flash_fwd<D, DV><<<grid, kThreads, bytes, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(out), s, hq, hq / hkv,
       st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], scale,
       causal);
   return cudaGetLastError();
@@ -248,15 +237,14 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
 
 // The (D, Dv) pairs built: D in {32, 64, 128, 192}, Dv in {32, 64, 128},
 // Dv <= D.
-template <typename T>
 cudaError_t launch_d(const void* q, const void* k, const void* v, void* out,
                      int batch, int hq, int hkv, int s, int d, int dv,
                      const long long* st, float scale, int causal,
                      cudaStream_t stream) {
 #define FLASH_CASE(D, DV)                                                   \
   if (d == D && dv == DV)                                                   \
-    return launch<T, D, DV>(q, k, v, out, batch, hq, hkv, s, st, scale,     \
-                            causal, stream);
+    return launch<D, DV>(q, k, v, out, batch, hq, hkv, s, st, scale,        \
+                         causal, stream);
   FLASH_CASE(32, 32)
   FLASH_CASE(64, 32)
   FLASH_CASE(64, 64)
@@ -272,29 +260,21 @@ cudaError_t launch_d(const void* q, const void* k, const void* v, void* out,
 
 }  // namespace
 
-// q: [batch, hq, s, d], k: [batch, hkv, s, d], v: [batch, hkv, s, dv], each
-// with unit stride in its last axis and the element strides of its batch,
-// head and sequence axes in strides[0..2] (q), [3..5] (k), [6..8] (v); out:
-// [batch, hq, s, dv] contiguous.  All of one type: dtype 0 = float32,
-// 1 = bfloat16.  hq % hkv == 0 and (d, dv) one of launch_d's pairs.
-// Returns cudaGetLastError() after the launch (or the error of the
-// shared-memory attribute).
+// q: [batch, hq, s, d], k: [batch, hkv, s, d], v: [batch, hkv, s, dv], all
+// float32, each with unit stride in its last axis and the element strides
+// of its batch, head and sequence axes in strides[0..2] (q), [3..5] (k),
+// [6..8] (v); out: [batch, hq, s, dv] float32, contiguous.  hq % hkv == 0
+// and (d, dv) one of launch_d's pairs.  Returns cudaGetLastError() after
+// the launch (or the error of the shared-memory attribute).
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* out, int batch,
                                       int hq, int hkv, int s, int d, int dv,
                                       const void* strides, float scale,
-                                      int causal, int dtype, int device,
-                                      void* stream) {
+                                      int causal, int device, void* stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return e;
   if (hkv <= 0 || hq % hkv) return cudaErrorInvalidValue;
-  const long long* st = static_cast<const long long*>(strides);
-  cudaStream_t cs = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch_d<float>(q, k, v, out, batch, hq, hkv, s, d, dv, st, scale,
-                           causal, cs);
-  if (dtype == 1)
-    return launch_d<__nv_bfloat16>(q, k, v, out, batch, hq, hkv, s, d, dv,
-                                   st, scale, causal, cs);
-  return cudaErrorInvalidValue;
+  return launch_d(q, k, v, out, batch, hq, hkv, s, d, dv,
+                  static_cast<const long long*>(strides), scale, causal,
+                  static_cast<cudaStream_t>(stream));
 }

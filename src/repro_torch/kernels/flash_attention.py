@@ -1,13 +1,19 @@
-"""Full-sequence GQA softmax attention on the card: the wrapper of
-``csrc/flash_attention.cu`` (an online-softmax kernel in IEEE float32 FMAs;
-the source says why and what bounds it).  It replaces the Pallas TPU kernel
-``repro.kernels.flash_attention``; ``plain`` is its PyTorch twin.
+"""Full-sequence GQA softmax attention on the card: the wrapper of two
+kernels, picked by dtype.  bfloat16 operands go to
+``csrc/flash_attention_tc.cu`` (Hopper's tensor cores: wgmma products, K/V
+tiles by TMA into a two-stage mbarrier ring; float32 scores, P rounded to
+bf16 before P·V); float32 operands to ``csrc/flash_attention.cu`` (IEEE
+float32 FMAs, which the float32 serving checks need).  The sources say why
+and what bounds each.  Both replace the Pallas TPU kernel
+``repro.kernels.flash_attention``; ``plain`` is their PyTorch twin.
 
 q (B, Hq, S, D), k (B, Hkv, S, D) and v (B, Hkv, S, Dv), all float32 or
 all bfloat16, Hq a multiple of Hkv, (D, Dv) in ``HEAD_DIMS`` (Dv = D, or
 MLA's D = 192 with Dv = 128, among others); any ragged S.  Each operand
-needs unit stride in its last axis only: the head-split views of the model
-go in as they are.
+needs unit stride in its last axis, and in bf16 what TMA needs besides: a
+16-byte-aligned base and batch, head and sequence strides of whole 16-byte
+units (``takes`` says whether a tensor qualifies; ``ops`` copies one that
+does not).  So the head-split views of the model go in as they are.
 """
 from __future__ import annotations
 
@@ -20,14 +26,32 @@ from . import build, ref
 plain = ref.flash_attention
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_SIGNATURES = {"flash_attention_launch": [
-    _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, ctypes.c_float, _I, _I, _I,
-    _P]}
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-#: the (D, Dv) pairs the kernel is built for: D in {32, 64, 128, 192}, Dv in
-#: {32, 64, 128}, Dv <= D
+_ARGS = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, ctypes.c_float, _I, _I,
+         _P]
+#: dtype → (source, its C entry point)
+_LIBS = {torch.float32: ("flash_attention", "flash_attention_launch"),
+         torch.bfloat16: ("flash_attention_tc", "flash_attention_tc_launch")}
+#: the (D, Dv) pairs both kernels are built for: D in {32, 64, 128, 192},
+#: Dv in {32, 64, 128}, Dv <= D
 HEAD_DIMS = tuple((d, dv) for d in (32, 64, 128, 192) for dv in (32, 64, 128)
                   if dv <= d)
+
+
+def _strides(t: torch.Tensor) -> tuple[int, int, int]:
+    """The batch, head and sequence strides the kernel reads, with an axis
+    of extent 1 given its contiguous stride (it is never stepped along)."""
+    return tuple(t.stride(i) if t.shape[i] > 1
+                 else t.shape[i + 1:].numel() for i in range(3))
+
+
+def takes(t: torch.Tensor) -> bool:
+    """Whether the kernel reads ``t`` in place: unit stride in its last
+    axis and, in bf16 (TMA), a 16-byte-aligned base and strides."""
+    if t.stride(-1) != 1:
+        return False
+    if t.dtype != torch.bfloat16:
+        return True
+    return t.data_ptr() % 16 == 0 and all(s % 8 == 0 for s in _strides(t))
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -40,7 +64,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if dev.type != "cuda" or k.device != dev or v.device != dev:
         raise ValueError("flash_attention kernel: q, k, v on one CUDA "
                          f"device, got {q.device}, {k.device}, {v.device}")
-    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+    if q.dtype not in _LIBS or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError("flash_attention kernel: q, k, v all float32 or all "
                         f"bfloat16, got {q.dtype}, {k.dtype}, {v.dtype}")
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4 \
@@ -59,6 +83,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{dv}) not in {HEAD_DIMS}")
     if any(t.stride(-1) != 1 for t in (q, k, v)):
         raise ValueError("flash_attention kernel: unit stride in D")
+    if not all(takes(t) for t in (q, k, v)):
+        raise ValueError("flash_attention kernel: bf16 operands need a "
+                         "16-byte-aligned base and batch, head and sequence "
+                         "strides of whole 16-byte units (TMA)")
     if max(b, hq, s) >= 2 ** 31 - 1 or hq > 65535 or b > 65535:
         raise ValueError("flash_attention kernel: sizes beyond the grid")
     out = torch.empty((b, hq, s, dv), dtype=q.dtype, device=dev)
@@ -66,14 +94,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return out
     if scale is None:
         scale = d ** -0.5
-    strides = (ctypes.c_longlong * 9)(*(t.stride(i) for t in (q, k, v)
-                                        for i in range(3)))
-    lib = build.library("flash_attention", _SIGNATURES)
+    strides = (ctypes.c_longlong * 9)(*(st for t in (q, k, v)
+                                        for st in _strides(t)))
+    source, entry = _LIBS[q.dtype]
+    lib = build.library(source, {entry: _ARGS})
     device, stream = build.device_and_stream(q)
-    build.check(lib.flash_attention_launch(
+    build.check(getattr(lib, entry)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, hq, hkv,
         s, d, dv, ctypes.addressof(strides), float(scale), int(bool(causal)),
-        _DTYPES[q.dtype], device, stream), "flash_attention")
+        device, stream), "flash_attention")
     flash_attention.launches += 1
     return out
 

@@ -12,6 +12,7 @@ import torch
 
 from . import ref
 from .flash_attention import flash_attention as _flash_cuda
+from .flash_attention import takes as _flash_takes
 from .fused_sigmoid_matmul import fused_sigmoid_matmul as _fsm_cuda
 from .moe_dispatch import moe_dispatch as _moe_cuda
 from .onehot_embed import onehot_embed as _embed_cuda
@@ -73,11 +74,23 @@ def moe_combine(expert_out, row_ids, n_tokens: int) -> torch.Tensor:
     return out.to(expert_out.dtype)
 
 
-def flash_attention(q, k, v, causal: bool = True, scale=None) -> torch.Tensor:
+def flash_attention(q, k, v, causal: bool = True, scale=None,
+                    bf16_scores: bool = False) -> torch.Tensor:
+    """GQA softmax attention; ``bf16_scores`` rounds q, k, v and P to bf16
+    (float32 scores and sums), cast back to q's type: on the card the bf16
+    kernel, whose numerics these are.  An operand the kernel cannot read in
+    place (a last stride other than 1; in bf16 a base or stride off TMA's
+    16 bytes) is copied first."""
     if _on_host(q, k, v):
-        return ref.flash_attention(q, k, v, causal=causal, scale=scale)
-    q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
-    return _flash_cuda(q, k, v, causal=causal, scale=scale)
+        return ref.flash_attention(q, k, v, causal=causal, scale=scale,
+                                   bf16_scores=bf16_scores)
+    out_dtype = q.dtype
+    if bf16_scores:
+        q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
+    q, k, v = (t if _flash_takes(t)
+               else t.clone(memory_format=torch.contiguous_format)
+               for t in (q, k, v))
+    return _flash_cuda(q, k, v, causal=causal, scale=scale).to(out_dtype)
 
 
 def rwkv6_scan(r, k, v, w, u, s0):

@@ -62,15 +62,25 @@ def moe_combine(expert_out: torch.Tensor, row_ids: torch.Tensor,
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    causal: bool = True, scale: float | None = None
-                    ) -> torch.Tensor:
+                    causal: bool = True, scale: float | None = None,
+                    bf16_scores: bool = False) -> torch.Tensor:
     """Dense-softmax attention. q: (B, Hq, S, D); k: (B, Hkv, S, D); v:
     (B, Hkv, S, Dv) with Hq a multiple of Hkv (GQA: K/V repeated per
-    query-head group); the scale defaults to D ** -0.5 (q's head dim)."""
+    query-head group); the scale defaults to D ** -0.5 (q's head dim).
+
+    ``bf16_scores`` takes the numerics of the bf16 kernel and of the JAX
+    package's ``attend_flash(..., bf16_scores=True)``: q, k, v rounded to
+    bf16, scores in float32, P = exp(s - max) rounded to bf16, P·V summed
+    in float32, the result cast to q's type.  Its normaliser is the
+    float32 sum of the rounded P, as the kernel's is; JAX also rounds each
+    chunk's sum to bf16."""
     b, hq, s, d = q.shape
     group = hq // k.shape[1]
     if scale is None:
         scale = d ** -0.5
+    out_dtype = q.dtype
+    if bf16_scores:
+        q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
     k = k.repeat_interleave(group, dim=1)
     v = v.repeat_interleave(group, dim=1)
     logits = torch.einsum("bhqd,bhkd->bhqk", q.to(torch.float32),
@@ -78,9 +88,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if causal:
         mask = torch.ones((s, s), dtype=torch.bool, device=q.device).tril()
         logits = torch.where(mask, logits, -1e30)
-    probs = torch.softmax(logits, dim=-1)
-    out = torch.einsum("bhqk,bhkd->bhqd", probs, v.to(torch.float32))
-    return out.to(q.dtype)
+    if bf16_scores:
+        p = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
+        p = p.to(torch.bfloat16).to(torch.float32)
+        out = torch.einsum("bhqk,bhkd->bhqd", p, v.to(torch.float32))
+        out = out / p.sum(dim=-1, keepdim=True)
+    else:
+        probs = torch.softmax(logits, dim=-1)
+        out = torch.einsum("bhqk,bhkd->bhqd", probs, v.to(torch.float32))
+    return out.to(out_dtype)
 
 
 def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

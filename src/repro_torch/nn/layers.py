@@ -11,9 +11,9 @@ Conventions, as in the JAX package:
     normalisation statistics and losses are f32.
 
 Full-sequence attention (``attend_flash``) is the ``flash_attention``
-kernel on the card (``kernels.ops``), MLA's prefill included; the decode
-path's ``attend`` over a cache is plain PyTorch, as the JAX package's is
-plain jnp.
+kernel on the card (``kernels.ops``; bf16 on the tensor cores), MLA's
+prefill included; the decode path's ``attend`` over a cache is plain
+PyTorch, as the JAX package's is plain jnp.
 """
 from __future__ import annotations
 
@@ -204,18 +204,31 @@ def attend(q, k, v, causal: bool = True, q_offset: int = 0,
     return out.reshape(b, hq, sq, v.shape[-1]).to(q.dtype)
 
 
-def attend_flash(q, k, v, causal: bool = True):
+def auto_chunk(seq_len: int) -> int:
+    """The JAX package's flash chunk size: ≥1024, ≤4096, ~seq/8."""
+    return max(1024, min(4096, seq_len // 8))
+
+
+def attend_flash(q, k, v, causal: bool = True, bf16_scores: bool = False,
+                 chunk: int | None = None):
     """Full-sequence attention through ``ops.flash_attention``: the
-    ``flash_attention`` kernel on the card, its plain version on the CPU.
+    ``flash_attention`` kernels on the card, their plain version on the CPU.
 
     Same function as the JAX package's online-softmax ``attend_flash``
     (and the dense ``attend`` it falls back to for a ragged S): GQA
     softmax attention with scale d_head**-0.5 (q's head dim; v's may be
-    narrower, as MLA's is) over as many keys as queries.  The kernel tiles by itself and takes any S, so the JAX
-    version's ``chunk`` has no counterpart; its ``bf16_scores`` waits for
-    the kernel's tensor-core rewrite.
+    narrower, as MLA's is) over as many keys as queries.  The kernels tile
+    by themselves and take any S, so the JAX version's ``chunk`` (default
+    ``auto_chunk(S)``) only decides, as it does there, where
+    ``bf16_scores`` holds: with S a multiple of min(chunk, S); otherwise
+    JAX falls back to its float32 dense function and so does this.
+    ``bf16_scores`` rounds q, k, v and P to bf16 around float32 scores and
+    sums, which on the card is the bf16 tensor-core kernel.
     """
-    return ops.flash_attention(q, k, v, causal=causal)
+    s = q.shape[2]
+    chunk = min(chunk or auto_chunk(s), s)
+    return ops.flash_attention(q, k, v, causal=causal,
+                               bf16_scores=bf16_scores and s % chunk == 0)
 
 
 def merge_heads(x):

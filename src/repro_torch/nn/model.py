@@ -22,8 +22,9 @@ Entry points:
 
 Full-sequence attention (``forward``, ``prefill``) goes through the
 ``flash_attention`` kernel on the card, one launch per layer (MLA's too,
-with q/k of head dim d_nope + d_rope and v of d_v); the decode step
-attends over the cache in plain PyTorch (MLA's in the compressed latent
+with q/k of head dim d_nope + d_rope and v of d_v; ``attn_bf16_scores``
+rounds q, k, v and P to bf16 where the JAX chunk rule allows); the decode
+step attends over the cache in plain PyTorch (MLA's in the compressed latent
 space, the absorbed-matmul form, in float32).  The ssm family's time mix
 goes through the ``rwkv6_scan`` kernel in every layer, in prefill and in
 each decode step.  The moe family's routed experts go through
@@ -54,9 +55,6 @@ _LATER = {
                  "item 12",
     "flash_impl": "flash_impl='scan' comes with ROADMAP.md queue 1, item 12 "
                   "(attend_flash_scan)",
-    "attn_bf16_scores": "attn_bf16_scores=True comes with the flash "
-                        "kernel's tensor-core rewrite (ROADMAP.md queue 2, "
-                        "kernel 5 follow-on)",
 }
 
 
@@ -89,8 +87,6 @@ class LM:
                 cfg.attn_impl))
         if cfg.flash_impl == "scan":
             raise NotImplementedError(_LATER["flash_impl"])
-        if cfg.attn_bf16_scores:
-            raise NotImplementedError(_LATER["attn_bf16_scores"])
         self.cfg = cfg
         self.device = resolve(device)
 
@@ -197,6 +193,13 @@ class LM:
         return x @ head.to(x.dtype)
 
     # ------------------------------------------------------ layer-stack body
+    def _attend_full(self, q, k, v):
+        """Full-sequence attention as the JAX ``LM._attend_full`` runs it
+        for ``attn_impl="flash"``: the chunk (``attn_chunk`` or auto)
+        decides where ``attn_bf16_scores`` holds."""
+        return L.attend_flash(q, k, v, bf16_scores=self.cfg.attn_bf16_scores,
+                              chunk=self.cfg.attn_chunk or None)
+
     def _attn_block(self, p, x, cos, sin, cache=None, pos=None):
         """Returns (out, kv): this call's K/V (full sequence; MLA: the
         latent c_kv and the rope key) or the cache with this step's
@@ -208,14 +211,14 @@ class LM:
             m = cfg.mla
             q, k, v, c_kv = L.mla_qkv(p, x, cfg.n_heads, m.d_nope, m.d_rope,
                                       m.d_v, cos, sin)
-            o = L.attend_flash(q, k, v)
+            o = self._attend_full(q, k, v)
             # every head's rope key is the shared one
             k_rope = k[:, 0, :, m.d_nope:].contiguous()
             return L.merge_heads(o) @ L.cdt(p["wo"]), (c_kv, k_rope)
         q, k, v = L.gqa_project_qkv(p, x, cfg.n_heads, cfg.n_kv_heads,
                                     cfg.d_head, cos, sin)
         if cache is None:
-            o = L.attend_flash(q, k, v)
+            o = self._attend_full(q, k, v)
             return L.merge_heads(o) @ L.cdt(p["wo"]), (k, v)
         # decode: write this step's k/v at pos (clamped so it fits, as
         # lax.dynamic_update_slice clamps), attend over the valid prefix

@@ -180,6 +180,91 @@ def test_flash_attention_kernel_takes_head_split_views(cuda):
                                flash_mod.plain(q, k, v), **F32)
 
 
+# bf16 against bf16_scores=True: both round P to bf16 and sum the rounded
+# values, so they differ where the kernel's running max is not yet the
+# row's max (P rounded at another scale, one bf16 ulp, 2^-8 of the value)
+# and in the order of the float32 sums, then by the output's rounding (one
+# bf16 ulp): 1e-2 holds that and is 3x tighter than BF16's atol.
+TC_SCORES = dict(rtol=1e-2, atol=1e-2)
+
+
+@pytest.mark.parametrize("d,dv", flash_mod.HEAD_DIMS)
+@pytest.mark.parametrize("s", [1, 63, 64, 65, 127, 128, 129, 2000])
+@pytest.mark.parametrize("group", [1, 8])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_tc_kernel(cuda, d, dv, s, group, causal):
+    """The bf16 tensor-core kernel over every head-dim pair, the tile edges
+    of S (128-row query and key tiles) and a ragged long S, one KV head per
+    query head and eight, against both plain versions; one launch a call."""
+    rng = np.random.RandomState(d + dv + s + group)
+    hkv = 2
+    q = rnd(rng, 1, hkv * group, s, d, device=cuda, dtype=torch.bfloat16)
+    k = rnd(rng, 1, hkv, s, d, device=cuda, dtype=torch.bfloat16)
+    v = rnd(rng, 1, hkv, s, dv, device=cuda, dtype=torch.bfloat16)
+    before = flash_mod.flash_attention.launches
+    got = ops.flash_attention(q, k, v, causal=causal)
+    assert flash_mod.flash_attention.launches == before + 1
+    assert got.dtype == torch.bfloat16 and got.shape == (1, hkv * group, s,
+                                                         dv)
+    torch.testing.assert_close(
+        got.float(), flash_mod.plain(q, k, v, causal=causal).float(), **BF16)
+    torch.testing.assert_close(
+        got.float(), flash_mod.plain(q, k, v, causal=causal,
+                                     bf16_scores=True).float(), **TC_SCORES)
+
+
+@pytest.mark.parametrize("d,dv", [(32, 32), (128, 128), (192, 128)])
+def test_flash_attention_tc_kernel_takes_head_split_views(cuda, d, dv):
+    """bf16 (B, S, H, D) projections viewed as (B, H, S, D): the tensor maps
+    take their strides, nothing is copied."""
+    rng = np.random.RandomState(d + dv)
+    q = rnd(rng, 2, 100, 8, d, device=cuda, dtype=torch.bfloat16)
+    k = rnd(rng, 2, 100, 2, d, device=cuda, dtype=torch.bfloat16)
+    v = rnd(rng, 2, 100, 2, dv, device=cuda, dtype=torch.bfloat16)
+    q, k, v = (t.transpose(1, 2) for t in (q, k, v))
+    assert all(flash_mod.takes(t) for t in (q, k, v))
+    got = flash_mod.flash_attention(q, k, v)
+    torch.testing.assert_close(got.float(),
+                               flash_mod.plain(q, k, v).float(), **BF16)
+    torch.testing.assert_close(
+        got.float(), flash_mod.plain(q, k, v, bf16_scores=True).float(),
+        **TC_SCORES)
+
+
+def test_flash_attention_tc_kernel_copies_what_tma_cannot_read(cuda):
+    """A base off 16 bytes, or a sequence stride of 68 elements (136 bytes),
+    is refused by the kernel's wrapper and copied by ops."""
+    rng = np.random.RandomState(3)
+    buf = rnd(rng, 1, 4, 77, 68, device=cuda, dtype=torch.bfloat16)
+    q = buf[..., 1:65]                          # base 2 bytes off
+    k = buf[:, :2, :, :64]                      # sequence stride 68
+    v = rnd(rng, 1, 2, 77, 64, device=cuda, dtype=torch.bfloat16)
+    assert not flash_mod.takes(q) and not flash_mod.takes(k)
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_mod.flash_attention(q, k, v)
+    before = flash_mod.flash_attention.launches
+    got = ops.flash_attention(q, k, v)
+    assert flash_mod.flash_attention.launches == before + 1
+    torch.testing.assert_close(
+        got.float(), flash_mod.plain(q, k, v, bf16_scores=True).float(),
+        **TC_SCORES)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_bf16_scores_on_the_card(cuda, dtype):
+    """``bf16_scores`` runs the bf16 kernel (float32 operands cast there and
+    back) and matches its plain version."""
+    rng = np.random.RandomState(5)
+    q = rnd(rng, 2, 8, 150, 64, device=cuda, dtype=dtype)
+    k = rnd(rng, 2, 2, 150, 64, device=cuda, dtype=dtype)
+    v = rnd(rng, 2, 2, 150, 64, device=cuda, dtype=dtype)
+    got = ops.flash_attention(q, k, v, bf16_scores=True)
+    assert got.dtype == dtype
+    torch.testing.assert_close(
+        got.float(), flash_mod.plain(q, k, v, bf16_scores=True).float(),
+        **TC_SCORES)
+
+
 def test_flash_attention_kernel_refuses_other_head_dims(cuda):
     q = torch.zeros(1, 2, 8, 48, device=cuda)
     with pytest.raises(ValueError, match="head dim"):

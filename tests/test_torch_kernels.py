@@ -171,3 +171,41 @@ def test_plain_relational_matmul_drops_out_of_range_rows_like_segment_sum():
     np.testing.assert_allclose(
         ref.relational_matmul(tr, tc, tv, tb, 4).numpy(),
         np.asarray(jref.relational_matmul(jr, jc, jv, jb, 4)), **F32)
+
+
+def test_every_kernel_source_is_built():
+    """Each ``csrc/*.cu`` is in ``build.SOURCES`` (so ``build.build()``
+    compiles it with the others), and each listed source exists."""
+    from repro_torch.kernels import build
+    on_disk = {p.stem for p in build.CSRC.glob("*.cu")}
+    assert on_disk == set(build.SOURCES)
+    assert "flash_attention_tc" in on_disk
+
+
+def test_flash_tma_rule_for_bf16_operands():
+    """What the bf16 flash kernel reads in place (TMA: a 16-byte-aligned
+    base, batch/head/sequence strides of whole 16-byte units; an axis of
+    extent 1 is never stepped along) and what ``ops`` must copy first;
+    float32 operands only need a unit last stride."""
+    from repro_torch.kernels import flash_attention as flash_mod
+    bf = torch.zeros(2, 100, 8, 128, dtype=torch.bfloat16)
+    assert flash_mod.takes(bf.transpose(1, 2))          # head-split view
+    assert flash_mod.takes(bf[:1, :, :, :64].transpose(1, 2))
+    assert not flash_mod.takes(bf[..., 1:65])           # base 2 bytes off
+    assert not flash_mod.takes(torch.zeros(1, 2, 5, 68, dtype=torch.bfloat16)
+                               [..., :64])              # rows of 136 bytes
+    assert not flash_mod.takes(bf.transpose(2, 3))      # D not innermost
+    odd = torch.zeros(1, 1, 1, 72, dtype=torch.bfloat16)[..., 8:40]
+    assert flash_mod.takes(odd)     # extent-1 axes: their strides unused
+    assert flash_mod._strides(odd) == (32, 32, 32)
+    f = torch.zeros(1, 2, 5, 68)[..., 1:65]
+    assert flash_mod.takes(f) and not flash_mod.takes(f.transpose(2, 3))
+
+
+def test_flash_bf16_scores_on_the_cpu_is_the_plain_version():
+    rng = np.random.RandomState(4)
+    q, k, v = (torch.from_numpy(rnd(rng, 1, 2, 10, 32)) for _ in range(3))
+    got = ops.flash_attention(q, k, v, bf16_scores=True)
+    assert got.dtype == torch.float32
+    assert torch.equal(got, ref.flash_attention(q, k, v, bf16_scores=True))
+    assert not torch.equal(got, ref.flash_attention(q, k, v))

@@ -239,6 +239,66 @@ def test_flash_on_the_cpu_is_the_plain_version_and_counts_no_launch():
         flash_mod.flash_attention(tq, tk, tv)
 
 
+# ``bf16_scores``: q, k, v and P rounded to bf16 around float32 scores.  The
+# JAX attend_flash also rounds each chunk's row sum of P to bf16 (jnp.sum of
+# a bf16 array is bf16); the port sums the rounded P in float32, as its
+# kernel does, so the two normalisers differ by up to 2^-9 of l.  On the
+# test's inputs that moves outputs by at most 5e-3, so the bf16 twins hold
+# at 1e-2; the gap to float32 scores is held at test_kernels.py's
+# test_flash_bf16_scores_close_to_f32 tolerance (BF16).
+SCORES = dict(rtol=1e-2, atol=1e-2)
+
+
+@pytest.mark.parametrize("s", [256, 2048])       # one auto chunk, and two
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_attend_flash_bf16_scores_matches_jax(s, dtype):
+    (jq, tq), (jk, tk), (jv, tv) = flash_inputs(s + 3, 1, 4, 2, s, 32, dtype)
+    chunk = min(JL.auto_chunk(s), s)
+    got = TL.attend_flash(tq, tk, tv, bf16_scores=True)
+    assert got.dtype == tq.dtype and got.shape == tq.shape
+    want = jax.jit(lambda q, k, v: JL.attend_flash(
+        q, k, v, chunk=chunk, bf16_scores=True))(jq, jk, jv)
+    close(got, want, SCORES)
+    close(got, JL.attend_flash(jq, jk, jv, chunk=chunk), BF16)
+    assert torch.equal(got, flash_mod.plain(tq, tk, tv, bf16_scores=True))
+    assert not torch.equal(got, TL.attend_flash(tq, tk, tv))
+
+
+@pytest.mark.parametrize("s,chunk", [(1100, None), (12, 5)])
+def test_attend_flash_bf16_scores_falls_back_where_jax_does(s, chunk):
+    """S not a multiple of min(chunk, S) (auto_chunk(1100) = 1024): JAX
+    falls back to its float32 dense attend, and so does the port."""
+    (jq, tq), (jk, tk), (jv, tv) = flash_inputs(s, 1, 4, 2, s, 32,
+                                                "float32")
+    got = TL.attend_flash(tq, tk, tv, bf16_scores=True, chunk=chunk)
+    assert torch.equal(got, TL.attend_flash(tq, tk, tv))
+    close(got, JL.attend_flash(jq, jk, jv, chunk=min(chunk or
+                                                     JL.auto_chunk(s), s),
+                               bf16_scores=True), F32)
+
+
+@pytest.mark.parametrize("s", [1, 7, 1024, 1100, 9000, 40000])
+def test_auto_chunk_is_the_jax_rule(s):
+    assert TL.auto_chunk(s) == JL.auto_chunk(s)
+
+
+def test_flash_bf16_scores_plain_version_is_a_weighted_mean():
+    """The plain version's bf16 numerics, written out: each output row is
+    the mean of the bf16 v rows weighted by bf16(exp(s - max)), over
+    float32 scores of the bf16 q and k."""
+    rng = np.random.RandomState(11)
+    q, k, v = (torch.tensor(rng.randn(1, 2, 9, 32), dtype=torch.float32)
+               for _ in range(3))
+    got = flash_mod.plain(q, k, v, causal=True, bf16_scores=True)
+    qb, kb, vb = (t.to(torch.bfloat16).double() for t in (q, k, v))
+    for h in range(2):
+        for i in range(9):
+            sc = (kb[0, h, :i + 1] @ qb[0, h, i]).float() * 32 ** -0.5
+            p = torch.exp(sc - sc.max()).to(torch.bfloat16).double()
+            want = (p[:, None] * vb[0, h, :i + 1]).sum(0) / p.sum()
+            torch.testing.assert_close(got[0, h, i].double(), want, **F32)
+
+
 # ---------------------------------------------------------------------------
 # MLA: projections, and full-sequence attention with v narrower than q/k
 # ---------------------------------------------------------------------------

@@ -72,9 +72,15 @@ def with_impl(cfg, impl):
                                                             impl=impl))
 
 
-def build(arch, impl=None):
-    jlm = JLM(with_impl(jget_config(arch, reduced=True), impl))
-    lm = LM(with_impl(get_config(arch, reduced=True), impl), device="cpu")
+def build(arch, impl=None, options=None):
+    """The JAX and port LMs of one reduced config (``options``: fields to
+    replace in both), the JAX parameters and their conversion."""
+    jcfg = with_impl(jget_config(arch, reduced=True), impl)
+    cfg = with_impl(get_config(arch, reduced=True), impl)
+    if options:
+        jcfg = dataclasses.replace(jcfg, **options)
+        cfg = dataclasses.replace(cfg, **options)
+    jlm, lm = JLM(jcfg), LM(cfg, device="cpu")
     jp = jax_params(arch)
     return jlm, jp, lm, convert.from_jax_params(jp, device="cpu")
 
@@ -106,8 +112,8 @@ def step_inputs(jb, tb, t):
     return {key: jb[key][:, t:t + 1]}, {key: tb[key][:, t:t + 1]}
 
 
-def check_against_jax(arch, tol, impl=None):
-    jlm, jp, lm, tp = build(arch, impl)
+def check_against_jax(arch, tol, impl=None, options=None):
+    jlm, jp, lm, tp = build(arch, impl, options)
     jb, tb = batch(lm.cfg)
     jlog, jaux = jax.jit(jlm.forward)(jp, jb)
     tlog, aux = lm.forward(tp, tb)
@@ -152,6 +158,34 @@ def test_matches_jax_in_bf16(arch):
         arch, BF16_SSM if arch == "rwkv6_7b" else BF16)
     np.testing.assert_array_equal(tlast.float().argmax(-1).numpy(),
                                   np.asarray(jnp.argmax(jlast, -1)))
+
+
+@pytest.mark.parametrize("compute", ["float32", "bfloat16"])
+def test_bf16_scores_matches_jax(monkeypatch, compute):
+    """``attn_bf16_scores=True`` on the reduced Yi-6B (S = 12, one chunk):
+    prefill and forward round q, k, v and P to bf16 in both packages.  The
+    JAX normaliser is also rounded to bf16 (tests/test_torch_layers.py), so
+    even with float32 compute the twins hold at the bf16 tolerance, with
+    the same greedy token."""
+    if compute == "float32":
+        monkeypatch.setattr(JL, "COMPUTE_DTYPE", jnp.float32)
+        monkeypatch.setattr(TL, "COMPUTE_DTYPE", torch.float32)
+    jlast, tlast = check_against_jax("yi_6b", BF16,
+                                     options=dict(attn_bf16_scores=True))
+    np.testing.assert_array_equal(tlast.float().argmax(-1).numpy(),
+                                  np.asarray(jnp.argmax(jlast, -1)))
+    _, _, lm, tp = build("yi_6b")
+    _, tb = batch(lm.cfg)
+    plain_last, _ = lm.prefill(tp, tb)
+    assert not torch.equal(tlast, plain_last)     # the option took effect
+
+
+def test_bf16_scores_follows_the_jax_chunk_rule(f32_compute):
+    """``attn_chunk`` 5 does not divide S = 12: JAX falls back to its
+    float32 dense attention and the port to its float32 path, so the twins
+    hold at the float32 tolerance."""
+    check_against_jax("yi_6b", F32, options=dict(attn_bf16_scores=True,
+                                                 attn_chunk=5))
 
 
 @pytest.mark.parametrize("arch,impl", MOE_CASES)
@@ -304,8 +338,7 @@ def test_families_outside_the_slice_raise(arch):
 
 @pytest.mark.parametrize("change", [dict(attn_impl="chunked"),
                                     dict(attn_impl="dense"),
-                                    dict(flash_impl="scan"),
-                                    dict(attn_bf16_scores=True)])
+                                    dict(flash_impl="scan")])
 def test_attention_options_outside_the_slice_raise(change):
     cfg = dataclasses.replace(get_config("yi_6b", reduced=True), **change)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
