@@ -14,8 +14,14 @@ Phases (any failure exits non-zero; nothing is caught and carried on past):
            then its time beside the plain version's, one PyTorch library
            call's (a yardstick only) and the card's bound for the same work
            (flash: also its achieved TFLOP/s, share of the bound, ratio to
-           SDPA, the float32 kernel's time, and the HGMMA instructions in
-           the bf16 library's SASS, which must not be 0);
+           SDPA, the float32 kernel's time beside its float32 bound and
+           float32 SDPA's, and the HGMMA instructions in the bf16 library's
+           SASS, which must not be 0; fused_sigmoid_matmul: both layers of
+           the main path, each also by the profiler's device time, two
+           calls equal bit for bit, and no tensor-core instruction in its
+           SASS; onehot_embed: the profiler's device events of a call,
+           which must be one kernel and no memset or memcpy, and the C
+           launcher's launch-and-wait alone);
 3. main    the paper's pipeline at the full width of Fig. 10 (2000 rows,
            784 → 200 → 10, random weights from Listing 2's seed): one-hot
            labels, 5 training steps and inference on Engine("dense") and
@@ -71,6 +77,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -230,11 +237,83 @@ def check_relational(mod, RelTensor, data, report):
         shape=f"({N_ROWS}x{k}).({k}x{n}) as {nnz} tuples")
 
 
+def profiled(fn, calls: int = 1) -> list:
+    """The device events of ``calls`` calls of ``fn`` under torch.profiler,
+    in order.  The session runs ``fn`` once first, then a marker kernel
+    (``torch.cuda._sleep``), and keeps only the events after the marker:
+    on an H100 a session's first one or two device events were at times
+    missing from it (after an idle spell, or many launches)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+        torch.cuda._sleep(1000)
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    events = sorted((e for e in prof.events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA),
+                    key=lambda e: e.time_range.start)
+    marks = [i for i, e in enumerate(events) if "spin_kernel" in e.name]
+    if not marks:
+        raise AssertionError("the profiler's events lack the marker kernel")
+    return events[marks[-1] + 1:]
+
+
+def device_events(fn, calls: int = 20) -> dict:
+    """Each device event of ``calls`` calls of ``fn`` (``profiled``): how
+    many a call issues and its milliseconds a call (kernels, and any
+    memset or memcpy)."""
+    by_name = {}
+    for e in profiled(fn, calls):
+        n, ms = by_name.get(e.name, (0, 0.0))
+        by_name[e.name] = (n + 1, ms + e.time_range.elapsed_us() / 1e3)
+    if not by_name:
+        raise AssertionError("the profiler saw no device event")
+    return {name: dict(per_call=n / calls, ms=ms / calls)
+            for name, (n, ms) in by_name.items()}
+
+
+def device_ms(events: dict) -> float:
+    return sum(e["ms"] for e in events.values())
+
+
+def top_kernels(fn, n: int = 3) -> list[str]:
+    """The names of the ``n`` device events that take longest in one call
+    of ``fn`` (which backend a PyTorch call chose)."""
+    events = device_events(fn, calls=1)
+    return sorted(events, key=lambda k: -events[k]["ms"])[:n]
+
+
+def sass_opcodes(name: str) -> list[str]:
+    """The opcode of each instruction (``FFMA``, ``HFMA2.MMA``,
+    ``HGMMA.64x128x16.F32.BF16``, ...) in the SASS of the library built
+    from ``csrc/<name>.cu``."""
+    from repro_torch.kernels import build
+    cuobjdump = Path(build._nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "--dump-sass",
+                           str(build.target(name))], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    ops = (re.match(r"\s*/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?([A-Z][\w.]*)",
+                    line) for line in sass.splitlines())
+    return [m.group(1) for m in ops if m]
+
+
 def check_fused(mod, data, report):
+    """The sweep, the edges of both tile instances, then the two layers of
+    the main path: each held against the plain version and called twice
+    (the same bits), timed by events and by the profiler beside
+    ``torch.sigmoid(x @ w)``; and no tensor-core instruction in the SASS."""
     rng = np.random.RandomState(43)
     err = 0.0
     sweep = [(128, 128, 128), (256, 384, 256), (128, 512, 384),
-             (150, 4, 8), (150, 8, 3)]
+             (150, 4, 8), (150, 8, 3),
+             # n one below / above the 40-wide and 16-wide tiles, k off the
+             # 32 and 64 slices and off 4 (4-byte copies), m off 40 and 16
+             (81, 100, 39), (79, 100, 41), (150, 70, 15), (17, 65, 16),
+             (33, 30, 17)]
     for m, k, n in sweep:
         for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
             x = torch.tensor(rng.randn(m, k), dtype=torch.float32,
@@ -247,24 +326,56 @@ def check_fused(mod, data, report):
                 err = max(err, e)
     img, w_xh, w_ho = data["img"], data["w_xh"], data["w_ho"]
     a_xh = mod.plain(img, w_xh)
+    layers = {}
     for what, (x, w) in {"a_xh": (img, w_xh), "a_ho": (a_xh, w_ho)}.items():
-        err = max(err, max_err(mod.fused_sigmoid_matmul(x, w), mod.plain(x, w),
-                               F32_TOL, f"fused {what}"))
-    (m, k), n = img.shape, w_xh.shape[1]
-    bms, by = bound_ms(4 * (m * k + k * n + m * n), 2 * m * k * n)
+        events = device_events(lambda: mod.fused_sigmoid_matmul(x, w))
+        if [e["per_call"] for e in events.values()] != [1]:
+            raise AssertionError(f"fused {what}: a call's device events "
+                                 f"{events}, expected one kernel")
+        got = mod.fused_sigmoid_matmul(x, w)
+        err = max(err, max_err(got, mod.plain(x, w), F32_TOL, f"fused {what}"))
+        if not torch.equal(got, mod.fused_sigmoid_matmul(x, w)):
+            raise AssertionError(f"fused {what}: two calls differ")
+        (m, k), n = x.shape, w.shape[1]
+        bms, by = bound_ms(4 * (m * k + k * n + m * n), 2 * m * k * n)
+        layers[what] = dict(
+            shape=f"({m}x{k}).({k}x{n}) float32",
+            tile=mod.instance(m, k, n), blocks=mod.blocks(m, k, n),
+            ms=time_ms(lambda: mod.fused_sigmoid_matmul(x, w)),
+            device_ms=device_ms(events),
+            plain_ms=time_ms(lambda: mod.plain(x, w)),
+            bound_ms=bms, bound_by=by,
+            library_ms=time_ms(lambda: torch.sigmoid(x @ w)),
+            library_device_ms=device_ms(device_events(
+                lambda: torch.sigmoid(x @ w))))
+    ops = sass_opcodes("fused_sigmoid_matmul")
+    ffma = sum(op.startswith("FFMA") for op in ops)
+    tensor_ops = sorted({op for op in ops if op.split(".")[0].endswith("MMA")})
+    if tensor_ops or not ffma:
+        raise AssertionError(f"fused_sigmoid_matmul SASS: {ffma} FFMA, "
+                             f"tensor-core instructions {tensor_ops}")
     report["fused_sigmoid_matmul"] = dict(
         name="fused_sigmoid_matmul", route="cuda",
         source="src/repro_torch/kernels/csrc/fused_sigmoid_matmul.cu",
         replaces="src/repro/kernels/fused_sigmoid_matmul.py:41",
-        max_abs_err=err,
-        ms=time_ms(lambda: mod.fused_sigmoid_matmul(img, w_xh)),
-        plain_ms=time_ms(lambda: mod.plain(img, w_xh)),
-        bound_ms=bms, bound_by=by,
-        library_ms=time_ms(lambda: torch.sigmoid(img @ w_xh)),
-        shape=f"({m}x{k}).({k}x{n}) float32")
+        max_abs_err=err, **layers["a_xh"], a_ho=layers["a_ho"],
+        sass_ffma=ffma, sass_tensor_ops=tensor_ops)
+    for what, r in layers.items():
+        log(f"fused_sigmoid_matmul {what} {r['shape']}, {r['tile']} tile, "
+            f"{r['blocks']} blocks: {r['ms']:.4f} ms a call, device "
+            f"{r['device_ms']:.4f} ms; torch.sigmoid(x @ w) "
+            f"{r['library_ms']:.4f} ms, device {r['library_device_ms']:.4f}"
+            f" ms; bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+    log(f"fused_sigmoid_matmul SASS: {ffma} FFMA, no tensor-core "
+        f"instruction; max |err| {err:.3e}, two calls equal bit for bit")
 
 
 def check_onehot(mod, data, report):
+    """The sweep and the labels, exact; a bad id raises and the next call
+    is clean; then a call's time beside ``F.embedding``'s, by events and by
+    the profiler, whose events for one call must be one kernel and no
+    memset or memcpy, and the C launcher's launch-and-wait alone."""
+    from repro_torch.kernels import build
     rng = np.random.RandomState(44)
     for t, v, d in [(16, 100, 64), (64, 1000, 128), (128, 333, 256),
                     (7, 5, 3), (9, 4, 10)]:
@@ -281,20 +392,50 @@ def check_onehot(mod, data, report):
                   "onehot labels")
     expect_raise(IndexError, lambda: mod.onehot_embed(labels + N_CLS, eye),
                  "id out of range")
+    max_err(mod.onehot_embed(labels, eye), mod.plain(labels, eye), None,
+            "onehot labels after a bad call")
     t, d = labels.shape[0], N_CLS
     bms, by = bound_ms(4 * t + 4 * N_CLS * d + 4 * t * d, 0)
     long_ids = labels.long()
+    embedding = lambda: torch.nn.functional.embedding(long_ids, eye)
+    events = device_events(lambda: mod.onehot_embed(labels, eye))
+    kernels = {k: e for k, e in events.items()
+               if not k.startswith(("Memset", "Memcpy"))}
+    if len(kernels) != 1 or next(iter(kernels.values()))["per_call"] != 1 \
+            or len(kernels) != len(events):
+        raise AssertionError(f"onehot_embed: a call's device events {events}, "
+                             "expected one kernel and no memset or memcpy")
+    library_events = device_events(embedding)
+    # the C launcher alone (launch, event, wait, flag), by the host clock
+    lib = build.library("onehot_embed", mod._SIGNATURES)
+    out = torch.empty((t, d), device="cuda")
+    args = (labels.data_ptr(), eye.data_ptr(), out.data_ptr(), t, N_CLS,
+            4 * d, 8, *build.device_and_stream(eye))
+    rcs = [lib.onehot_launch(*args) for _ in range(10)]
+    t0 = time.perf_counter()
+    rcs += [lib.onehot_launch(*args) for _ in range(200)]
+    launch_wait_ms = (time.perf_counter() - t0) / 200 * 1e3
+    if any(rcs) or not torch.equal(out, mod.plain(labels, eye)):
+        raise AssertionError(f"onehot_launch returned {set(rcs)}")
     report["onehot_embed"] = dict(
         name="onehot_embed", route="cuda",
         source="src/repro_torch/kernels/csrc/onehot_embed.cu",
         replaces="src/repro/kernels/onehot_embed.py:28",
         max_abs_err=err,
         ms=time_ms(lambda: mod.onehot_embed(labels, eye)),
+        device_ms=device_ms(events), device_events=events,
+        launch_wait_ms=launch_wait_ms,
         plain_ms=time_ms(lambda: mod.plain(labels, eye)),
         bound_ms=bms, bound_by=by,
-        library_ms=time_ms(
-            lambda: torch.nn.functional.embedding(long_ids, eye)),
+        library_ms=time_ms(embedding),
+        library_device_ms=device_ms(library_events),
+        library_device_events=library_events,
         shape=f"({t},) ids into eye({N_CLS})")
+    r = report["onehot_embed"]
+    log(f"onehot_embed: {r['ms']:.4f} ms a call, of which the C launcher's "
+        f"launch and wait {launch_wait_ms:.4f} ms; device {r['device_ms']:.5f}"
+        f" ms a call in {events}; F.embedding {r['library_ms']:.4f} ms a "
+        f"call, device {r['library_device_ms']:.5f} ms in {library_events}")
 
 
 MOE_MAIN = (8000, 64, 944, 2048)     # DeepSeek-V2-Lite prefill: T, E, cap, d
@@ -383,13 +524,8 @@ def flash_bound(b, hq, hkv, s, d, dtype, causal=True, dv=None):
 
 def hgmma_count() -> int:
     """HGMMA (wgmma) instructions in the SASS of the bf16 flash library."""
-    from repro_torch.kernels import build
-    cuobjdump = Path(build._nvcc()).with_name("cuobjdump")
-    sass = subprocess.run([str(cuobjdump), "--dump-sass",
-                           str(build.target("flash_attention_tc"))],
-                          capture_output=True, text=True, check=True,
-                          timeout=300).stdout
-    return sum("HGMMA" in line for line in sass.splitlines())
+    return sum(op.startswith("HGMMA")
+               for op in sass_opcodes("flash_attention_tc"))
 
 
 def flash_rates(out: dict, flops: float) -> dict:
@@ -430,6 +566,11 @@ def check_flash(mod, report):
     err32_main = max_err(mod.flash_attention(q, k, v), mod.plain(q, k, v),
                          F32_TOL, f"flash main {FLASH_MAIN} float32 causal")
     f32_ms = time_ms(lambda: mod.flash_attention(q, k, v), iters=5)
+    f32_bound, f32_by = flash_bound(*FLASH_MAIN, torch.float32)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    f32_sdpa = lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True)
+    f32_library_ms = time_ms(f32_sdpa, iters=5)
+    f32_library_kernels = top_kernels(f32_sdpa)
     q, k, v = inputs(*FLASH_MAIN, torch.bfloat16)
     err = max_err(mod.flash_attention(q, k, v), mod.plain(q, k, v),
                   FLASH_MAIN_BF16_TOL, f"flash main {FLASH_MAIN} bf16 causal")
@@ -438,7 +579,6 @@ def check_flash(mod, report):
                          FLASH_MAIN_BF16_TOL,
                          f"flash main {FLASH_MAIN} bf16 vs bf16 scores")
     bms, by = flash_bound(*FLASH_MAIN, torch.bfloat16)
-    sdpa = torch.nn.functional.scaled_dot_product_attention
     mla = check_flash_mla(mod, inputs, sdpa)
     hgmma = hgmma_count()
     log(f"flash_attention_tc SASS: {hgmma} HGMMA instructions")
@@ -458,8 +598,9 @@ def check_flash(mod, report):
         shape=f"q ({b},{hq},{s},{d}), k/v ({b},{hkv},{s},{d}) bf16 causal",
         max_abs_err_bf16_scores=err_scores,
         max_abs_err_f32_sweep=err32, max_abs_err_f32_main=err32_main,
-        f32_ms=f32_ms, f32_source="src/repro_torch/kernels/csrc/"
-                                  "flash_attention.cu",
+        f32_ms=f32_ms, f32_bound_ms=f32_bound, f32_bound_by=f32_by,
+        f32_library_ms=f32_library_ms, f32_library_kernels=f32_library_kernels,
+        f32_source="src/repro_torch/kernels/csrc/flash_attention.cu",
         hgmma=hgmma, mla=mla)
     out |= flash_rates(out, flash_flops(b, hq, s, d, d))
     report["flash_attention"] = out
@@ -469,7 +610,9 @@ def check_flash(mod, report):
         f"{FLASH_MAIN_BF16_TOL}); Yi shape {out['ms']:.4f} ms = "
         f"{out['tflops']:.1f} TFLOP/s, {out['bound_share']:.3f} of the "
         f"bound, {out['sdpa_ratio']:.2f} x SDPA; float32 kernel "
-        f"{f32_ms:.4f} ms")
+        f"{f32_ms:.4f} ms, float32 bound {f32_bound:.4f} ms ({f32_by}), "
+        f"float32 SDPA (TF32 off) {f32_library_ms:.4f} ms "
+        f"{f32_library_kernels}")
 
 
 def check_flash_mla(mod, inputs, sdpa):
@@ -495,6 +638,10 @@ def check_flash_mla(mod, inputs, sdpa):
     err32_main = max_err(mod.flash_attention(q, k, v), mod.plain(q, k, v),
                          F32_TOL, f"flash MLA {FLASH_MLA} float32 causal")
     f32_ms = time_ms(lambda: mod.flash_attention(q, k, v), iters=5)
+    f32_bound, f32_by = flash_bound(b, h, h, s, d, torch.float32, dv=dv)
+    f32_sdpa = lambda: sdpa(q, k, v, is_causal=True)
+    f32_library_ms = time_ms(f32_sdpa, iters=5)
+    f32_library_kernels = top_kernels(f32_sdpa)
     q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
     err = max_err(mod.flash_attention(q, k, v), mod.plain(q, k, v),
                   FLASH_MAIN_BF16_TOL, f"flash MLA {FLASH_MLA} bf16 causal")
@@ -507,7 +654,8 @@ def check_flash_mla(mod, inputs, sdpa):
         shape=f"q, k ({b},{h},{s},{d}), v ({b},{h},{s},{dv}) bf16 causal",
         max_abs_err=err, max_abs_err_bf16_scores=err_scores,
         max_abs_err_f32_main=err32_main, max_abs_err_f32_sweep=err32,
-        f32_ms=f32_ms,
+        f32_ms=f32_ms, f32_bound_ms=f32_bound, f32_bound_by=f32_by,
+        f32_library_ms=f32_library_ms, f32_library_kernels=f32_library_kernels,
         ms=time_ms(lambda: mod.flash_attention(q, k, v), iters=20),
         plain_ms=time_ms(lambda: mod.plain(q, k, v), iters=5),
         bound_ms=bms, bound_by=by,
@@ -519,7 +667,9 @@ def check_flash_mla(mod, inputs, sdpa):
         f"{out['tflops']:.1f} TFLOP/s, {out['bound_share']:.3f} of the "
         f"bound ({bms:.4f} ms, {by}), {out['sdpa_ratio']:.2f} x SDPA "
         f"({out['library_ms']:.4f} ms), plain {out['plain_ms']:.4f} ms, "
-        f"float32 kernel {f32_ms:.4f} ms")
+        f"float32 kernel {f32_ms:.4f} ms, float32 bound {f32_bound:.4f} ms "
+        f"({f32_by}), float32 SDPA (TF32 off) {f32_library_ms:.4f} ms "
+        f"{f32_library_kernels}")
     return out
 
 
@@ -683,20 +833,15 @@ def main_path(counters, core, nn2sql, data_mod, result):
 # ---------------------------------------------------------------------------
 
 def device_profile(fn, wall_ms: float, what: str, card: str) -> dict:
-    """Run ``fn`` once under torch.profiler: device time by kernel name,
-    summed, over ``wall_ms`` (the same work timed without the profiler) as
-    the device's busy share."""
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        timed(fn)
-    by_name, n_events = {}, 0
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            n_events += 1
-            by_name[e.name] = (by_name.get(e.name, 0.0)
-                               + e.time_range.elapsed_us() / 1e3)
+    """One run of ``fn`` under torch.profiler (``profiled``): device time
+    by kernel name, summed, over ``wall_ms`` (the same work timed without
+    the profiler) as the device's busy share."""
+    by_name, counts = {}, {}
+    for e in profiled(fn):
+        counts[e.name] = counts.get(e.name, 0) + 1
+        by_name[e.name] = (by_name.get(e.name, 0.0)
+                           + e.time_range.elapsed_us() / 1e3)
+    n_events = sum(counts.values())
     device = sum(by_name.values())
     top = dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:8])
     log(f"profile {what} on {card}: wall {wall_ms:.4f} ms, device "
@@ -712,15 +857,17 @@ def device_profile(fn, wall_ms: float, what: str, card: str) -> dict:
             f"{flash_ms / device:.4f} of device time")
     return dict(wall_ms=wall_ms, device_ms=device,
                 busy_share=device / wall_ms, device_events=n_events,
-                top_ms=top, flash_ms=flash_ms)
+                top_ms=top, flash_ms=flash_ms, counts=counts)
 
 
-def profile_step(core, nn2sql, data_mod, result):
+def profile_step(counters, core, nn2sql, data_mod, result):
     """One training step of each engine at full width, after the main path
     (its counts are read already): the step's wall time, then the same step
     under torch.profiler for the device time by kernel name.  The kernels
     run on one stream and never overlap, so their sum over the unprofiled
-    wall time is the device's busy share."""
+    wall time is the device's busy share.  Every launch of the engine's
+    kernel that its wrapper counts in the measured step must be among the
+    profiler's events."""
     x, y = data_mod.make_mnist_like(N_ROWS)
     spec = nn2sql.MLPSpec(N_ROWS, N_FEAT, N_HID, N_CLS, lr=LR)
     graph, w0 = nn2sql.build_graph(spec), nn2sql.init_weights(spec)
@@ -731,7 +878,17 @@ def profile_step(core, nn2sql, data_mod, result):
         step = lambda: nn2sql.train(graph, w0, x, y_oh, 1, eng)
         timed(step)
         wall = min(timed(step)[1] for _ in range(5)) * 1e3
+        wrapper, kernel = {
+            "dense": (counters["fused_sigmoid_matmul"], "sigmoid_matmul"),
+            "relational": (counters["relational_matmul"], "segment_spmm")}[kind]
+        wrapper.launches = 0
         out[kind] = device_profile(step, wall, f"{kind} step", result["card"])
+        seen = sum(n for name, n in out[kind]["counts"].items()
+                   if kernel in name)
+        if 2 * seen != wrapper.launches:      # profiled runs the step twice
+            raise AssertionError(f"profile {kind} step: {seen} {kernel} "
+                                 f"events for {wrapper.launches // 2} "
+                                 "launches")
     result["profile"] = out
 
 
@@ -1745,7 +1902,7 @@ def main() -> int:
                 "flash_attention": flash_attention.flash_attention,
                 "rwkv6_scan": rwkv6_scan.rwkv6_scan}
     launches = main_path(counters, core, nn2sql, data_mod, result)
-    profile_step(core, nn2sql, data_mod, result)
+    profile_step(counters, core, nn2sql, data_mod, result)
     # each kernel's launches on the path that runs it: kernels 1-3 on the
     # paper's pipeline (phase 3), flash_attention on Yi-6B's serving path
     # (phase 5), rwkv6_scan on RWKV-6's (phase 6), moe_dispatch on

@@ -1,8 +1,10 @@
 """``onehot(ids) · table`` on the card: the wrapper of ``csrc/onehot_embed.cu``
 (a row gather with the widest word the row allows, up to 16 bytes).  It
 replaces the Pallas TPU kernel ``repro.kernels.onehot_embed``; ``plain`` is
-its PyTorch twin.  An id outside 0..v-1 raises ``IndexError`` (the kernel
-writes a zero row for it and flags it; the wrapper reads the flag).
+its PyTorch twin.  An id outside 0..v-1 raises ``IndexError`` from the call
+(the kernel writes a zero row for it and raises the device's status flag;
+the C launcher waits for this kernel alone, reads the flag from pinned host
+memory and clears it).
 """
 from __future__ import annotations
 
@@ -15,7 +17,8 @@ from . import build, ref
 plain = ref.onehot_embed
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_SIGNATURES = {"onehot_launch": [_P, _P, _P, _I, _I, _I, _I, _P, _I, _P]}
+_SIGNATURES = {"onehot_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _P]}
+_BAD_ID = -1          # onehot_launch's return when an id was out of range
 
 
 def onehot_embed(ids: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
@@ -42,13 +45,12 @@ def onehot_embed(ids: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
                         or out.data_ptr() % w))
     lib = build.library("onehot_embed", _SIGNATURES)
     device, stream = build.device_and_stream(table)
-    err = torch.zeros(1, dtype=torch.int32, device=table.device)
-    build.check(lib.onehot_launch(ids.data_ptr(), table.data_ptr(),
-                                  out.data_ptr(), t, v, row_bytes, word,
-                                  err.data_ptr(), device, stream),
-                "onehot_embed")
+    rc = lib.onehot_launch(ids.data_ptr(), table.data_ptr(), out.data_ptr(),
+                           t, v, row_bytes, word, device, stream)
+    if rc != _BAD_ID:
+        build.check(rc, "onehot_embed")
     onehot_embed.launches += 1
-    if int(err.item()):
+    if rc == _BAD_ID:
         raise IndexError(f"onehot_embed kernel: an id lies outside 0..{v - 1}")
     return out
 

@@ -9,6 +9,9 @@ This file imports neither JAX nor the JAX package, so it also runs where
 only PyTorch is installed.  ``chip_smoke.py`` covers the same kernels at
 the full main-path shapes.
 """
+import sys
+import threading
+
 import numpy as np
 import pytest
 import torch
@@ -100,8 +103,15 @@ def test_relational_matmul_kernel_sorts_unsorted(cuda):
         relmm_mod.relational_matmul(*bad)
 
 
+# The sweep, both main-path shapes, and the edges of the two tile instances
+# (wide 40 x 40 with K slices of 32, narrow 16 x 16 with slices of 64): n
+# one below and one above each tile width, k not a multiple of a slice (and
+# not of 4, which takes 4-byte copies), m not a multiple of a tile's rows.
 @pytest.mark.parametrize("m,k,n", [(128, 128, 128), (256, 384, 256),
-                                   (150, 4, 3), (2000, 200, 10)])
+                                   (150, 4, 3), (2000, 200, 10),
+                                   (2000, 784, 200), (81, 100, 39),
+                                   (79, 100, 41), (150, 70, 15),
+                                   (17, 65, 16), (33, 30, 17)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_fused_sigmoid_matmul_kernel(cuda, m, k, n, dtype):
     rng = np.random.RandomState(k)
@@ -111,6 +121,16 @@ def test_fused_sigmoid_matmul_kernel(cuda, m, k, n, dtype):
     assert got.dtype == dtype
     torch.testing.assert_close(got.float(), fsm_mod.plain(x, w).float(),
                                **(F32 if dtype == torch.float32 else BF16))
+
+
+@pytest.mark.parametrize("m,k,n", [(2000, 784, 200), (2000, 200, 10)])
+def test_fused_sigmoid_matmul_kernel_is_deterministic(cuda, m, k, n):
+    """The K groups' partial sums meet in a fixed order: two calls give
+    the same bits."""
+    rng = np.random.RandomState(n)
+    x, w = rnd(rng, m, k, device=cuda), rnd(rng, k, n, device=cuda)
+    assert torch.equal(fsm_mod.fused_sigmoid_matmul(x, w),
+                       fsm_mod.fused_sigmoid_matmul(x, w))
 
 
 @pytest.mark.parametrize("t,v,d", [(16, 100, 64), (128, 333, 256), (7, 5, 3),
@@ -128,6 +148,67 @@ def test_onehot_embed_kernel_bounds_checks(cuda):
         embed_mod.onehot_embed(torch.tensor([0, 3], dtype=torch.int32,
                                             device=cuda),
                                torch.eye(3, device=cuda))
+
+
+def test_onehot_embed_kernel_good_call_after_a_bad_one(cuda):
+    """The status flag is cleared once read: a call after one that raised
+    returns the plain version's rows and does not raise; one launch a
+    call, the raising one included."""
+    table = rnd(np.random.RandomState(1), 11, 10, device=cuda)
+    good = torch.tensor([0, 10, 3, 3, 7], dtype=torch.int32, device=cuda)
+    before = embed_mod.onehot_embed.launches
+    with pytest.raises(IndexError):
+        embed_mod.onehot_embed(torch.tensor([0, 11], dtype=torch.int32,
+                                            device=cuda), table)
+    for _ in range(2):
+        assert torch.equal(embed_mod.onehot_embed(good, table),
+                           embed_mod.plain(good, table))
+    with pytest.raises(IndexError):
+        embed_mod.onehot_embed(torch.tensor([-1], dtype=torch.int32,
+                                            device=cuda), table)
+    assert torch.equal(embed_mod.onehot_embed(good, table),
+                       embed_mod.plain(good, table))
+    assert embed_mod.onehot_embed.launches == before + 5
+
+
+def test_onehot_embed_kernel_threads_read_their_own_flag(cuda):
+    """Threads calling at once share the device's status flag (the C
+    launcher holds the device's lock from the launch to the clear, and
+    ctypes lets the threads into it together): every bad call raises and
+    every good one returns the plain version's rows."""
+    table = rnd(np.random.RandomState(2), 11, 10, device=cuda)
+    good = torch.tensor(np.random.RandomState(3).randint(0, 11, 2000),
+                        dtype=torch.int32, device=cuda)
+    bad = good.clone()
+    bad[1234] = 11
+    want = embed_mod.plain(good, table)
+    errors = []
+
+    def worker(i):
+        try:
+            for r in range(30):
+                if (i + r) % 3 == 0:
+                    with pytest.raises(IndexError):
+                        embed_mod.onehot_embed(bad, table)
+                elif not torch.equal(embed_mod.onehot_embed(good, table),
+                                     want):
+                    errors.append(f"thread {i}, call {r}: wrong rows")
+        except (Exception, pytest.fail.Exception) as e:   # reported below
+            errors.append(f"thread {i}: {e!r}")
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=worker, args=(i,))
+                   for i in range(16)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads)
+    assert not errors, errors[:5]
 
 
 @pytest.mark.parametrize("b,hq,hkv,s,d", [(1, 4, 4, 128, 64), (2, 8, 2, 256, 64),

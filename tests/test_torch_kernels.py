@@ -182,6 +182,38 @@ def test_every_kernel_source_is_built():
     assert "flash_attention_tc" in on_disk
 
 
+@pytest.mark.parametrize("m,k,n,tile,n_blocks", [
+    (2000, 784, 200, "wide", 250),      # the first layer: 50 x 5, no ragged tile
+    (2000, 200, 10, "narrow", 125),     # the output layer: all 10 columns a block
+    (2000, 200, 16, "narrow", 125),
+    (2000, 200, 17, "wide", 50),
+    (81, 100, 39, "wide", 3),
+    (79, 100, 41, "wide", 4),
+    (150, 4, 3, "narrow", 10)])
+def test_fused_sigmoid_matmul_instance_by_shape(m, k, n, tile, n_blocks):
+    """The wrapper picks the kernel's tile instance from the shape alone,
+    and both main-path layers fill more than the 32 blocks that a single
+    64 x 64 tile gives the output layer."""
+    assert fsm_mod.instance(m, k, n) == tile
+    assert fsm_mod.blocks(m, k, n) == n_blocks
+
+
+def test_fused_sigmoid_matmul_copy_width():
+    """16-byte copies for float32 rows of whole 16-byte units from an
+    aligned base (bit 0 x, bit 1 w); 4-byte copies otherwise, and always
+    for bf16."""
+    x, w = torch.zeros(2000, 784), torch.zeros(784, 200)
+    assert fsm_mod.chunks(x, w) == 3
+    a, w_ho = torch.zeros(2000, 200), torch.zeros(200, 10)
+    assert fsm_mod.chunks(a, w_ho) == 1                 # w rows of 40 B
+    assert fsm_mod.chunks(torch.zeros(5, 30), torch.zeros(30, 8)) == 2
+    flat = torch.zeros(4 * 784 + 1)
+    assert fsm_mod.chunks(flat[1:].view(4, 784), torch.zeros(784, 8)) == 2
+    assert fsm_mod.chunks(torch.zeros(4, 8), flat[1:33].view(8, 4)) == 1
+    bf = torch.zeros(2000, 784, dtype=torch.bfloat16)
+    assert fsm_mod.chunks(bf, w.to(torch.bfloat16)) == 0
+
+
 def test_flash_tma_rule_for_bf16_operands():
     """What the bf16 flash kernel reads in place (TMA: a 16-byte-aligned
     base, batch/head/sequence strides of whole 16-byte units; an axis of
