@@ -14,14 +14,17 @@ Phases (any failure exits non-zero; nothing is caught and carried on past):
            then its time beside the plain version's, one PyTorch library
            call's (a yardstick only) and the card's bound for the same work
            (flash: also its achieved TFLOP/s, share of the bound, ratio to
-           SDPA, the float32 kernel's time beside its float32 bound and
-           float32 SDPA's, and the HGMMA instructions in the bf16 library's
-           SASS, which must not be 0; fused_sigmoid_matmul: both layers of
-           the main path, each also by the profiler's device time, two
-           calls equal bit for bit, and no tensor-core instruction in its
-           SASS; onehot_embed: the profiler's device events of a call,
-           which must be one kernel and no memset or memcpy, and the C
-           launcher's launch-and-wait alone);
+           SDPA, the float32 kernel's time beside its two bounds, float32
+           FFMA and 3xTF32 on the tensor cores, and float32 SDPA's, and the
+           HGMMA instructions in the SASS of both libraries, neither of
+           which may be 0; rwkv6_scan: also at the decode shape, 256 rows
+           of one step; relational_matmul: also at DeepSeek-V2-Lite's MoE
+           combine, 48,000 tuples into 8000 x 2048; fused_sigmoid_matmul:
+           both layers of the main path, each also by the profiler's
+           device time, two calls equal bit for bit, and no tensor-core
+           instruction in its SASS; onehot_embed: the profiler's device
+           events of a call, which must be one kernel and no memset or
+           memcpy, and the C launcher's launch-and-wait alone);
 3. main    the paper's pipeline at the full width of Fig. 10 (2000 rows,
            784 → 200 → 10, random weights from Listing 2's seed): one-hot
            labels, 5 training steps and inference on Engine("dense") and
@@ -93,6 +96,7 @@ OUT_DIR = ROOT / "chiprun_out"
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12            # float32 outside the tensor cores (no TF32)
 BF16_FLOPS = 989e12          # bf16 on the tensor cores, dense
+TF32_FLOPS = 495e12          # TF32 on the tensor cores, dense
 
 F32_TOL = dict(rtol=2e-4, atol=2e-5)      # tests/test_kernels.py
 BF16_TOL = dict(rtol=6e-2, atol=3e-2)
@@ -237,19 +241,71 @@ def check_relational(mod, RelTensor, data, report):
         shape=f"({N_ROWS}x{k}).({k}x{n}) as {nnz} tuples")
 
 
+# DeepSeek-V2-Lite prefill's MoE combine: 8000 tokens x top-6 = 48,000
+# tuples (token, slot, gate) into 8000 x 2048 rows, from the 64 x 944 =
+# 60,416-slot expert output (nn/moe.py, _moe_sort)
+COMBINE = (8000, 6, 60416, 2048)
+COMBINE_DROPPED = 0.15       # assignments past capacity: 4.4-25.4 % a layer
+
+
+def check_relmm_combine(mod, report):
+    """The MoE combine as the sort path builds it: token-major rows, each
+    assignment its own slot, a dropped one slot 0 with value 0; held against
+    the plain version and timed beside one ``torch.sparse.mm`` call and the
+    bytes of the tuples, the slot rows they name and the output."""
+    rng = np.random.RandomState(48)
+    t, k, slots, d = COMBINE
+    nnz = t * k
+    keep = rng.rand(nnz) >= COMBINE_DROPPED
+    cols_np = np.where(keep, rng.permutation(slots)[:nnz], 0)
+    rows = torch.arange(t, dtype=torch.int32,
+                        device="cuda").repeat_interleave(k)
+    cols = torch.tensor(cols_np, dtype=torch.int32, device="cuda")
+    vals = torch.tensor(np.where(keep, rng.rand(nnz), 0.0),
+                        dtype=torch.float32, device="cuda")
+    b = torch.tensor(rng.randn(slots, d), dtype=torch.float32, device="cuda")
+    args = (rows, cols, vals, b, t)
+    err = max_err(mod.relational_matmul(*args), mod.plain(*args), F32_TOL,
+                  f"relmm MoE combine {COMBINE}")
+    coo = torch.sparse_coo_tensor(torch.stack([rows.long(), cols.long()]),
+                                  vals, (t, slots),
+                                  check_invariants=True).coalesce()
+    named = len(np.unique(cols_np))
+    bms, by = bound_ms(12 * nnz + 4 * named * d + 4 * t * d, 2 * nnz * d)
+    out = dict(
+        shape=f"{nnz} tuples ({COMBINE_DROPPED:.0%} dropped) into {t}x{d} "
+              f"from ({slots}x{d}) float32",
+        max_abs_err=err,
+        ms=time_ms(lambda: mod.relational_matmul(*args)),
+        device=device_events(lambda: mod.relational_matmul(*args), 10),
+        plain_ms=time_ms(lambda: mod.plain(*args), iters=5),
+        bound_ms=bms, bound_by=by,
+        library_ms=time_ms(lambda: torch.sparse.mm(coo, b)))
+    report["relational_matmul"]["combine"] = out
+    log(f"relational_matmul at the MoE combine ({out['shape']}): "
+        f"{out['ms']:.4f} ms a call, device {device_ms(out['device']):.4f} "
+        f"ms, plain {out['plain_ms']:.4f} ms, torch.sparse.mm "
+        f"{out['library_ms']:.4f} ms, bound {bms:.4f} ms ({by}), max |err| "
+        f"{err:.3e}")
+
+
 def profiled(fn, calls: int = 1) -> list:
     """The device events of ``calls`` calls of ``fn`` under torch.profiler,
-    in order.  The session runs ``fn`` once first, then a marker kernel
-    (``torch.cuda._sleep``), and keeps only the events after the marker:
-    on an H100 a session's first one or two device events were at times
-    missing from it (after an idle spell, or many launches)."""
+    in order.  The session runs ``fn`` once first, then three marker
+    kernels (``torch.cuda._sleep``), and keeps only the events after the
+    last marker it holds: on an H100 a session's first one or two device
+    events were at times missing from it (after an idle spell, or many
+    launches), and where ``fn`` is one kernel those can take the first
+    marker with them."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-        torch.cuda._sleep(1000)
+        for _ in range(3):
+            torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
@@ -511,21 +567,44 @@ def flash_flops(b, hq, s, d, dv, causal=True):
     return 2 * b * hq * pairs * (d + dv)
 
 
+def flash_bytes(b, hq, hkv, s, d, dv, size):
+    """Bytes of q, k, v read and out written once."""
+    return size * (b * hq * s * (d + dv) + b * hkv * s * (d + dv))
+
+
 def flash_bound(b, hq, hkv, s, d, dtype, causal=True, dv=None):
     """The card's least time for one call: the operations of
-    ``flash_flops`` at the type's peak, or the bytes of q, k, v read and
-    out written once."""
+    ``flash_flops`` at the type's peak, or ``flash_bytes``."""
     dv = d if dv is None else dv
     size = torch.tensor([], dtype=dtype).element_size()
-    n_bytes = size * (b * hq * s * (d + dv) + b * hkv * s * (d + dv))
     peak = BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS
-    return bound_ms(n_bytes, flash_flops(b, hq, s, d, dv, causal), peak)
+    return bound_ms(flash_bytes(b, hq, hkv, s, d, dv, size),
+                    flash_flops(b, hq, s, d, dv, causal), peak)
 
 
-def hgmma_count() -> int:
-    """HGMMA (wgmma) instructions in the SASS of the bf16 flash library."""
-    return sum(op.startswith("HGMMA")
-               for op in sass_opcodes("flash_attention_tc"))
+def hgmma_count(name: str) -> int:
+    """HGMMA (wgmma) instructions in the SASS of a flash library: the bf16
+    one (``flash_attention_tc``) or the float32 one (``flash_attention``,
+    3xTF32)."""
+    return sum(op.startswith("HGMMA") for op in sass_opcodes(name))
+
+
+def flash_bound_tf32(b, hq, hkv, s, d, causal=True, dv=None):
+    """The float32 kernel's least time on the tensor cores: its 3xTF32
+    split runs three TF32 products for each float32 one, 3 x
+    ``flash_flops`` at the TF32 peak (or the float32 bytes, if more)."""
+    dv = d if dv is None else dv
+    return bound_ms(flash_bytes(b, hq, hkv, s, d, dv, 4),
+                    3 * flash_flops(b, hq, s, d, dv, causal), TF32_FLOPS)
+
+
+def f32_rates(f32_ms, flops, bound, tf32_bound, library_ms) -> dict:
+    """The float32 kernel's TFLOP/s (float32 operations), its share of both
+    bounds and its ratio to float32 SDPA."""
+    return dict(f32_tflops=flops / f32_ms * 1e-9,
+                f32_bound_share=bound / f32_ms,
+                f32_tf32_bound_share=tf32_bound / f32_ms,
+                f32_sdpa_ratio=f32_ms / library_ms)
 
 
 def flash_rates(out: dict, flops: float) -> dict:
@@ -565,8 +644,10 @@ def check_flash(mod, report):
     q, k, v = inputs(*FLASH_MAIN, torch.float32)
     err32_main = max_err(mod.flash_attention(q, k, v), mod.plain(q, k, v),
                          F32_TOL, f"flash main {FLASH_MAIN} float32 causal")
-    f32_ms = time_ms(lambda: mod.flash_attention(q, k, v), iters=5)
+    f32_ms = time_ms(lambda: mod.flash_attention(q, k, v), iters=10)
+    f32_device = device_events(lambda: mod.flash_attention(q, k, v), 5)
     f32_bound, f32_by = flash_bound(*FLASH_MAIN, torch.float32)
+    f32_tf32_bound, _ = flash_bound_tf32(*FLASH_MAIN)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     f32_sdpa = lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True)
     f32_library_ms = time_ms(f32_sdpa, iters=5)
@@ -580,11 +661,13 @@ def check_flash(mod, report):
                          f"flash main {FLASH_MAIN} bf16 vs bf16 scores")
     bms, by = flash_bound(*FLASH_MAIN, torch.bfloat16)
     mla = check_flash_mla(mod, inputs, sdpa)
-    hgmma = hgmma_count()
-    log(f"flash_attention_tc SASS: {hgmma} HGMMA instructions")
-    if not hgmma:
-        raise AssertionError("the bf16 flash library has no HGMMA "
-                             "instruction: not on the tensor cores")
+    hgmma = hgmma_count("flash_attention_tc")
+    hgmma_f32 = hgmma_count("flash_attention")
+    log(f"SASS: flash_attention_tc {hgmma}, flash_attention (float32, "
+        f"3xTF32) {hgmma_f32} HGMMA instructions")
+    if not hgmma or not hgmma_f32:
+        raise AssertionError("a flash library has no HGMMA instruction: "
+                             "not on the tensor cores")
     out = dict(
         name="flash_attention", route="cuda",
         source="src/repro_torch/kernels/csrc/flash_attention_tc.cu",
@@ -598,11 +681,14 @@ def check_flash(mod, report):
         shape=f"q ({b},{hq},{s},{d}), k/v ({b},{hkv},{s},{d}) bf16 causal",
         max_abs_err_bf16_scores=err_scores,
         max_abs_err_f32_sweep=err32, max_abs_err_f32_main=err32_main,
-        f32_ms=f32_ms, f32_bound_ms=f32_bound, f32_bound_by=f32_by,
+        f32_ms=f32_ms, f32_device=f32_device, f32_bound_ms=f32_bound,
+        f32_bound_by=f32_by, f32_tf32_bound_ms=f32_tf32_bound,
         f32_library_ms=f32_library_ms, f32_library_kernels=f32_library_kernels,
         f32_source="src/repro_torch/kernels/csrc/flash_attention.cu",
-        hgmma=hgmma, mla=mla)
+        hgmma=hgmma, hgmma_f32=hgmma_f32, mla=mla)
     out |= flash_rates(out, flash_flops(b, hq, s, d, d))
+    out |= f32_rates(f32_ms, flash_flops(b, hq, s, d, d), f32_bound,
+                     f32_tf32_bound, f32_library_ms)
     report["flash_attention"] = out
     log(f"flash vs plain, max |err|: float32 sweep {err32:.3e}, float32 "
         f"main {err32_main:.3e}, bf16 main {err:.3e}, bf16 main vs "
@@ -610,9 +696,18 @@ def check_flash(mod, report):
         f"{FLASH_MAIN_BF16_TOL}); Yi shape {out['ms']:.4f} ms = "
         f"{out['tflops']:.1f} TFLOP/s, {out['bound_share']:.3f} of the "
         f"bound, {out['sdpa_ratio']:.2f} x SDPA; float32 kernel "
-        f"{f32_ms:.4f} ms, float32 bound {f32_bound:.4f} ms ({f32_by}), "
+        f"{f32_ms:.4f} ms ({out['f32_tflops']:.1f} TFLOP/s; device "
+        f"{device_ms(f32_device):.4f} ms: {summary(f32_device)}), float32 "
+        f"bound {f32_bound:.4f} ms ({f32_by}), 3xTF32 bound "
+        f"{f32_tf32_bound:.4f} ms ({out['f32_tf32_bound_share']:.3f} of it), "
         f"float32 SDPA (TF32 off) {f32_library_ms:.4f} ms "
-        f"{f32_library_kernels}")
+        f"{f32_library_kernels}, {out['f32_sdpa_ratio']:.2f} x SDPA")
+
+
+def summary(events: dict) -> str:
+    """Each device event's name (cut short) and milliseconds a call."""
+    return ", ".join(f"{name[:40]} {e['ms']:.4f} ms"
+                     for name, e in events.items())
 
 
 def check_flash_mla(mod, inputs, sdpa):
@@ -637,8 +732,10 @@ def check_flash_mla(mod, inputs, sdpa):
     v = inputs(b, h, h, s, dv, torch.float32)[2]
     err32_main = max_err(mod.flash_attention(q, k, v), mod.plain(q, k, v),
                          F32_TOL, f"flash MLA {FLASH_MLA} float32 causal")
-    f32_ms = time_ms(lambda: mod.flash_attention(q, k, v), iters=5)
+    f32_ms = time_ms(lambda: mod.flash_attention(q, k, v), iters=10)
+    f32_device = device_events(lambda: mod.flash_attention(q, k, v), 5)
     f32_bound, f32_by = flash_bound(b, h, h, s, d, torch.float32, dv=dv)
+    f32_tf32_bound, _ = flash_bound_tf32(b, h, h, s, d, dv=dv)
     f32_sdpa = lambda: sdpa(q, k, v, is_causal=True)
     f32_library_ms = time_ms(f32_sdpa, iters=5)
     f32_library_kernels = top_kernels(f32_sdpa)
@@ -654,22 +751,28 @@ def check_flash_mla(mod, inputs, sdpa):
         shape=f"q, k ({b},{h},{s},{d}), v ({b},{h},{s},{dv}) bf16 causal",
         max_abs_err=err, max_abs_err_bf16_scores=err_scores,
         max_abs_err_f32_main=err32_main, max_abs_err_f32_sweep=err32,
-        f32_ms=f32_ms, f32_bound_ms=f32_bound, f32_bound_by=f32_by,
+        f32_ms=f32_ms, f32_device=f32_device, f32_bound_ms=f32_bound,
+        f32_bound_by=f32_by, f32_tf32_bound_ms=f32_tf32_bound,
         f32_library_ms=f32_library_ms, f32_library_kernels=f32_library_kernels,
         ms=time_ms(lambda: mod.flash_attention(q, k, v), iters=20),
         plain_ms=time_ms(lambda: mod.plain(q, k, v), iters=5),
         bound_ms=bms, bound_by=by,
         library_ms=time_ms(lambda: sdpa(q, k, v, is_causal=True)))
     out |= flash_rates(out, flash_flops(b, h, s, d, dv))
+    out |= f32_rates(f32_ms, flash_flops(b, h, s, d, dv), f32_bound,
+                     f32_tf32_bound, f32_library_ms)
     log(f"flash MLA vs plain, max |err|: float32 sweep {err32:.3e}, float32 "
         f"main {err32_main:.3e}, bf16 main {err:.3e}, bf16 main vs "
         f"bf16-scores plain {err_scores:.3e}; {out['ms']:.4f} ms = "
         f"{out['tflops']:.1f} TFLOP/s, {out['bound_share']:.3f} of the "
         f"bound ({bms:.4f} ms, {by}), {out['sdpa_ratio']:.2f} x SDPA "
         f"({out['library_ms']:.4f} ms), plain {out['plain_ms']:.4f} ms, "
-        f"float32 kernel {f32_ms:.4f} ms, float32 bound {f32_bound:.4f} ms "
-        f"({f32_by}), float32 SDPA (TF32 off) {f32_library_ms:.4f} ms "
-        f"{f32_library_kernels}")
+        f"float32 kernel {f32_ms:.4f} ms ({out['f32_tflops']:.1f} TFLOP/s; "
+        f"device {device_ms(f32_device):.4f} ms: {summary(f32_device)}), "
+        f"float32 bound {f32_bound:.4f} ms ({f32_by}), 3xTF32 bound "
+        f"{f32_tf32_bound:.4f} ms ({out['f32_tf32_bound_share']:.3f} of it), "
+        f"float32 SDPA (TF32 off) {f32_library_ms:.4f} ms "
+        f"{f32_library_kernels}, {out['f32_sdpa_ratio']:.2f} x SDPA")
     return out
 
 
@@ -719,6 +822,19 @@ def check_rwkv6(mod, report):
             f32(rng.randn(h, n)).expand(b, h, n),
             f32(rng.randn(b, h, n, n) * 0.1))
     err = max(err, compare(args, f"rwkv6 main layer views {RWKV_MAIN}"))
+    # the decode shape: the same 256 rows of state, one step each, as the
+    # layer's head-split views of (B, 1, H, N) projections
+    dec = (*(t.transpose(1, 2) for t in inputs((b, 1), h, n)[:4]),
+           f32(rng.randn(h, n)).expand(b, h, n),
+           f32(rng.randn(b, h, n, n) * 0.1))
+    err = max(err, compare(dec, f"rwkv6 decode views {(b, h, 1, n)}"))
+    dec_bound, dec_by = rwkv6_bound(b * h, 1, n)
+    decode = dict(
+        shape=f"r/k/v/w (B,H,S,N)={(b, h, 1, n)} head-split views, float32",
+        ms=time_ms(lambda: mod.rwkv6_scan(*dec), iters=50),
+        device=device_events(lambda: mod.rwkv6_scan(*dec), 20),
+        plain_ms=time_ms(lambda: mod.plain(*dec), iters=20),
+        bound_ms=dec_bound, bound_by=dec_by)
     expect_raise(TypeError, lambda: mod.rwkv6_scan(
         args[0].to(torch.bfloat16), *args[1:]), "rwkv6 bf16 r")
     expect_raise(ValueError, lambda: mod.rwkv6_scan(
@@ -733,9 +849,13 @@ def check_rwkv6(mod, report):
         plain_ms=time_ms(lambda: mod.plain(*args), iters=2, warmup=1),
         bound_ms=bms, bound_by=by,
         library_ms=None,      # no single PyTorch call runs this recurrence
-        shape=f"r/k/v/w (B,H,S,N)={RWKV_MAIN} head-split views, float32")
-    log(f"rwkv6_scan vs plain, max |err| over the sweep, S in {{1, 7, 77}} "
-        f"and the main shape (o and s_fin): {err:.3e} (held at {SCAN_TOL})")
+        shape=f"r/k/v/w (B,H,S,N)={RWKV_MAIN} head-split views, float32",
+        decode=decode)
+    log(f"rwkv6_scan vs plain, max |err| over the sweep, S in {{1, 7, 77}}, "
+        f"the main shape and the decode shape (o and s_fin): {err:.3e} (held "
+        f"at {SCAN_TOL}); decode shape {decode['ms']:.4f} ms a call "
+        f"(events), device {device_ms(decode['device']):.5f} ms, bound "
+        f"{dec_bound:.5f} ms ({dec_by})")
 
 
 # ---------------------------------------------------------------------------
@@ -1879,6 +1999,7 @@ def main() -> int:
     data = dict(img=x, labels=y, **w)
     report = {}
     check_relational(relational_matmul, RelTensor, data, report)
+    check_relmm_combine(relational_matmul, report)
     check_fused(fused_sigmoid_matmul, data, report)
     check_onehot(onehot_embed, data, report)
     check_moe_dispatch(moe_dispatch, report)

@@ -1,10 +1,13 @@
 """Full-sequence GQA softmax attention on the card: the wrapper of two
-kernels, picked by dtype.  bfloat16 operands go to
-``csrc/flash_attention_tc.cu`` (Hopper's tensor cores: wgmma products, K/V
-tiles by TMA into a two-stage mbarrier ring; float32 scores, P rounded to
-bf16 before P·V); float32 operands to ``csrc/flash_attention.cu`` (IEEE
-float32 FMAs, which the float32 serving checks need).  The sources say why
-and what bounds each.  Both replace the Pallas TPU kernel
+kernels, picked by dtype, both on Hopper's tensor cores.  bfloat16
+operands go to ``csrc/flash_attention_tc.cu`` (wgmma products, K/V tiles
+by TMA into a two-stage mbarrier ring; float32 scores, P rounded to bf16
+before P·V); float32 operands to ``csrc/flash_attention.cu`` (3xTF32: each
+operand split into TF32 hi and lo parts, a·b taken as three wgmma products
+summed in float32, which keeps float32 accuracy where one TF32 product
+keeps three digits; a pre-pass splits K and V once into a scratch buffer
+that this wrapper allocates, then TMA streams the parts).  The sources say
+why and what bounds each.  Both replace the Pallas TPU kernel
 ``repro.kernels.flash_attention``; ``plain`` is their PyTorch twin.
 
 q (B, Hq, S, D), k (B, Hkv, S, D) and v (B, Hkv, S, Dv), all float32 or
@@ -26,11 +29,13 @@ from . import build, ref
 plain = ref.flash_attention
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGS = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, ctypes.c_float, _I, _I,
-         _P]
-#: dtype → (source, its C entry point)
-_LIBS = {torch.float32: ("flash_attention", "flash_attention_launch"),
-         torch.bfloat16: ("flash_attention_tc", "flash_attention_tc_launch")}
+_ARGS = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, ctypes.c_float, _I]
+#: dtype → (source, its C entry point, the arguments after ``_ARGS``: the
+#: float32 library also takes its scratch)
+_LIBS = {torch.float32: ("flash_attention", "flash_attention_launch",
+                         [_P, _I, _P]),
+         torch.bfloat16: ("flash_attention_tc", "flash_attention_tc_launch",
+                          [_I, _P])}
 #: the (D, Dv) pairs both kernels are built for: D in {32, 64, 128, 192},
 #: Dv in {32, 64, 128}, Dv <= D
 HEAD_DIMS = tuple((d, dv) for d in (32, 64, 128, 192) for dv in (32, 64, 128)
@@ -42,6 +47,12 @@ def _strides(t: torch.Tensor) -> tuple[int, int, int]:
     of extent 1 given its contiguous stride (it is never stepped along)."""
     return tuple(t.stride(i) if t.shape[i] > 1
                  else t.shape[i + 1:].numel() for i in range(3))
+
+
+def scratch_numel(b: int, hkv: int, s: int, d: int, dv: int) -> int:
+    """Floats of the float32 kernel's scratch: K and V^T, each in TF32 hi
+    and lo parts, V^T's rows padded to whole groups of 8 keys."""
+    return 2 * b * hkv * (s * d + dv * (-(-s // 8) * 8))
 
 
 def takes(t: torch.Tensor) -> bool:
@@ -96,13 +107,18 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         scale = d ** -0.5
     strides = (ctypes.c_longlong * 9)(*(st for t in (q, k, v)
                                         for st in _strides(t)))
-    source, entry = _LIBS[q.dtype]
-    lib = build.library(source, {entry: _ARGS})
+    source, entry, tail = _LIBS[q.dtype]
+    lib = build.library(source, {entry: _ARGS + tail})
     device, stream = build.device_and_stream(q)
+    # the float32 kernel's split K and V^T; freed after the call, which is
+    # safe on the stream that the kernel runs on
+    scratch = [torch.empty(scratch_numel(b, hkv, s, d, dv),
+                           dtype=torch.float32, device=dev)
+               ] if q.dtype == torch.float32 else []
     build.check(getattr(lib, entry)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, hq, hkv,
         s, d, dv, ctypes.addressof(strides), float(scale), int(bool(causal)),
-        device, stream), "flash_attention")
+        *(t.data_ptr() for t in scratch), device, stream), "flash_attention")
     flash_attention.launches += 1
     return out
 

@@ -1,8 +1,10 @@
 """RWKV-6 time-mix recurrence on the card: the wrapper of
 ``csrc/rwkv6_scan.cu`` (one block per row of state, the time loop inside
-it, IEEE float32 FMAs; the source says why and what bounds it).  It
-replaces the Pallas TPU kernel ``repro.kernels.rwkv6_scan``; ``plain`` is
-its PyTorch twin.
+it, r/k/v/w through a cp.async ring in shared memory, the u term factored
+into one O(N) sum a step so a cell costs three FP instructions, IEEE
+float32 FMAs; the source says why and what bounds it).  It replaces the
+Pallas TPU kernel ``repro.kernels.rwkv6_scan``; ``plain`` is its PyTorch
+twin.
 
     o_t = r_t·(S + diag(u) k_t v_tᵀ);   S ← diag(w_t) S + k_t v_tᵀ
 

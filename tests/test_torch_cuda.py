@@ -346,6 +346,51 @@ def test_flash_attention_bf16_scores_on_the_card(cuda, dtype):
         **TC_SCORES)
 
 
+@pytest.mark.parametrize("d,dv", flash_mod.HEAD_DIMS)
+@pytest.mark.parametrize("s", [1, 63, 64, 65, 127, 128, 129, 2000])
+@pytest.mark.parametrize("group", [1, 8])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_f32_kernel(cuda, d, dv, s, group, causal):
+    """The float32 kernel (3xTF32 on the tensor cores) over every head-dim
+    pair, the tile edges of S (64-row query and key tiles) and a ragged long
+    S, one KV head per query head and eight, at the float32 tolerance; one
+    launch a call."""
+    rng = np.random.RandomState(d + dv + s + group)
+    hkv = 2
+    q = rnd(rng, 1, hkv * group, s, d, device=cuda)
+    k = rnd(rng, 1, hkv, s, d, device=cuda)
+    v = rnd(rng, 1, hkv, s, dv, device=cuda)
+    before = flash_mod.flash_attention.launches
+    got = ops.flash_attention(q, k, v, causal=causal)
+    assert flash_mod.flash_attention.launches == before + 1
+    assert got.dtype == torch.float32 and got.shape == (1, hkv * group, s,
+                                                        dv)
+    torch.testing.assert_close(got, flash_mod.plain(q, k, v, causal=causal),
+                               **F32)
+
+
+@pytest.mark.parametrize("d,dv", [(32, 32), (128, 128), (192, 128)])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_flash_attention_f32_kernel_takes_head_split_views(cuda, d, dv,
+                                                           offset):
+    """float32 (B, S, H, D) projections viewed as (B, H, S, D), read in
+    place by their strides; with ``offset`` 1 every base is 4 bytes off 16
+    (the kernel's 4-byte loads), and nothing is copied either way."""
+    rng = np.random.RandomState(d + dv + offset)
+
+    def heads(h, width):
+        buf = rnd(rng, 2 * 130 * h * width + offset, device=cuda)
+        return buf[offset:].view(2, 130, h, width).transpose(1, 2)
+
+    q, k, v = heads(8, d), heads(2, d), heads(2, dv)
+    assert all(flash_mod.takes(t) for t in (q, k, v))
+    assert (q.data_ptr() % 16 != 0) == bool(offset)
+    for causal in (True, False):
+        torch.testing.assert_close(
+            flash_mod.flash_attention(q, k, v, causal=causal),
+            flash_mod.plain(q, k, v, causal=causal), **F32)
+
+
 def test_flash_attention_kernel_refuses_other_head_dims(cuda):
     q = torch.zeros(1, 2, 8, 48, device=cuda)
     with pytest.raises(ValueError, match="head dim"):
@@ -452,3 +497,35 @@ def test_rwkv6_scan_kernel_refusals(cuda):
                                     cuda)
     with pytest.raises(ValueError, match="head dim"):
         scan_mod.rwkv6_scan(r, k, v, w, u, s0)
+
+
+@pytest.mark.parametrize("n", scan_mod.HEAD_DIMS)
+@pytest.mark.parametrize("s", [1, 31, 32, 33, 2000])
+@pytest.mark.parametrize("layout", ["dense", "views", "misaligned"])
+def test_rwkv6_scan_kernel_time_edges(cuda, n, s, layout):
+    """Every head dim over the edges of the 16-step chunks and a long S,
+    with u (H, N) expanded over the batch: dense (B, H, S, N) operands, the
+    layer's head-split views of (B, S, H, N) projections (16-byte copies),
+    and views whose bases sit 4 bytes off 16 (4-byte copies); s0 is left as
+    it was."""
+    rng = np.random.RandomState(s + n)
+    b, h = 2, 3
+    r, k, v, w = scan_inputs(rng, (b, s), h, n, cuda)[:4]
+    if layout == "dense":
+        r, k, v, w = (t.transpose(1, 2).contiguous() for t in (r, k, v, w))
+    else:
+        if layout == "misaligned":
+            r, k, v, w = (torch.cat([t.new_zeros(1), t.reshape(-1)])[1:]
+                          .view(t.shape) for t in (r, k, v, w))
+            assert all(t.data_ptr() % 16 == 4 for t in (r, k, v, w))
+        r, k, v, w = (t.transpose(1, 2) for t in (r, k, v, w))
+    u = rnd(rng, h, n, device=cuda).expand(b, h, n)
+    s0 = rnd(rng, b, h, n, n, device=cuda) * 0.1
+    s0_before = s0.clone()
+    before = scan_mod.rwkv6_scan.launches
+    o, s_fin = ops.rwkv6_scan(r, k, v, w, u, s0)
+    assert scan_mod.rwkv6_scan.launches == before + 1
+    o_ref, s_ref = scan_mod.plain(r, k, v, w, u, s0)
+    torch.testing.assert_close(o, o_ref, **SCAN)
+    torch.testing.assert_close(s_fin, s_ref, **SCAN)
+    assert torch.equal(s0, s0_before)

@@ -241,3 +241,107 @@ def test_flash_bf16_scores_on_the_cpu_is_the_plain_version():
     assert got.dtype == torch.float32
     assert torch.equal(got, ref.flash_attention(q, k, v, bf16_scores=True))
     assert not torch.equal(got, ref.flash_attention(q, k, v))
+
+
+# ---------------------------------------------------------------------------
+# The numerics the card kernels rely on, emulated on the CPU.
+
+SCAN = dict(rtol=3e-4, atol=3e-4)               # tests/test_kernels.py
+
+
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """float32 rounded to TF32 (10 explicit mantissa bits) to nearest, ties
+    away from zero, as ``cvt.rna.tf32.f32`` rounds: add half a unit of the
+    13 dropped bits to the int32 word, then clear them."""
+    return ((x.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _split(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    hi = _tf32(x)
+    return hi, _tf32(x - hi)
+
+
+def _mm_3xtf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a·b as the float32 flash kernel takes it on the tensor cores: three
+    TF32 products summed in float32, the small terms first."""
+    (a_hi, a_lo), (b_hi, b_lo) = _split(a), _split(b)
+    return a_lo @ b_hi + a_hi @ b_lo + a_hi @ b_hi
+
+
+def _mm_tf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return _tf32(a) @ _tf32(b)
+
+
+def _causal_attention(q, k, v, mm):
+    s = mm(q, k.transpose(-1, -2)) * q.shape[-1] ** -0.5
+    n = s.shape[-1]
+    s = torch.where(torch.ones(n, n, dtype=torch.bool).tril(), s, -1e30)
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    return mm(p, v) / p.sum(dim=-1, keepdim=True)
+
+
+def test_tf32_split_is_exact_to_2_pow_minus_22():
+    """hi and lo are TF32 words (13 low bits clear) and x - hi - lo is at
+    most 2^-22 |x|; one TF32 word alone is off by up to 2^-11 |x|."""
+    rng = np.random.RandomState(11)
+    x = torch.from_numpy((rnd(rng, 100000) * 10.0 ** rng.randint(
+        -20, 20, 100000)).astype(np.float32))
+    hi, lo = _split(x)
+    for part in (hi, lo):
+        assert not (part.view(torch.int32) & 0x1FFF).any()
+    x64 = x.double()
+    rest = (x64 - hi.double() - lo.double()).abs()
+    assert (rest <= 2.0 ** -22 * x64.abs()).all()
+    one = (x64 - hi.double()).abs()
+    assert (one <= 2.0 ** -11 * x64.abs()).all()
+    assert (one > 2.0 ** -14 * x64.abs()).float().mean() > 0.5
+
+
+@pytest.mark.parametrize("b,h,s,d,dv", [(1, 4, 256, 192, 128),
+                                        (1, 4, 512, 128, 128)])
+def test_3xtf32_attention_meets_float32_and_one_tf32_does_not(b, h, s, d,
+                                                              dv):
+    """Causal attention with both products in 3xTF32 meets the float32
+    tolerance against a float64 oracle at MLA's and Yi-6B's head dims; with
+    single TF32 products it does not."""
+    rng = np.random.RandomState(s + d)
+    q, k = (torch.from_numpy(rnd(rng, b, h, s, d)) for _ in range(2))
+    v = torch.from_numpy(rnd(rng, b, h, s, dv))
+    oracle = _causal_attention(q.double(), k.double(), v.double(),
+                               torch.matmul)
+    three = _causal_attention(q, k, v, _mm_3xtf32)
+    torch.testing.assert_close(three.double(), oracle, **F32)
+    one = _causal_attention(q, k, v, _mm_tf32)
+    assert not torch.allclose(one.double(), oracle, **F32)
+
+
+def _rwkv6_factored(r, k, v, w, u, s0):
+    """The recurrence in the order of the card kernel, float32: the u term
+    once a step, a_t = Σ_i r_i u_i k_i, then o_t = r_t·S + a_t v_t with S
+    before the update, and S ← w S + k vᵀ."""
+    state, outs = s0.clone(), []
+    for t in range(r.shape[-2]):
+        rt, kt, vt, wt = (x[..., t, :] for x in (r, k, v, w))
+        a = (rt * (u * kt)).sum(-1, keepdim=True)
+        outs.append(torch.einsum("...i,...ij->...j", rt, state) + a * vt)
+        state = wt[..., :, None] * state + kt[..., :, None] * vt[..., None, :]
+    return torch.stack(outs, dim=-2), state
+
+
+@pytest.mark.parametrize("bh,s,n", [(2, 32, 16), (4, 64, 32), (1, 128, 64),
+                                    (256, 1, 64), (8, 7, 64), (8, 77, 32)])
+def test_factored_rwkv6_recurrence_meets_scan_tol(bh, s, n):
+    """The factored form in float32 against the port's plain version and the
+    JAX package's oracle, over ``chip_smoke.check_rwkv6``'s sweep."""
+    rng = np.random.RandomState(bh + s + n)
+    r, k, v = (rnd(rng, bh, s, n) for _ in range(3))
+    w = (rng.rand(bh, s, n) * 0.5 + 0.4).astype(np.float32)
+    u, s0 = rnd(rng, bh, n), (rnd(rng, bh, n, n) * 0.1).astype(np.float32)
+    args = [torch.from_numpy(a) for a in (r, k, v, w, u, s0)]
+    o, s_fin = _rwkv6_factored(*args)
+    o_ref, s_ref = ref.rwkv6_scan(*args)
+    torch.testing.assert_close(o, o_ref, **SCAN)
+    torch.testing.assert_close(s_fin, s_ref, **SCAN)
+    jo, js = jref.rwkv6_scan(*(jnp.asarray(a) for a in (r, k, v, w, u, s0)))
+    np.testing.assert_allclose(o.numpy(), np.asarray(jo), **SCAN)
+    np.testing.assert_allclose(s_fin.numpy(), np.asarray(js), **SCAN)
