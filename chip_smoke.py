@@ -18,8 +18,17 @@ Phases (any failure exits non-zero; nothing is caught and carried on past):
            FFMA and 3xTF32 on the tensor cores, and float32 SDPA's, and the
            HGMMA instructions in the SASS of both libraries, neither of
            which may be 0; rwkv6_scan: also at the decode shape, 256 rows
-           of one step; relational_matmul: also at DeepSeek-V2-Lite's MoE
-           combine, 48,000 tuples into 8000 x 2048; fused_sigmoid_matmul:
+           of one step; relational_matmul: each of the MLP step's five
+           products timed with the schedule it takes, by events and by the
+           profiler, beside torch.sparse.mm, every phase-2 case also with
+           b in bf16, bit for bit the result for its float32 widening, and
+           DeepSeek-V2-Lite's MoE combine, 48,000 tuples into 8000 x 2048,
+           with b in float32 and in bf16, beside the bf16 -> float32 copy
+           the MoE layer no longer makes; moe_dispatch: the profiler's
+           device events of a call on the random slot layout and on the
+           bucket-sorted one the MoE layer builds, a good call after a bad
+           one, and the card's rate for writing the output alone (a
+           zero fill of the same bytes); fused_sigmoid_matmul:
            both layers of the main path, each also by the profiler's
            device time, two calls equal bit for bit, and no tensor-core
            instruction in its SASS; onehot_embed: the profiler's device
@@ -69,6 +78,10 @@ Phases (any failure exits non-zero; nothing is caught and carried on past):
            every routing difference reported; (d) one full-width MoE layer
            on 8000 tokens, einsum against sort; and a profile of one
            prefill and one decode step.
+
+``python3 chip_smoke.py --kernels [name ...]`` runs phases 1 and 2 alone,
+for the named kernels (all six without a name), and prints no result line:
+two trees are compared on one card by running it in each, in turns.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
 line before it lists the kernels as JSON.  Details also go to
@@ -170,14 +183,20 @@ def expect_raise(exc, fn, what: str) -> None:
 # ---------------------------------------------------------------------------
 
 def check_relational(mod, RelTensor, data, report):
+    """The sweep, padding, the main path's five products, and a relation in
+    reverse order, each held against the plain version, and with b in bf16
+    equal bit for bit to the result for its float32 widening; then each
+    product timed (``relmm_product``)."""
     rng = np.random.RandomState(42)
     dev = "cuda"
     err = 0.0
 
     def run(rel, b, what):
         args = (rel.i, rel.j, rel.v, b, rel.shape[0])
-        return max_err(mod.relational_matmul(*args), mod.plain(*args),
-                       F32_TOL, what)
+        e = max_err(mod.relational_matmul(*args), mod.plain(*args), F32_TOL,
+                    what)
+        same_bits(mod, rel.i, rel.j, rel.v, b, rel.shape[0], what)
+        return e
 
     for m, k, n in [(8, 16, 128), (16, 32, 256), (64, 64, 128), (12, 16, 384)]:
         a = torch.tensor(rng.randn(m, k), dtype=torch.float32, device=dev)
@@ -222,23 +241,61 @@ def check_relational(mod, RelTensor, data, report):
     expect_raise(ValueError, lambda: mod.relational_matmul(
         rel.i, rel.j + N_FEAT, rel.v, b, N_ROWS), "col out of range")
 
-    rel, b = cases["z_xh = img.w_xh"]
-    args = (rel.i, rel.j, rel.v, b, N_ROWS)
-    nnz, (k, n) = rel.capacity, b.shape
-    coo = torch.sparse_coo_tensor(torch.stack([rel.i.long(), rel.j.long()]),
-                                  rel.v, (N_ROWS, k),
-                                  check_invariants=True).coalesce()
-    bms, by = bound_ms(12 * nnz + 4 * k * n + 4 * N_ROWS * n, 2 * nnz * n)
+    products = {what: relmm_product(mod, rel, b)
+                for what, (rel, b) in cases.items()}
+    main = products["z_xh = img.w_xh"]
     report["relational_matmul"] = dict(
         name="relational_matmul", route="cuda",
         source="src/repro_torch/kernels/csrc/relational_matmul.cu",
         replaces="src/repro/kernels/relational_matmul.py:61",
-        max_abs_err=err,
+        max_abs_err=err, **main, products=products)
+    for what, r in products.items():
+        log(f"relational_matmul {what} {r['shape']}, {r['schedule']}: "
+            f"{r['ms']:.4f} ms a call, device {r['device_ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f} ms, torch.sparse.mm {r['library_ms']:.4f} "
+            f"ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+
+
+def same_bits(mod, rows, cols, vals, b, m, what) -> None:
+    """relational_matmul with b in bf16 gives the bits of its float32
+    widening (and the same bits twice)."""
+    b16 = b.to(torch.bfloat16)
+    got = mod.relational_matmul(rows, cols, vals, b16, m)
+    if not (torch.equal(got, mod.relational_matmul(rows, cols, vals,
+                                                   b16.float(), m))
+            and torch.equal(got, mod.relational_matmul(rows, cols, vals, b16,
+                                                       m))):
+        raise AssertionError(f"{what}: bf16 b differs from its float32 "
+                             "widening or from itself")
+
+
+def relmm_bound(nnz: int, named: int, m: int, n: int, b_size: int):
+    """The least time of a product: the tuples (two int32 ids and a float32
+    value), the ``named`` rows of b that they name and the float32 output,
+    each moved once, or 2·nnz·n float32 FLOPs."""
+    return bound_ms(12 * nnz + b_size * named * n + 4 * m * n, 2 * nnz * n)
+
+
+def relmm_product(mod, rel, b) -> dict:
+    """One product of the main path timed by events and by the profiler,
+    beside the plain version, one ``torch.sparse.mm`` call and its bound."""
+    m, (k, n) = rel.shape[0], b.shape
+    args = (rel.i, rel.j, rel.v, b, m)
+    coo = torch.sparse_coo_tensor(torch.stack([rel.i.long(), rel.j.long()]),
+                                  rel.v, (m, k),
+                                  check_invariants=True).coalesce()
+    named = int(torch.unique(rel.j).numel())
+    bms, by = relmm_bound(rel.capacity, named, m, n, b.element_size())
+    return dict(
+        shape=f"({m}x{k}).({k}x{n}) as {rel.capacity} tuples",
+        schedule=dataclasses.asdict(mod.schedule(m, k, n, rel.capacity,
+                                                 b.dtype)),
         ms=time_ms(lambda: mod.relational_matmul(*args)),
+        device_ms=device_ms(device_events(
+            lambda: mod.relational_matmul(*args))),
         plain_ms=time_ms(lambda: mod.plain(*args), iters=5),
         bound_ms=bms, bound_by=by,
-        library_ms=time_ms(lambda: torch.sparse.mm(coo, b)),
-        shape=f"({N_ROWS}x{k}).({k}x{n}) as {nnz} tuples")
+        library_ms=time_ms(lambda: torch.sparse.mm(coo, b)))
 
 
 # DeepSeek-V2-Lite prefill's MoE combine: 8000 tokens x top-6 = 48,000
@@ -267,55 +324,82 @@ def check_relmm_combine(mod, report):
     args = (rows, cols, vals, b, t)
     err = max_err(mod.relational_matmul(*args), mod.plain(*args), F32_TOL,
                   f"relmm MoE combine {COMBINE}")
+    same_bits(mod, rows, cols, vals, b, t, f"relmm MoE combine {COMBINE}")
     coo = torch.sparse_coo_tensor(torch.stack([rows.long(), cols.long()]),
                                   vals, (t, slots),
                                   check_invariants=True).coalesce()
     named = len(np.unique(cols_np))
-    bms, by = bound_ms(12 * nnz + 4 * named * d + 4 * t * d, 2 * nnz * d)
+    bms, by = relmm_bound(nnz, named, t, d, 4)
+    events = device_events(lambda: mod.relational_matmul(*args), 10)
+    b16 = b.to(torch.bfloat16)
+    args16 = (rows, cols, vals, b16, t)
+    events16 = device_events(lambda: mod.relational_matmul(*args16), 10)
+    bms16, by16 = relmm_bound(nnz, named, t, d, 2)
     out = dict(
         shape=f"{nnz} tuples ({COMBINE_DROPPED:.0%} dropped) into {t}x{d} "
               f"from ({slots}x{d}) float32",
         max_abs_err=err,
         ms=time_ms(lambda: mod.relational_matmul(*args)),
-        device=device_events(lambda: mod.relational_matmul(*args), 10),
+        device=events, device_ms=device_ms(events),
         plain_ms=time_ms(lambda: mod.plain(*args), iters=5),
         bound_ms=bms, bound_by=by,
-        library_ms=time_ms(lambda: torch.sparse.mm(coo, b)))
+        library_ms=time_ms(lambda: torch.sparse.mm(coo, b)),
+        schedule=dataclasses.asdict(mod.schedule(t, slots, d, nnz,
+                                                 b.dtype)),
+        # the expert rows in bf16, as the MoE layer gives them
+        bf16=dict(ms=time_ms(lambda: mod.relational_matmul(*args16)),
+                  device=events16, device_ms=device_ms(events16),
+                  plain_ms=time_ms(lambda: mod.plain(*args16), iters=5),
+                  bound_ms=bms16, bound_by=by16),
+        # the float32 copy of bf16 expert rows that the MoE layer made
+        # before the combine took bf16 rows
+        copy_bf16_to_f32_ms=time_ms(lambda: b16.to(torch.float32)))
     report["relational_matmul"]["combine"] = out
     log(f"relational_matmul at the MoE combine ({out['shape']}): "
-        f"{out['ms']:.4f} ms a call, device {device_ms(out['device']):.4f} "
-        f"ms, plain {out['plain_ms']:.4f} ms, torch.sparse.mm "
+        f"{out['ms']:.4f} ms a call, device {out['device_ms']:.4f} "
+        f"ms in {events}, plain {out['plain_ms']:.4f} ms, torch.sparse.mm "
         f"{out['library_ms']:.4f} ms, bound {bms:.4f} ms ({by}), max |err| "
-        f"{err:.3e}")
+        f"{err:.3e}; a bf16 -> float32 copy of the expert rows "
+        f"{out['copy_bf16_to_f32_ms']:.4f} ms")
+    r = out["bf16"]
+    log(f"relational_matmul at the MoE combine, b in bf16: {r['ms']:.4f} ms "
+        f"a call, device {r['device_ms']:.4f} ms in {events16}, plain "
+        f"{r['plain_ms']:.4f} ms, bound {bms16:.4f} ms ({by16}), bit for bit "
+        f"the result for its float32 widening")
 
 
-def profiled(fn, calls: int = 1) -> list:
+def profiled(fn, calls: int = 1, sessions: int = 3) -> list:
     """The device events of ``calls`` calls of ``fn`` under torch.profiler,
     in order.  The session runs ``fn`` once first, then three marker
     kernels (``torch.cuda._sleep``), and keeps only the events after the
     last marker it holds: on an H100 a session's first one or two device
     events were at times missing from it (after an idle spell, or many
     launches), and where ``fn`` is one kernel those can take the first
-    marker with them."""
+    marker with them.  A session that holds none of its markers (seen
+    once, in the first session of a process) is run again, up to
+    ``sessions`` in all."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-        for _ in range(3):
-            torch.cuda._sleep(1000)
-        torch.cuda.synchronize()
-        for _ in range(calls):
+    for session in range(1, sessions + 1):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
             fn()
-        torch.cuda.synchronize()
-    events = sorted((e for e in prof.events()
-                     if e.device_type == torch.autograd.DeviceType.CUDA),
-                    key=lambda e: e.time_range.start)
-    marks = [i for i, e in enumerate(events) if "spin_kernel" in e.name]
-    if not marks:
-        raise AssertionError("the profiler's events lack the marker kernel")
-    return events[marks[-1] + 1:]
+            torch.cuda.synchronize()
+            for _ in range(3):
+                torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        events = sorted((e for e in prof.events()
+                         if e.device_type == torch.autograd.DeviceType.CUDA),
+                        key=lambda e: e.time_range.start)
+        marks = [i for i, e in enumerate(events) if "spin_kernel" in e.name]
+        if marks:
+            return events[marks[-1] + 1:]
+        log(f"profiler session {session} of {sessions} held none of its "
+            f"marker kernels ({len(events)} device events)")
+    raise AssertionError("the profiler's events lack the marker kernel")
 
 
 def device_events(fn, calls: int = 20) -> dict:
@@ -521,31 +605,70 @@ def check_moe_dispatch(mod, report):
     live[torch.tensor(rng.permutation(slots)[:MOE_LIVE], device="cuda")] = True
     idx = torch.where(live, torch.tensor(rng.randint(0, t, slots),
                                          dtype=torch.int32, device="cuda"), 0)
-    idx = idx.to(torch.int32)
-    gates = live.to(torch.float32)
+    layouts = {"random": (idx.to(torch.int32), live.to(torch.float32)),
+               "bucket-sorted": bucket_layout(rng)}
     x = torch.tensor(rng.randn(t, d), dtype=torch.float32,
                      device="cuda").to(torch.bfloat16)
-    err = max_err(mod.moe_dispatch(x, idx, gates), mod.plain(x, idx, gates),
-                  None, "moe_dispatch main bucket fill bf16")
+    err = 0.0
+    for what, (idx, gates) in layouts.items():
+        err = max(err, max_err(mod.moe_dispatch(x, idx, gates),
+                               mod.plain(x, idx, gates), None,
+                               f"moe_dispatch main bucket fill bf16, {what}"))
     expect_raise(ValueError, lambda: mod.moe_dispatch(x, idx + t, gates),
                  "moe_dispatch index out of range")
+    max_err(mod.moe_dispatch(x, idx, gates), mod.plain(x, idx, gates), None,
+            "moe_dispatch after a bad call")
     bms, by = bound_ms(8 * slots + 2 * t * d + 2 * slots * d, slots * d)
+    timed_layouts = {}
+    for what, (idx, gates) in layouts.items():
+        events = device_events(lambda: mod.moe_dispatch(x, idx, gates))
+        timed_layouts[what] = dict(
+            ms=time_ms(lambda: mod.moe_dispatch(x, idx, gates)),
+            device_ms=device_ms(events), device_events=events,
+            plain_ms=time_ms(lambda: mod.plain(x, idx, gates)),
+            # two PyTorch calls, a yardstick: no single call gathers and
+            # scales
+            library_ms=time_ms(lambda: x.index_select(0, idx)
+                               * gates.to(x.dtype)[:, None]))
+    # the output's bytes written alone, by one zero fill: what the card's
+    # write rate makes of the 247.5 MB
+    fill = torch.empty((slots, d), dtype=x.dtype, device="cuda")
+    fill_ms = time_ms(fill.zero_)
     report["moe_dispatch"] = dict(
         name="moe_dispatch", route="cuda",
         source="src/repro_torch/kernels/csrc/moe_dispatch.cu",
         replaces="src/repro/kernels/moe_dispatch.py:27",
-        max_abs_err=err,
-        ms=time_ms(lambda: mod.moe_dispatch(x, idx, gates)),
-        plain_ms=time_ms(lambda: mod.plain(x, idx, gates)),
-        bound_ms=bms, bound_by=by,
-        # two PyTorch calls, a yardstick: no single call gathers and scales
-        library_ms=time_ms(lambda: x.index_select(0, idx)
-                           * gates.to(x.dtype)[:, None]),
+        max_abs_err=err, **timed_layouts["random"],
+        bound_ms=bms, bound_by=by, fill_ms=fill_ms,
         library="two PyTorch calls: x.index_select(0, idx) * gates",
         shape=f"x ({t},{d}) bf16 into {e}x{cap} = {slots} slots, "
-              f"{MOE_LIVE} live")
+              f"{MOE_LIVE} live", layouts=timed_layouts)
     log(f"moe_dispatch vs plain: exact over the sweep and the main shape "
-        f"in float32 and bf16")
+        f"in float32 and bf16, a good call after a bad one exact; a zero "
+        f"fill of the output's {2 * slots * d / 1e6:.1f} MB {fill_ms:.4f} ms")
+    for what, r in timed_layouts.items():
+        log(f"moe_dispatch {what} layout: {r['ms']:.4f} ms a call, device "
+            f"{r['device_ms']:.4f} ms in {r['device_events']}, plain "
+            f"{r['plain_ms']:.4f} ms, index_select * gates "
+            f"{r['library_ms']:.4f} ms, bound {bms:.4f} ms ({by})")
+
+
+def bucket_layout(rng):
+    """The slot layout ``nn/moe.py::_moe_sort`` builds for one group of
+    MOE_MAIN's tokens, each routed to 6 distinct experts at random: each
+    expert's bucket holds its tokens in ascending order for each routing
+    rank in turn, the empty slots take row 0 with gate 0.  Returns (int32
+    row of each slot, float32 gate)."""
+    from repro_torch.nn import moe
+    t, e, cap, _ = MOE_MAIN
+    top = np.argsort(rng.rand(t, e), axis=1)[:, :MOE_LIVE // t]
+    idx = torch.tensor(top[None], dtype=torch.int64, device="cuda")
+    slot_token, slot_live, _ = moe._sort_relation(idx, cap, e)
+    if int(slot_live.sum()) != MOE_LIVE:
+        raise AssertionError(f"bucket layout: {int(slot_live.sum())} live "
+                             f"slots, expected {MOE_LIVE}")
+    src = torch.where(slot_live, slot_token, 0).reshape(-1)
+    return src.to(torch.int32), slot_live.reshape(-1).to(torch.float32)
 
 
 FLASH_MAIN = (4, 32, 4, 2000, 128)      # Yi-6B prefill: B, Hq, Hkv, S, D
@@ -975,9 +1098,18 @@ def device_profile(fn, wall_ms: float, what: str, card: str) -> dict:
     if flash_ms:
         log(f"  flash_attention kernels: {flash_ms:.4f} ms, "
             f"{flash_ms / device:.4f} of device time")
+    # copies and casts: PyTorch's copy kernels (a type conversion is one)
+    # and the runtime's memcpys
+    copies = {name: ms for name, ms in by_name.items()
+              if "copy" in name.lower()}
+    copies_ms = sum(copies.values())
+    if n_events:
+        log(f"  copies and casts: {copies_ms:.4f} ms in "
+            f"{sum(counts[name] for name in copies)} events")
     return dict(wall_ms=wall_ms, device_ms=device,
                 busy_share=device / wall_ms, device_events=n_events,
-                top_ms=top, flash_ms=flash_ms, counts=counts)
+                top_ms=top, flash_ms=flash_ms, copies_ms=copies_ms,
+                counts=counts)
 
 
 def profile_step(counters, core, nn2sql, data_mod, result):
@@ -986,8 +1118,8 @@ def profile_step(counters, core, nn2sql, data_mod, result):
     under torch.profiler for the device time by kernel name.  The kernels
     run on one stream and never overlap, so their sum over the unprofiled
     wall time is the device's busy share.  Every launch of the engine's
-    kernel that its wrapper counts in the measured step must be among the
-    profiler's events."""
+    kernel that its wrapper counts in one step must be among the
+    profiler's events of the measured step."""
     x, y = data_mod.make_mnist_like(N_ROWS)
     spec = nn2sql.MLPSpec(N_ROWS, N_FEAT, N_HID, N_CLS, lr=LR)
     graph, w0 = nn2sql.build_graph(spec), nn2sql.init_weights(spec)
@@ -1000,15 +1132,16 @@ def profile_step(counters, core, nn2sql, data_mod, result):
         wall = min(timed(step)[1] for _ in range(5)) * 1e3
         wrapper, kernel = {
             "dense": (counters["fused_sigmoid_matmul"], "sigmoid_matmul"),
-            "relational": (counters["relational_matmul"], "segment_spmm")}[kind]
-        wrapper.launches = 0
+            "relational": (counters["relational_matmul"], "_spmm")}[kind]
+        before = wrapper.launches
+        step()
+        per_step = wrapper.launches - before
         out[kind] = device_profile(step, wall, f"{kind} step", result["card"])
         seen = sum(n for name, n in out[kind]["counts"].items()
                    if kernel in name)
-        if 2 * seen != wrapper.launches:      # profiled runs the step twice
+        if seen != per_step:
             raise AssertionError(f"profile {kind} step: {seen} {kernel} "
-                                 f"events for {wrapper.launches // 2} "
-                                 "launches")
+                                 f"events for {per_step} launches a step")
     result["profile"] = out
 
 
@@ -1998,13 +2131,25 @@ def main() -> int:
     w = nn2sql.init_weights(nn2sql.MLPSpec(N_ROWS, N_FEAT, N_HID, N_CLS))
     data = dict(img=x, labels=y, **w)
     report = {}
-    check_relational(relational_matmul, RelTensor, data, report)
-    check_relmm_combine(relational_matmul, report)
-    check_fused(fused_sigmoid_matmul, data, report)
-    check_onehot(onehot_embed, data, report)
-    check_moe_dispatch(moe_dispatch, report)
-    check_flash(flash_attention, report)
-    check_rwkv6(rwkv6_scan, report)
+    checks = {
+        "relational_matmul": lambda: (
+            check_relational(relational_matmul, RelTensor, data, report),
+            check_relmm_combine(relational_matmul, report)),
+        "fused_sigmoid_matmul": lambda: check_fused(fused_sigmoid_matmul,
+                                                    data, report),
+        "onehot_embed": lambda: check_onehot(onehot_embed, data, report),
+        "moe_dispatch": lambda: check_moe_dispatch(moe_dispatch, report),
+        "flash_attention": lambda: check_flash(flash_attention, report),
+        "rwkv6_scan": lambda: check_rwkv6(rwkv6_scan, report)}
+    kernels_only = sys.argv[1:2] == ["--kernels"]
+    unknown = set(sys.argv[2:]) - set(checks)
+    if sys.argv[1:] and not kernels_only or unknown:
+        print(f"chip_smoke: usage: chip_smoke.py [--kernels [name ...]], "
+              f"names from {sorted(checks)}", file=sys.stderr)
+        return 2
+    for name, check in checks.items():
+        if name in sys.argv[2:] or len(sys.argv) <= 2:
+            check()
     torch.cuda.synchronize()
     for r in report.values():
         lib = r["library_ms"]
@@ -2015,6 +2160,11 @@ def main() -> int:
             f"{r['max_abs_err']:.3e}")
 
     result = {"card": card, "build_s": t_build, "kernels": report}
+    if kernels_only:
+        OUT_DIR.mkdir(exist_ok=True)
+        (OUT_DIR / "chip_smoke_kernels.json").write_text(
+            json.dumps(result, indent=1))
+        return 0
     counters = {"relational_matmul": relational_matmul.relational_matmul,
                 "fused_sigmoid_matmul":
                     fused_sigmoid_matmul.fused_sigmoid_matmul,

@@ -2,11 +2,11 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and compiles with ``nvcc``
 alone into ``build/repro_torch_kernels/lib<name>-<hash>.so`` at the root of
-the checkout (the hash covers the source and the flags, so an edited source
-never loads a stale library).  Sources that are not built yet are compiled
-in parallel, one ``nvcc`` each, all started together.  Nothing here runs at
-import: the CPU tests import every module and this host may have no
-``nvcc``.
+the checkout (the hash covers the source, the ``csrc/*.cuh`` headers and
+the flags, so an edited source never loads a stale library).  Sources that
+are not built yet are compiled in parallel, one ``nvcc`` each, all started
+together.  Nothing here runs at import: the CPU tests import every module
+and this host may have no ``nvcc``.
 """
 from __future__ import annotations
 
@@ -50,6 +50,8 @@ def _nvcc() -> str:
 
 def target(name: str) -> Path:
     digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):      # what a source includes
+        digest.update(header.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 

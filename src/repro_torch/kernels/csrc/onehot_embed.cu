@@ -27,30 +27,16 @@
 // word) runs 10.  Each id is checked against v; a bad id writes zeros
 // instead of reading out of bounds, and raises the status flag.
 //
-// The status flag and the wait.  A call must raise IndexError for a bad id
-// before anyone uses the result, which takes one wait for the kernel.  A
-// zeroed device word a call costs a memset launch, and reading it back
-// (err.item()) a device-to-host copy and a full synchronisation.  Here
-// each device has one flag for the life of the process,
-// in pinned host memory mapped into the device's address space
-// (cudaHostAlloc(cudaHostAllocMapped)), made at the first call; a kernel
-// writes it only on a bad id (a plain store of 1: every writer stores the
-// same value).  The launcher records an event on the stream right after the
-// kernel and waits on that event alone (cudaEventSynchronize), not on the
-// device, then reads the flag from host memory and clears it, so a call
-// that follows a bad one starts clean: one kernel launch a call, no memset,
-// no copy.  Calls on one device hold that device's mutex from the launch to
-// the clear, so two host threads calling at once run one after the other,
-// and each reads the flag of its own kernel and no other.
+// The status flag and the wait: status_flag.cuh.  A call is one kernel
+// launch and one wait for that kernel, with no memset and no copy.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include <mutex>
+#include "status_flag.cuh"
 
 namespace {
 
 constexpr int kWarps = 4;                 // warps a block
-constexpr int kMaxDevices = 64;
 constexpr int kBadId = -1;                // onehot_launch's return for a bad id
 
 template <typename W>
@@ -88,43 +74,6 @@ void launch(const void* ids, const void* table, void* out, int t, int v,
       static_cast<W*>(out), t, v, row_words, rows_per_warp, bad);
 }
 
-// One device's status flag (host side and the device's view of it), the
-// event a call waits on, and the lock that keeps calls apart.
-struct Status {
-  std::mutex lock;
-  volatile int32_t* host = nullptr;
-  int32_t* dev = nullptr;
-  cudaEvent_t done = nullptr;
-};
-Status status[kMaxDevices];
-
-cudaError_t ready(Status& st) {
-  if (st.done) return cudaSuccess;
-  void* host;
-  cudaError_t e = cudaHostAlloc(&host, sizeof(int32_t), cudaHostAllocMapped);
-  if (e != cudaSuccess) return e;
-  *static_cast<volatile int32_t*>(host) = 0;
-  void* dev;
-  e = cudaHostGetDevicePointer(&dev, host, 0);
-  if (e == cudaSuccess)
-    e = cudaEventCreateWithFlags(&st.done, cudaEventDisableTiming);
-  if (e != cudaSuccess) {
-    cudaFreeHost(host);
-    st.done = nullptr;
-    return e;
-  }
-  st.host = static_cast<volatile int32_t*>(host);
-  st.dev = static_cast<int32_t*>(dev);
-  return cudaSuccess;
-}
-
-cudaError_t use_device(int device) {
-  int current;
-  const cudaError_t e = cudaGetDevice(&current);
-  if (e != cudaSuccess) return e;
-  return current == device ? cudaSuccess : cudaSetDevice(device);
-}
-
 }  // namespace
 
 // ids: int32[t]; table: [v, row_bytes] bytes; out: [t, row_bytes] bytes;
@@ -134,26 +83,23 @@ cudaError_t use_device(int device) {
 extern "C" int onehot_launch(const void* ids, const void* table, void* out,
                              int t, int v, int row_bytes, int word,
                              int device, void* stream) {
-  if (device < 0 || device >= kMaxDevices) return cudaErrorInvalidDevice;
-  cudaError_t e = use_device(device);
+  Status* st;
+  cudaError_t e = open_status(device, &st);
   if (e != cudaSuccess) return e;
-  Status& st = status[device];
-  std::lock_guard<std::mutex> hold(st.lock);
-  e = ready(st);
+  std::lock_guard<std::mutex> hold(st->lock);
+  e = ready(*st);
   if (e != cudaSuccess) return e;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int32_t* flag = st->dev;
   switch (word) {
-    case 16: launch<uint4>(ids, table, out, t, v, row_bytes, st.dev, s); break;
-    case 8: launch<uint2>(ids, table, out, t, v, row_bytes, st.dev, s); break;
-    case 4: launch<uint32_t>(ids, table, out, t, v, row_bytes, st.dev, s); break;
-    case 2: launch<uint16_t>(ids, table, out, t, v, row_bytes, st.dev, s); break;
+    case 16: launch<uint4>(ids, table, out, t, v, row_bytes, flag, s); break;
+    case 8: launch<uint2>(ids, table, out, t, v, row_bytes, flag, s); break;
+    case 4: launch<uint32_t>(ids, table, out, t, v, row_bytes, flag, s); break;
+    case 2: launch<uint16_t>(ids, table, out, t, v, row_bytes, flag, s); break;
     default: return cudaErrorInvalidValue;
   }
-  e = cudaGetLastError();
-  if (e == cudaSuccess) e = cudaEventRecord(st.done, s);
-  if (e == cudaSuccess) e = cudaEventSynchronize(st.done);
+  int bad;
+  e = take_flags(*st, s, &bad);
   if (e != cudaSuccess) return e;
-  if (!*st.host) return 0;
-  *st.host = 0;
-  return kBadId;
+  return bad ? kBadId : 0;
 }

@@ -3,49 +3,97 @@
 //
 //   out[i, :] = sum_{t : row_ids[t] = i} vals[t] * b[col_ids[t], :]
 //
+// with b float32 or bf16 (each value widened to float32 exactly, as the JAX
+// kernel's rhs[cols] * vals.astype(f32) widens it) and float32 sums.
 // Replaces the Pallas TPU kernel src/repro/kernels/relational_matmul.py::
 // relational_matmul.  Plain twin: repro_torch.kernels.ref.relational_matmul.
 //
 // What bounds it on an H100.  Counted once, the work is 2*nnz*n float32
-// FLOPs against 12*nnz + 4*k*n + 4*m*n bytes: on the main path
-// ((2000x784).(784x200)) that is ~30 FLOP/byte, above the card's ~20
-// FLOP/byte float32 (non-tensor-core) ridge, so the roofline bound is the
-// 67 TFLOP/s FMA rate.  In practice the kernel is held by the gather: each
-// FMA needs one 4-byte load of b, served from L1/L2 (b, at most 784 x 200
-// floats on the main path, lives in the 50 MB L2), so load issue and
-// L1/L2 bandwidth, not HBM, set its speed.
+// FLOPs against the tuples (12 bytes each), the rows of b they name and the
+// float32 output.  On the paper's MLP step ((2000x784).(784x200) and its
+// backward products) that is ~30 FLOP/byte, above the card's ~20 FLOP/byte
+// float32 ridge, so the roofline bound is the 67 TFLOP/s FMA rate; at the
+// MoE combine (48,000 tuples into 8000 x 2048 from 60,416 expert rows, 6
+// tuples a row) it is bytes.  What holds a gather below either: every FMA
+// needs its own value of b, so where b is read from L2 per tuple (the first
+// design: one warp a row, a 4-byte load a FMA), L2 bandwidth sets the
+// speed: 1.25 GB through L2 for the 313.6 M FMAs of the MLP's first layer.
 //
 // Design.  The TPU kernel does the group-by as onehot(row_ids)^T . scaled on
 // the MXU; on a GPU that is m-fold redundant work.  Here the group-by is a
-// sorted-segment reduction instead: every RelTensor the engine builds has
-// row_ids non-decreasing with the padding rows (row_ids == m) last, so
+// sorted-segment reduction: every RelTensor the engine builds has row_ids
+// non-decreasing with the padding rows (row_ids == m) last, so
 //   1. segment_offsets: offsets[r] = first t with row_ids[t] >= r, one
 //      thread per tuple; it also validates the relation (sorted, rows in
-//      0..m, cols in 0..k-1) into an error word the wrapper checks before
-//      step 2 runs, so step 2 never reads out of bounds;
-//   2. segment_spmm: one warp owns one output row x one 128-column tile of
-//      b.  The warp loads 32 (col, val) tuples of its segment at once,
-//      broadcasts them with shuffles, gathers the b row tile (coalesced:
-//      lane l reads columns l, l+32, l+64, l+96), and accumulates in f32
-//      registers.  It stores once.  Padding tuples lie past offsets[m] and
-//      are never read.  No atomics: each output element has exactly one
-//      owner and sums in tuple order, so the result is deterministic.  The
-//      (nnz x n) join intermediate of the plain version never exists.
-// Ragged n (200, 10, 3) and ragged segments are masked, not rejected.
+//      0..m, cols in 0..k-1) into two status flags that the launcher reads
+//      after waiting for this kernel alone (status_flag.cuh: no memset, no
+//      copy), so step 2 runs only on a checked relation and never reads out
+//      of bounds.  Padding tuples lie past offsets[m] and are never read.
+//   2. one of two schedules, which the wrapper picks from the shape
+//      (relational_matmul.schedule):
+//      (a) slab_spmm, where a k x tile_n slab of b fits in shared memory,
+//          the relation has at least k tuples and its segments average 32
+//          or more (the MLP products but Eq8's 10 tuples a row).  A
+//          block of 16 warps copies the slab b[:, c0 : c0 + tile_n] into
+//          shared memory once (4-byte cp.async, widened for bf16), then
+//          walks its rows' segments gathering b from shared memory: every
+//          value comes from L2 once a block instead of once a tuple, and
+//          the floor becomes shared-memory bandwidth (4 bytes a FMA, ~0.042
+//          ms for the 313.6 M FMAs of the first layer).  tile_n is a power
+//          of two from 4 to 256; each lane owns 4 or 8 columns (one or two
+//          16-byte shared loads a tuple), `lanes` = tile_n / (4 or 8) lanes
+//          share a tuple and the warp's 32 / lanes groups take tuples
+//          g, g + groups, ... of the segment, so at n <= 32 lanes take
+//          tuples, not columns.  At tile_n >= 32 the 8 lanes of one
+//          shared-memory phase read 128 contiguous bytes of one row: no bank
+//          conflict, whatever the rows.  Each warp stages 128 tuples at a
+//          time in shared memory as (row offset in the slab, value) pairs,
+//          which a group reads as one broadcast 8-byte word; the next 128
+//          come from device memory into registers meanwhile.  A fixed-order
+//          butterfly over the groups ends a segment.  Where rows are few and
+//          segments long, `split` warps share one row, each a part cut at a
+//          multiple of the group count, and their sums are added in part
+//          order through shared memory, so enough warps work.
+//      (b) stream_spmm, otherwise (the MoE combine, Eq8).  One warp owns
+//          one row x 512 columns; it loads up to 32 of its tuples at once,
+//          broadcasts each with shuffles and reads the named row of b in
+//          16-byte vectors (4 float32 or 8 bf16 values; one value a load
+//          where n or b's base does not allow 16 bytes) with a streaming
+//          (evict-first) load, since each row is read about once, two
+//          tuples' loads in flight before their FMAs.
+// No atomics: each output element has exactly one owner and sums in a fixed
+// order (tuple order in (b); per group then a fixed tree in (a)), so the
+// result is the same from run to run, and a bf16 b gives the bits of its
+// float32 widening: the schedule does not depend on b's type.  The (nnz x n)
+// join intermediate of the plain version never exists.  Ragged n and ragged
+// segments are masked, not rejected.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "status_flag.cuh"
+
 namespace {
 
-constexpr int kRowsPerBlock = 8;               // one warp per output row
-constexpr int kColsPerLane = 4;
-constexpr int kTileN = 32 * kColsPerLane;      // columns of b per warp
+constexpr int kFlagRange = 0;     // a row id outside 0..m, a col outside 0..k-1
+constexpr int kFlagUnsorted = 1;  // row_ids not sorted with the padding last
+constexpr int kSlabWarps = 16;
+constexpr int kStage = 128;         // tuples a warp stages at a time
+constexpr int kStageBytes = kSlabWarps * kStage * 8;
+constexpr int kSmemLimit = 232448;  // shared memory a block can have
+constexpr int kStreamWarps = 8;
+constexpr int kStreamCols = 512;    // columns a stream warp sums: 16 a lane
+
+// bf16 is the high half of a float32: shifting its bits up widens it exactly
+__device__ __forceinline__ float widen_bits(uint32_t bf16_bits) {
+  return __uint_as_float(bf16_bits << 16);
+}
 
 __global__ void segment_offsets(const int32_t* __restrict__ row_ids,
                                 const int32_t* __restrict__ col_ids,
                                 int32_t nnz, int32_t m, int32_t k,
                                 int32_t* __restrict__ offsets,
-                                int32_t* __restrict__ err) {
+                                volatile int32_t* flags) {
   const int32_t t = blockIdx.x * blockDim.x + threadIdx.x;
   if (t > nnz) return;
   const int32_t prev = t == 0 ? -1 : row_ids[t - 1];
@@ -53,12 +101,12 @@ __global__ void segment_offsets(const int32_t* __restrict__ row_ids,
   if (t < nnz) {
     const int32_t c = col_ids[t];
     if (cur < 0 || cur > m || c < 0 || c >= k) {
-      atomicOr(err, 1);
+      flags[kFlagRange] = 1;
       return;
     }
   }
   if (cur < prev) {
-    atomicOr(err, 2);
+    flags[kFlagUnsorted] = 1;
     return;
   }
   // Rows prev+1 .. cur start at tuple t (empty rows share it).  A prev out
@@ -66,21 +114,206 @@ __global__ void segment_offsets(const int32_t* __restrict__ row_ids,
   for (int32_t r = max(prev, -1) + 1; r <= cur; ++r) offsets[r] = t;
 }
 
-__global__ void __launch_bounds__(32 * kRowsPerBlock)
-segment_spmm(const int32_t* __restrict__ offsets,
-             const int32_t* __restrict__ col_ids,
-             const float* __restrict__ vals, const float* __restrict__ b,
-             float* __restrict__ out, int32_t m, int32_t n) {
-  const int lane = threadIdx.x & 31;
-  const int32_t row = blockIdx.x * kRowsPerBlock + (threadIdx.x >> 5);
-  if (row >= m) return;                        // the whole warp leaves
-  const int32_t c0 = blockIdx.y * kTileN + lane;
-  float acc[kColsPerLane];
-#pragma unroll
-  for (int q = 0; q < kColsPerLane; ++q) acc[q] = 0.f;
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(s), "l"(src));
+}
 
-  const int32_t beg = offsets[row];
-  const int32_t end = offsets[row + 1];
+// b[:, c0 : c0 + width] into slab rows of tile_n floats, zeros past width.
+__device__ __forceinline__ void fill_slab(float* slab, const float* b,
+                                          int32_t k, int32_t n, int32_t c0,
+                                          int32_t width, int32_t tile_n) {
+  const int shift = __ffs(tile_n) - 1;
+  for (int32_t i = threadIdx.x; i < k * tile_n; i += blockDim.x) {
+    const int32_t r = i >> shift, c = i & (tile_n - 1);
+    if (c < width)
+      cp_async4(slab + i, b + static_cast<int64_t>(r) * n + c0 + c);
+    else
+      slab[i] = 0.f;
+  }
+  asm volatile("cp.async.wait_all;" ::: "memory");
+}
+
+__device__ __forceinline__ void fill_slab(float* slab,
+                                          const __nv_bfloat16* b, int32_t k,
+                                          int32_t n, int32_t c0, int32_t width,
+                                          int32_t tile_n) {
+  const uint16_t* bits = reinterpret_cast<const uint16_t*>(b);
+  const int shift = __ffs(tile_n) - 1;
+  for (int32_t i = threadIdx.x; i < k * tile_n; i += blockDim.x) {
+    const int32_t r = i >> shift, c = i & (tile_n - 1);
+    slab[i] = c < width
+        ? widen_bits(__ldg(bits + static_cast<int64_t>(r) * n + c0 + c))
+        : 0.f;
+  }
+}
+
+// Schedule (a).  P: 16-byte shared loads a lane per tuple (4 P columns).
+template <typename T, int P>
+__global__ void __launch_bounds__(32 * kSlabWarps)
+slab_spmm(const int32_t* __restrict__ offsets,
+          const int32_t* __restrict__ col_ids,
+          const float* __restrict__ vals, const T* __restrict__ b,
+          float* __restrict__ out, int32_t m, int32_t k, int32_t n,
+          int32_t tile_n, int32_t rows_per_block, int32_t split) {
+  extern __shared__ float4 smem[];
+  float* slab = reinterpret_cast<float*>(smem);
+  int2* stage = reinterpret_cast<int2*>(slab + k * tile_n);
+  float* partial = reinterpret_cast<float*>(stage);  // the split's sums
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int32_t c0 = blockIdx.y * tile_n;
+  const int32_t width = min(tile_n, n - c0);
+  fill_slab(slab, b, k, n, c0, width, tile_n);
+  __syncthreads();
+
+  const int lanes = tile_n / (4 * P);          // lanes that share a tuple
+  const int groups = 32 / lanes;
+  const int g = lane / lanes, q = lane % lanes;
+  const int per_round = kSlabWarps / split;
+  const int part = warp % split;
+  const int32_t row0 = blockIdx.x * rows_per_block;
+  const int32_t rows = min(rows_per_block, m - row0);
+  int2* my_stage = stage + warp * kStage;
+  for (int32_t r0 = 0; r0 < rows; r0 += per_round) {
+    const int32_t rl = r0 + warp / split;
+    const bool live = rl < rows;               // uniform across the warp
+    const int32_t row = row0 + rl;
+    float acc[4 * P];
+#pragma unroll
+    for (int j = 0; j < 4 * P; ++j) acc[j] = 0.f;
+    if (live) {
+      const int32_t beg = offsets[row], end = offsets[row + 1];
+      int32_t chunk = (end - beg + split - 1) / split;
+      chunk = (chunk + groups - 1) / groups * groups;
+      const int32_t pb = min(end, beg + part * chunk);
+      const int32_t pe = min(end, pb + chunk);
+      // Each lane holds its share of the next chunk's tuples in registers,
+      // loaded while the warp works on the chunk before.
+      int32_t next_col[kStage / 32];
+      float next_val[kStage / 32];
+      auto fetch = [&](int32_t from) {
+#pragma unroll
+        for (int j = 0; j < kStage / 32; ++j) {
+          const int32_t t = from + lane + 32 * j;
+          next_col[j] = t < pe ? __ldg(col_ids + t) : 0;
+          next_val[j] = t < pe ? __ldg(vals + t) : 0.f;
+        }
+      };
+      fetch(pb);
+      for (int32_t base = pb; base < pe; base += kStage) {
+        const int cnt = min(kStage, pe - base);
+        __syncwarp();
+#pragma unroll
+        for (int j = 0; j < kStage / 32; ++j)
+          my_stage[lane + 32 * j] = make_int2(next_col[j] * tile_n,
+                                              __float_as_int(next_val[j]));
+        __syncwarp();
+        fetch(base + kStage);
+#pragma unroll 4
+        for (int i = g; i < cnt; i += groups) {
+          const int2 tv = my_stage[i];
+          const float v = __int_as_float(tv.y);
+          const float* brow = slab + tv.x + 4 * q;
+#pragma unroll
+          for (int p = 0; p < P; ++p) {
+            const float4 w =
+                *reinterpret_cast<const float4*>(brow + 4 * lanes * p);
+            acc[4 * p + 0] = fmaf(v, w.x, acc[4 * p + 0]);
+            acc[4 * p + 1] = fmaf(v, w.y, acc[4 * p + 1]);
+            acc[4 * p + 2] = fmaf(v, w.z, acc[4 * p + 2]);
+            acc[4 * p + 3] = fmaf(v, w.w, acc[4 * p + 3]);
+          }
+        }
+      }
+      for (int off = lanes; off < 32; off <<= 1) {
+#pragma unroll
+        for (int j = 0; j < 4 * P; ++j)
+          acc[j] += __shfl_xor_sync(0xffffffffu, acc[j], off);
+      }
+    }
+    if (split > 1) {                           // add the parts in order
+      __syncthreads();                         // the stage is free
+      if (live && g == 0) {
+#pragma unroll
+        for (int j = 0; j < 4 * P; ++j)
+          partial[warp * tile_n + 4 * q + 4 * lanes * (j / 4) + j % 4] = acc[j];
+      }
+      __syncthreads();
+      if (live && g == 0 && part == 0) {
+        for (int s = 1; s < split; ++s) {
+#pragma unroll
+          for (int j = 0; j < 4 * P; ++j)
+            acc[j] += partial[(warp + s) * tile_n + 4 * q +
+                              4 * lanes * (j / 4) + j % 4];
+        }
+      }
+      __syncthreads();                         // before the next staging
+    }
+    if (live && g == 0 && part == 0) {
+      float* orow = out + static_cast<int64_t>(row) * n + c0;
+#pragma unroll
+      for (int j = 0; j < 4 * P; ++j) {
+        const int col = 4 * q + 4 * lanes * (j / 4) + j % 4;
+        if (col < width) orow[col] = acc[j];
+      }
+    }
+  }
+}
+
+// Schedule (b)'s loads: R is what one load reads (16 bytes, or one value),
+// unpacked into its float32 values.
+template <typename R> struct Load;
+template <> struct Load<float4> {
+  static constexpr int kEl = 4;
+  static __device__ __forceinline__ void get(const void* p, float* v) {
+    const float4 w = __ldcs(static_cast<const float4*>(p));
+    v[0] = w.x, v[1] = w.y, v[2] = w.z, v[3] = w.w;
+  }
+};
+template <> struct Load<float> {
+  static constexpr int kEl = 1;
+  static __device__ __forceinline__ void get(const void* p, float* v) {
+    v[0] = __ldcs(static_cast<const float*>(p));
+  }
+};
+template <> struct Load<uint4> {                  // 8 bf16 values
+  static constexpr int kEl = 8;
+  static __device__ __forceinline__ void get(const void* p, float* v) {
+    const uint4 w = __ldcs(static_cast<const uint4*>(p));
+    const uint32_t words[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      v[2 * i] = widen_bits(words[i] & 0xffffu);
+      v[2 * i + 1] = __uint_as_float(words[i] & 0xffff0000u);
+    }
+  }
+};
+template <> struct Load<uint16_t> {               // one bf16 value
+  static constexpr int kEl = 1;
+  static __device__ __forceinline__ void get(const void* p, float* v) {
+    v[0] = widen_bits(__ldcs(static_cast<const unsigned short*>(p)));
+  }
+};
+
+// Schedule (b).  T: b's element type; R: one load.
+template <typename T, typename R>
+__global__ void __launch_bounds__(32 * kStreamWarps)
+stream_spmm(const int32_t* __restrict__ offsets,
+            const int32_t* __restrict__ col_ids,
+            const float* __restrict__ vals, const T* __restrict__ b,
+            float* __restrict__ out, int32_t m, int32_t n) {
+  constexpr int kEl = Load<R>::kEl;
+  constexpr int kLoads = kStreamCols / 32 / kEl;  // loads a lane per tuple
+  const int lane = threadIdx.x % 32;
+  const int32_t row = blockIdx.x * kStreamWarps + threadIdx.x / 32;
+  if (row >= m) return;                          // the whole warp leaves
+  const int32_t c0 = blockIdx.y * kStreamCols;
+  const int32_t width = min(kStreamCols, n - c0);
+  float acc[kStreamCols / 32];
+#pragma unroll
+  for (int j = 0; j < kStreamCols / 32; ++j) acc[j] = 0.f;
+
+  const int32_t beg = offsets[row], end = offsets[row + 1];
   for (int32_t base = beg; base < end; base += 32) {
     int32_t my_col = 0;
     float my_val = 0.f;
@@ -89,54 +322,159 @@ segment_spmm(const int32_t* __restrict__ offsets,
       my_val = vals[base + lane];
     }
     const int cnt = min(32, end - base);       // uniform across the warp
-    for (int s = 0; s < cnt; ++s) {
-      const int32_t c = __shfl_sync(0xffffffffu, my_col, s);
-      const float v = __shfl_sync(0xffffffffu, my_val, s);
-      const float* brow = b + static_cast<int64_t>(c) * n;
+    for (int s = 0; s < cnt; s += 2) {
+      const bool two = s + 1 < cnt;
+      const int32_t ca = __shfl_sync(0xffffffffu, my_col, s);
+      const float va = __shfl_sync(0xffffffffu, my_val, s);
+      const int32_t cb = __shfl_sync(0xffffffffu, my_col, two ? s + 1 : s);
+      const float vb = __shfl_sync(0xffffffffu, my_val, two ? s + 1 : s);
+      const T* rowa = b + static_cast<int64_t>(ca) * n + c0;
+      const T* rowb = b + static_cast<int64_t>(cb) * n + c0;
+      float wa[kStreamCols / 32], wb[kStreamCols / 32];
 #pragma unroll
-      for (int q = 0; q < kColsPerLane; ++q) {
-        const int32_t col = c0 + 32 * q;
-        if (col < n) acc[q] = fmaf(v, __ldg(brow + col), acc[q]);
+      for (int u = 0; u < kLoads; ++u) {
+        const int32_t col = (u * 32 + lane) * kEl;
+        if (col < width) {
+          Load<R>::get(rowa + col, wa + u * kEl);
+          if (two) Load<R>::get(rowb + col, wb + u * kEl);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kLoads; ++u) {
+        if ((u * 32 + lane) * kEl < width) {
+#pragma unroll
+          for (int e = 0; e < kEl; ++e)
+            acc[u * kEl + e] = fmaf(va, wa[u * kEl + e], acc[u * kEl + e]);
+          if (two) {
+#pragma unroll
+            for (int e = 0; e < kEl; ++e)
+              acc[u * kEl + e] = fmaf(vb, wb[u * kEl + e], acc[u * kEl + e]);
+          }
+        }
       }
     }
   }
-  float* orow = out + static_cast<int64_t>(row) * n;
+  float* orow = out + static_cast<int64_t>(row) * n + c0;
 #pragma unroll
-  for (int q = 0; q < kColsPerLane; ++q) {
-    const int32_t col = c0 + 32 * q;
-    if (col < n) orow[col] = acc[q];
+  for (int u = 0; u < kLoads; ++u) {
+    const int32_t col = (u * 32 + lane) * kEl;
+#pragma unroll
+    for (int e = 0; e < kEl; ++e)
+      if (col + e < width) orow[col + e] = acc[u * kEl + e];
   }
+}
+
+template <typename T, int P>
+cudaError_t launch_slab(const void* offsets, const void* col_ids,
+                        const void* vals, const void* b, void* out, int m,
+                        int k, int n, int tile_n, int rows_per_block,
+                        int split, cudaStream_t s) {
+  const int smem = k * tile_n * 4 + kStageBytes;
+  auto kernel = slab_spmm<T, P>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((m + rows_per_block - 1) / rows_per_block,
+                  (n + tile_n - 1) / tile_n);
+  kernel<<<grid, 32 * kSlabWarps, smem, s>>>(
+      static_cast<const int32_t*>(offsets),
+      static_cast<const int32_t*>(col_ids), static_cast<const float*>(vals),
+      static_cast<const T*>(b), static_cast<float*>(out), m, k, n, tile_n,
+      rows_per_block, split);
+  return cudaGetLastError();
+}
+
+template <typename T, typename R>
+cudaError_t launch_stream(const void* offsets, const void* col_ids,
+                          const void* vals, const void* b, void* out, int m,
+                          int n, cudaStream_t s) {
+  const dim3 grid((m + kStreamWarps - 1) / kStreamWarps,
+                  (n + kStreamCols - 1) / kStreamCols);
+  stream_spmm<T, R><<<grid, 32 * kStreamWarps, 0, s>>>(
+      static_cast<const int32_t*>(offsets),
+      static_cast<const int32_t*>(col_ids), static_cast<const float*>(vals),
+      static_cast<const T*>(b), static_cast<float*>(out), m, n);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// Step 1.  offsets: int32[m + 1]; err: int32[1], zeroed by the caller.
-// Returns cudaGetLastError() after the launch.
+// Step 1.  offsets: int32[m + 1].  Launches the pass, waits for it, and
+// returns 0, a CUDA error (> 0), or minus the status bits raised (1: an id
+// out of range, 2: row_ids unsorted).
 extern "C" int relmm_offsets(const void* row_ids, const void* col_ids,
-                             int nnz, int m, int k, void* offsets, void* err,
-                             int device, void* stream) {
-  cudaError_t e = cudaSetDevice(device);
+                             int nnz, int m, int k, void* offsets, int device,
+                             void* stream) {
+  Status* st;
+  cudaError_t e = open_status(device, &st);
   if (e != cudaSuccess) return e;
+  std::lock_guard<std::mutex> hold(st->lock);
+  e = ready(*st);
+  if (e != cudaSuccess) return e;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int threads = 256;
   const int blocks = (nnz + 1 + threads - 1) / threads;
-  segment_offsets<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(row_ids), static_cast<const int32_t*>(col_ids),
-      nnz, m, k, static_cast<int32_t*>(offsets), static_cast<int32_t*>(err));
-  return cudaGetLastError();
+  segment_offsets<<<blocks, threads, 0, s>>>(
+      static_cast<const int32_t*>(row_ids),
+      static_cast<const int32_t*>(col_ids), nnz, m, k,
+      static_cast<int32_t*>(offsets), st->dev);
+  int bits;
+  e = take_flags(*st, s, &bits);
+  if (e != cudaSuccess) return e;
+  return -bits;
 }
 
-// Step 2, after the caller has seen err == 0.  out: float32[m, n].
-extern "C" int relmm_spmm(const void* offsets, const void* col_ids,
+// Step 2, schedule (a), on a relation step 1 passed.  b: [k, n] of dtype
+// 0 = float32 or 1 = bfloat16; out: float32[m, n]; tile_n a power of two
+// from 4 to 256 with k * tile_n * 4 + 16 KB within a block's shared memory.
+// Returns cudaGetLastError().
+extern "C" int relmm_slab(const void* offsets, const void* col_ids,
                           const void* vals, const void* b, void* out, int m,
-                          int n, int device, void* stream) {
-  cudaError_t e = cudaSetDevice(device);
+                          int k, int n, int dtype, int tile_n,
+                          int rows_per_block, int split, int device,
+                          void* stream) {
+  cudaError_t e = use_device(device);
   if (e != cudaSuccess) return e;
-  const dim3 grid((m + kRowsPerBlock - 1) / kRowsPerBlock,
-                  (n + kTileN - 1) / kTileN);
-  segment_spmm<<<grid, 32 * kRowsPerBlock, 0,
-                 static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(offsets), static_cast<const int32_t*>(col_ids),
-      static_cast<const float*>(vals), static_cast<const float*>(b),
-      static_cast<float*>(out), m, n);
-  return cudaGetLastError();
+  if (tile_n < 4 || tile_n > 256 || (tile_n & (tile_n - 1)) ||
+      split < 1 || split > kSlabWarps || kSlabWarps % split ||
+      rows_per_block < 1 ||
+      static_cast<int64_t>(k) * tile_n * 4 + kStageBytes > kSmemLimit)
+    return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool wide = tile_n >= 64;                // two 16-byte loads a lane
+  if (dtype == 0)
+    return wide ? launch_slab<float, 2>(offsets, col_ids, vals, b, out, m, k,
+                                        n, tile_n, rows_per_block, split, s)
+                : launch_slab<float, 1>(offsets, col_ids, vals, b, out, m, k,
+                                        n, tile_n, rows_per_block, split, s);
+  if (dtype == 1)
+    return wide ? launch_slab<__nv_bfloat16, 2>(offsets, col_ids, vals, b,
+                                                out, m, k, n, tile_n,
+                                                rows_per_block, split, s)
+                : launch_slab<__nv_bfloat16, 1>(offsets, col_ids, vals, b,
+                                                out, m, k, n, tile_n,
+                                                rows_per_block, split, s);
+  return cudaErrorInvalidValue;
+}
+
+// Step 2, schedule (b).  vec: 16-byte loads (n a multiple of 16 bytes of
+// b's type and b's base 16-byte aligned), else one value a load.
+extern "C" int relmm_stream(const void* offsets, const void* col_ids,
+                            const void* vals, const void* b, void* out, int m,
+                            int n, int dtype, int vec, int device,
+                            void* stream) {
+  cudaError_t e = use_device(device);
+  if (e != cudaSuccess) return e;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return vec ? launch_stream<float, float4>(offsets, col_ids, vals, b, out,
+                                              m, n, s)
+               : launch_stream<float, float>(offsets, col_ids, vals, b, out,
+                                             m, n, s);
+  if (dtype == 1)
+    return vec ? launch_stream<__nv_bfloat16, uint4>(offsets, col_ids, vals,
+                                                     b, out, m, n, s)
+               : launch_stream<__nv_bfloat16, uint16_t>(offsets, col_ids,
+                                                        vals, b, out, m, n, s);
+  return cudaErrorInvalidValue;
 }

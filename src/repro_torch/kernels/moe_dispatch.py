@@ -1,9 +1,11 @@
 """MoE dispatch on the card: the wrapper of ``csrc/moe_dispatch.cu`` (one
-warp per slot row, 16-byte loads and stores; the source says what bounds
-it).  It replaces the Pallas TPU kernel ``repro.kernels.moe_dispatch``;
-``plain`` is its PyTorch twin.  An index outside 0..t-1 raises
-``ValueError`` (the kernel writes a zero row for it and flags it; the
-wrapper reads the flag).
+warp per slot row, four 16-byte loads in flight a lane, x kept in L2 and
+the output streamed past it; the source says what bounds it).  It replaces
+the Pallas TPU kernel ``repro.kernels.moe_dispatch``; ``plain`` is its
+PyTorch twin.  An index outside 0..t-1 raises ``ValueError`` from the call
+(the kernel writes a zero row for it and raises the device's status flag;
+the C launcher waits for this kernel alone, reads the flag from pinned host
+memory and clears it).
 """
 from __future__ import annotations
 
@@ -16,9 +18,10 @@ from . import build, ref
 plain = ref.moe_dispatch
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_SIGNATURES = {"moe_dispatch_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _P,
-                                       _I, _P]}
+_SIGNATURES = {"moe_dispatch_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                       _P]}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_BAD_INDEX = -1       # moe_dispatch_launch's return when an index was bad
 
 
 def moe_dispatch(x: torch.Tensor, sort_idx: torch.Tensor,
@@ -53,13 +56,13 @@ def moe_dispatch(x: torch.Tensor, sort_idx: torch.Tensor,
         return out
     lib = build.library("moe_dispatch", _SIGNATURES)
     device, stream = build.device_and_stream(x)
-    err = torch.zeros(1, dtype=torch.int32, device=dev)
-    build.check(lib.moe_dispatch_launch(
+    rc = lib.moe_dispatch_launch(
         x.data_ptr(), sort_idx.data_ptr(), gates.data_ptr(), out.data_ptr(),
-        slots, t, d, _DTYPES[x.dtype], err.data_ptr(), device, stream),
-        "moe_dispatch")
+        slots, t, d, _DTYPES[x.dtype], device, stream)
+    if rc != _BAD_INDEX:
+        build.check(rc, "moe_dispatch")
     moe_dispatch.launches += 1
-    if int(err.item()):
+    if rc == _BAD_INDEX:
         raise ValueError(f"moe_dispatch kernel: an index lies outside "
                          f"0..{t - 1}")
     return out

@@ -62,15 +62,16 @@ def moe_dispatch(x, sort_idx, gates) -> torch.Tensor:
 def moe_combine(expert_out, row_ids, n_tokens: int) -> torch.Tensor:
     """Group the gated slot rows by destination token and sum, in float32,
     cast back to their type; on the card, relational_matmul's aggregation
-    with unit values (the MoE layer itself folds the gates into the
-    relation and calls ``relational_matmul``)."""
+    with unit values, reading float32 or bf16 rows as they are (the MoE
+    layer itself folds the gates into the relation and calls
+    ``relational_matmul``)."""
     if _on_host(expert_out, row_ids):
         return ref.moe_combine(expert_out, row_ids, n_tokens)
     s = expert_out.shape[0]
     cols = torch.arange(s, dtype=torch.int32, device=expert_out.device)
     ones = torch.ones(s, dtype=torch.float32, device=expert_out.device)
     out = _relmm_cuda(row_ids.to(torch.int32).contiguous(), cols, ones,
-                      expert_out.to(torch.float32).contiguous(), n_tokens)
+                      expert_out.contiguous(), n_tokens)
     return out.to(expert_out.dtype)
 
 

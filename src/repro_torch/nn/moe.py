@@ -174,8 +174,10 @@ def _moe_sort(p, xg, cfg: MoEConfig, gates, idx):
     one ``moe_dispatch`` over all G·E·cap slots.  GROUP BY token, SUM: the
     token-major relation (row t, col = the slot of each of its k
     assignments, value = gate, or 0 where the assignment dropped) times the
-    expert outputs, as one ``relational_matmul`` in float32 (JAX casts the
-    gathered outputs to float32 before the gate product too)."""
+    expert outputs, as one ``relational_matmul`` that reads them in their
+    own type and sums in float32 (JAX casts the gathered outputs to float32
+    before the gate product too; the widening is exact, so no float32 copy
+    is made)."""
     n_groups, g, d = xg.shape
     e, k = cfg.n_experts, cfg.top_k
     cap = _capacity(g, cfg)
@@ -195,8 +197,8 @@ def _moe_sort(p, xg, cfg: MoEConfig, gates, idx):
     cols = torch.where(keep, slot, 0).reshape(-1).to(torch.int32)
     vals = torch.where(keep, gates, 0.0).reshape(-1).to(torch.float32)
     out = ops.relational_matmul(rows, cols, vals,
-                                ys.reshape(n_groups * e * cap, d).to(
-                                    torch.float32), n_groups * g)
+                                ys.reshape(n_groups * e * cap, d),
+                                n_groups * g)
     return out.to(xg.dtype).reshape(n_groups, g, d)
 
 

@@ -103,6 +103,89 @@ def test_relational_matmul_kernel_sorts_unsorted(cuda):
         relmm_mod.relational_matmul(*bad)
 
 
+def relation(rng, m, k, nnz, pad, device):
+    """A sorted relation of ``nnz`` tuples on the even rows of 0..m-1 (the
+    odd rows stay empty) and ``pad`` padding tuples (row m) last."""
+    rows = np.concatenate([np.sort(rng.randint(0, (m + 1) // 2, nnz) * 2),
+                           np.full(pad, m)])
+    return (torch.tensor(rows, dtype=torch.int32, device=device),
+            torch.tensor(rng.randint(0, k, nnz + pad), dtype=torch.int32,
+                         device=device),
+            rnd(rng, nnz + pad, device=device))
+
+
+def oracle(rows, cols, vals, b, m):
+    """The plain version in float64: a float32 one sums with index_add_'s
+    atomics in an order that changes from run to run."""
+    return relmm_mod.plain(rows, cols, vals.double(), b.double(), m).float()
+
+
+# Each schedule at its edges: the widest k a 4-column slab takes and one row
+# of b more; n = 3 / 10 / 200 / 384 in both (one value a load where n is no
+# multiple of 16 bytes in the stream, ragged slab tiles); segments of 2000
+# tuples (16 warps share a row).  Rows m, k, n, tuples, schedule.
+RELMM_EDGES = [
+    (64, 13504, 3, 14000, "slab"), (64, 13505, 3, 14000, "stream"),
+    (40, 300, 3, 4000, "slab"), (40, 300, 10, 4000, "slab"),
+    (40, 300, 200, 4000, "slab"), (40, 300, 384, 4000, "slab"),
+    (40, 5000, 3, 2000, "stream"), (40, 5000, 10, 2000, "stream"),
+    (40, 5000, 200, 2000, "stream"), (40, 5000, 384, 2000, "stream"),
+    (8, 1000, 10, 16000, "slab")]
+
+
+@pytest.mark.parametrize("m,k,n,nnz,kind", RELMM_EDGES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_relational_matmul_schedules_at_their_edges(cuda, m, k, n, nnz, kind,
+                                                    dtype):
+    """Empty rows and padding, held against the float64 plain version; two
+    runs give equal bits, and so does the relation in shuffled order,
+    which the wrapper sorts first, within the float32 tolerance."""
+    rng = np.random.RandomState(m + k + n)
+    rows, cols, vals = relation(rng, m, k, nnz, 16, cuda)
+    b = rnd(rng, k, n, device=cuda, dtype=dtype)
+    assert relmm_mod.schedule(m, k, n, nnz + 16, dtype).kind == kind
+    got = relmm_mod.relational_matmul(rows, cols, vals, b, m)
+    want = oracle(rows, cols, vals, b, m)
+    torch.testing.assert_close(got, want, **F32)
+    assert torch.equal(got, relmm_mod.relational_matmul(rows, cols, vals, b,
+                                                        m))
+    order = torch.tensor(rng.permutation(nnz + 16), device=cuda)
+    torch.testing.assert_close(relmm_mod.relational_matmul(
+        rows[order], cols[order], vals[order], b, m), want, **F32)
+
+
+@pytest.mark.parametrize("m,k,n,nnz,kind", RELMM_EDGES[2:])
+def test_relational_matmul_bf16_b_is_its_float32_widening(cuda, m, k, n, nnz,
+                                                         kind):
+    rng = np.random.RandomState(n)
+    rows, cols, vals = relation(rng, m, k, nnz, 4, cuda)
+    b16 = rnd(rng, k, n, device=cuda, dtype=torch.bfloat16)
+    got = relmm_mod.relational_matmul(rows, cols, vals, b16, m)
+    assert got.dtype == torch.float32
+    assert torch.equal(got, relmm_mod.relational_matmul(rows, cols, vals,
+                                                        b16.float(), m))
+
+
+def test_relational_matmul_kernel_raises_and_then_runs_clean(cuda):
+    """A row past m, a negative row and a col past k each raise; the call
+    after a bad one is right (the status flags were cleared)."""
+    rng = np.random.RandomState(11)
+    m, k, n = 16, 32, 64
+    rows, cols, vals = relation(rng, m, k, 200, 8, cuda)
+    b = rnd(rng, k, n, device=cuda)
+    bad_rows = rows.clone()
+    bad_rows[-1] = m + 1
+    neg_rows = rows.clone()
+    neg_rows[0] = -1
+    for args in ((bad_rows, cols, vals), (neg_rows, cols, vals),
+                 (rows, cols + k, vals)):
+        with pytest.raises(ValueError, match="outside"):
+            relmm_mod.relational_matmul(*args, b, m)
+        torch.testing.assert_close(
+            relmm_mod.relational_matmul(rows, cols, vals, b, m),
+            oracle(rows, cols, vals, b, m), **F32)
+
+
 # The sweep, both main-path shapes, and the edges of the two tile instances
 # (wide 40 x 40 with K slices of 32, narrow 16 x 16 with slices of 64): n
 # one below and one above each tile width, k not a multiple of a slice (and
@@ -433,6 +516,20 @@ def test_moe_dispatch_kernel_refusals(cuda):
     assert moe_mod.moe_dispatch(x, idx[:0], gates[:0]).shape == (0, 16)
 
 
+def test_moe_dispatch_kernel_good_call_after_a_bad_one(cuda):
+    """The status flag is cleared after the call that raised it."""
+    rng = np.random.RandomState(12)
+    x = rnd(rng, 50, 64, device=cuda, dtype=torch.bfloat16)
+    idx = torch.tensor(rng.randint(0, 50, 300), dtype=torch.int32,
+                       device=cuda)
+    gates = torch.tensor(rng.rand(300), dtype=torch.float32, device=cuda)
+    with pytest.raises(ValueError, match="outside"):
+        moe_mod.moe_dispatch(x, idx + 50, gates)
+    for _ in range(2):
+        assert torch.equal(moe_mod.moe_dispatch(x, idx, gates),
+                           moe_mod.plain(x, idx, gates))
+
+
 def test_moe_combine_on_the_card_is_the_plain_version(cuda):
     rng = np.random.RandomState(9)
     ys = rnd(rng, 40, 64, device=cuda)
@@ -442,6 +539,19 @@ def test_moe_combine_on_the_card_is_the_plain_version(cuda):
     got = ops.moe_combine(ys, rows, 12)
     assert relmm_mod.relational_matmul.launches == before + 1
     torch.testing.assert_close(got, ops.ref.moe_combine(ys, rows, 12), **F32)
+
+
+def test_moe_combine_on_the_card_takes_bf16_rows(cuda):
+    """bf16 slot rows go to the kernel as they are and give the bits of
+    their float32 copy's combine, cast back to bf16."""
+    rng = np.random.RandomState(10)
+    ys = rnd(rng, 40, 64, device=cuda, dtype=torch.bfloat16)
+    rows = torch.tensor(np.sort(rng.randint(0, 12, 40)), dtype=torch.int32,
+                        device=cuda)
+    got = ops.moe_combine(ys, rows, 12)
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(got, ops.moe_combine(ys.float(), rows, 12).to(
+        torch.bfloat16))
 
 
 def scan_inputs(rng, lead, s, n, device):

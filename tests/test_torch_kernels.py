@@ -75,6 +75,30 @@ def test_relational_matmul_sparse_padding(nnz, pad):
         jref.relational_matmul(jr, jc, jv, jb, m)), **F32)
 
 
+@pytest.mark.parametrize("m,k,n,nnz,pad", [(8, 16, 128, 128, 0),
+                                            (16, 32, 256, 48, 16)])
+def test_relational_matmul_bf16_b(m, k, n, nnz, pad):
+    """b in bf16, as the MoE combine gives it: the port against the JAX
+    oracle and the Pallas kernel (interpret mode), which both widen b to
+    float32, on the same bf16 values."""
+    rng = np.random.RandomState(m + nnz)
+    rows_np = np.concatenate([np.sort(rng.randint(0, m, nnz)),
+                              np.full(pad, m)]).astype(np.int32)
+    (jr, tr), (jc, tc) = both(rows_np), both(
+        rng.randint(0, k, nnz + pad).astype(np.int32))
+    jv, tv = both(rnd(rng, nnz + pad))
+    b = rnd(rng, k, n)
+    jb, tb = jnp.asarray(b).astype(jnp.bfloat16), torch.from_numpy(b).to(
+        torch.bfloat16)
+    got = ops.relational_matmul(tr, tc, tv, tb, m)
+    assert got.dtype == torch.float32 and got.shape == (m, n)
+    pallas = jops.relational_matmul(jr, jc, jv, jb, m, use_pallas=True,
+                                    blk_t=min(64, nnz + pad), blk_n=64)
+    np.testing.assert_allclose(got.numpy(), np.asarray(pallas), **F32)
+    np.testing.assert_allclose(got.numpy(), np.asarray(
+        jref.relational_matmul(jr, jc, jv, jb, m)), **F32)
+
+
 @pytest.mark.parametrize("m,k,n", [(128, 128, 128), (128, 512, 384)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_fused_sigmoid_matmul(m, k, n, dtype):
@@ -196,6 +220,40 @@ def test_fused_sigmoid_matmul_instance_by_shape(m, k, n, tile, n_blocks):
     64 x 64 tile gives the output layer."""
     assert fsm_mod.instance(m, k, n) == tile
     assert fsm_mod.blocks(m, k, n) == n_blocks
+
+
+@pytest.mark.parametrize("m,k,n,nnz,kind,tile_n,split", [
+    (2000, 784, 200, 1_568_000, "slab", 64, 2),     # z_xh = img · w_xh
+    (2000, 200, 10, 400_000, "slab", 16, 4),        # z_ho = a_xh · w_ho
+    (2000, 10, 200, 20_000, "stream", 512, 1),      # Eq8: 10 tuples a row
+    (200, 2000, 10, 400_000, "slab", 16, 8),        # Eq10 a_xh^T · d_ho
+    (784, 2000, 200, 1_568_000, "slab", 16, 4),     # Eq11 img^T · d_xh
+    (8000, 60416, 2048, 48_000, "stream", 512, 1),  # the MoE combine
+    (64, 13504, 3, 14_016, "slab", 4, 16),          # the widest k that fits
+    (64, 13505, 3, 14_016, "stream", 512, 1),       # one row more
+    (40, 300, 3, 100, "stream", 512, 1),            # fewer tuples than k
+    (40, 30, 3, 1279, "stream", 512, 1),            # segments under 32
+    (40, 30, 3, 1280, "slab", 4, 16)])
+def test_relational_matmul_schedule_by_shape(m, k, n, nnz, kind, tile_n,
+                                             split):
+    """The wrapper picks the second pass's schedule from the shape alone:
+    a slab of b in shared memory for the MLP's products with long
+    segments, a stream for the combine and for Eq8's 10 tuples a row; the
+    same for bf16 and float32 b (so the sums run in the same order); a
+    slab never needs more than a block's 232,448 bytes, and its grid
+    fills the 132 SMs."""
+    plans = [relmm_mod.schedule(m, k, n, nnz, dt)
+             for dt in (torch.float32, torch.bfloat16)]
+    for plan in plans:
+        assert (plan.kind, plan.tile_n, plan.split) == (kind, tile_n, split)
+        if kind == "slab":
+            assert plan.smem == k * tile_n * 4 + relmm_mod.STAGE_BYTES
+            assert plan.smem <= relmm_mod.SMEM_LIMIT == 232_448
+            assert plan.blocks <= 4 * 132 and plan.rows_per_block >= 1
+            assert -(-m // plan.rows_per_block) * -(-n // tile_n) == \
+                plan.blocks
+    assert (plans[0].vector, plans[1].vector) == ((4, 8) if kind == "stream"
+                                                  else (0, 0))
 
 
 def test_fused_sigmoid_matmul_copy_width():

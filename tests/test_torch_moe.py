@@ -32,6 +32,7 @@ from repro_torch.nn import moe as TM
 IMPLS_TOL = dict(rtol=2e-3, atol=2e-4)          # tests/test_moe.py
 PROPERTY_TOL = dict(rtol=5e-3, atol=5e-4)
 F32 = dict(rtol=2e-4, atol=2e-5)
+BF16 = dict(rtol=6e-2, atol=3e-2)               # tests/test_kernels.py
 
 
 @pytest.fixture(autouse=True)
@@ -233,6 +234,32 @@ def test_moe_combine_matches_jax(dtype):
     assert got.dtype == tys.dtype and got.shape == (12, 32)
     np.testing.assert_array_equal(got.float().numpy(),
                                   np.asarray(want, np.float32))
+
+
+def test_sort_path_combines_bf16_expert_rows_without_a_float32_copy(
+        monkeypatch):
+    """In bf16 compute the expert outputs reach ``relational_matmul`` in
+    bf16, with no float32 copy, and the sort path gives the bits it gave
+    with the copy (the widening is exact); against JAX's sort path in bf16
+    compute, the bf16 kernel tolerance holds."""
+    monkeypatch.setattr(JL, "COMPUTE_DTYPE", jnp.bfloat16)
+    monkeypatch.setattr(TL, "COMPUTE_DTYPE", torch.bfloat16)
+    jcfg, tcfg, jp, tp, jx, tx = make(t=48, n_shared=1, group_size=16, seed=7)
+    tx, jx = tx.to(torch.bfloat16), jx.astype(jnp.bfloat16)
+    got, _ = TM.moe_ffn(tp, tx, tcfg("sort"))
+    seen = []
+    relmm = ops.relational_matmul
+
+    def with_copy(rows, cols, vals, b, m):
+        seen.append(b.dtype)
+        return relmm(rows, cols, vals, b.to(torch.float32), m)
+
+    monkeypatch.setattr(ops, "relational_matmul", with_copy)
+    want, _ = TM.moe_ffn(tp, tx, tcfg("sort"))
+    assert seen == [torch.bfloat16] and got.dtype == torch.bfloat16
+    assert torch.equal(got, want)
+    jo, _ = JM.moe_ffn(jp, jx, jcfg("sort"))
+    close(got, jo, BF16)
 
 
 def test_sort_path_makes_one_dispatch_and_one_combine_launch(monkeypatch):
