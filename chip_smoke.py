@@ -9,8 +9,9 @@ Phases (any failure exits non-zero; nothing is caught and carried on past):
            sm_90a (one nvcc per source, in parallel) and print ptxas's report;
 2. kernels each kernel against its plain PyTorch version on the card, over
            the ``tests/test_kernels.py`` sweeps and the main paths' shapes
-           (flash at Yi-6B's and at MLA's, bf16 also against the
-           bf16-scores plain version), with the reference's tolerances;
+           (flash at Yi-6B's, at MLA's and at Zamba2's (4, 32, 2048, 80) as
+           head-split views, bf16 also against the bf16-scores plain
+           version), with the reference's tolerances;
            then its time beside the plain version's, one PyTorch library
            call's (a yardstick only) and the card's bound for the same work
            (flash: also its achieved TFLOP/s, share of the bound, ratio to
@@ -77,7 +78,21 @@ Phases (any failure exits non-zero; nothing is caught and carried on past):
            (c) prefill vs token-by-token decode as phase 6 reads it, with
            every routing difference reported; (d) one full-width MoE layer
            on 8000 tokens, einsum against sort; and a profile of one
-           prefill and one decode step.
+           prefill and one decode step;
+8. hybrid  the same serving path on the full-width Zamba2-2.7B (54
+           Mamba-2 layers, d_model 2560, 80 heads of 64, d_state 64, a
+           shared attention + SwiGLU block of 32 heads of 80 before every 6;
+           9.74 GB of float32 weights), after phase 7 has freed
+           DeepSeek-V2-Lite's: (a) ``LM.prefill`` of 4 prompts × 2048
+           tokens (the reference's SSD takes whole chunks of 64), 9
+           flash_attention launches and no other kernel; (b) the engine
+           with 4 slots serving 8 greedy requests, no kernel per
+           ``decode_step``; (c) prefill vs token-by-token decode in bf16
+           and float32 compute for weight seeds 0, 1 and 2: end to end on
+           the shared block and 2 layers, each of the 9 shared-block uses
+           and 54 layers alone (float32 binds in both), and the first
+           segment (6 layers) and all 54 as smoke runs beside a one-ulp
+           nudge; (d) a profile of one prefill and one decode step.
 
 ``python3 chip_smoke.py --kernels [name ...]`` runs phases 1 and 2 alone,
 for the named kernels (all six without a name), and prints no result line:
@@ -674,6 +689,9 @@ def bucket_layout(rng):
 FLASH_MAIN = (4, 32, 4, 2000, 128)      # Yi-6B prefill: B, Hq, Hkv, S, D
 # DeepSeek-V2-Lite's MLA prefill: B, H, S, Dqk (128 + 64), Dv
 FLASH_MLA = (4, 16, 2000, 192, 128)
+# Zamba2-2.7B's shared attention in its prefill (phase 8): B, H (= Hkv),
+# S, D = Dv = 80, which both kernels pad on chip to whole slabs
+FLASH_ZAMBA2 = (4, 32, 2048, 80)
 # bf16 at the main shape: the kernel rounds P to bf16 before P V (and sums
 # the rounded P), the plain version keeps P in float32, and both round the
 # output to bf16, so they differ by P's rounding (2^-9 of each weight, which
@@ -784,6 +802,7 @@ def check_flash(mod, report):
                          f"flash main {FLASH_MAIN} bf16 vs bf16 scores")
     bms, by = flash_bound(*FLASH_MAIN, torch.bfloat16)
     mla = check_flash_mla(mod, inputs, sdpa)
+    zamba2 = check_flash_zamba2(mod, sdpa)
     hgmma = hgmma_count("flash_attention_tc")
     hgmma_f32 = hgmma_count("flash_attention")
     log(f"SASS: flash_attention_tc {hgmma}, flash_attention (float32, "
@@ -808,7 +827,7 @@ def check_flash(mod, report):
         f32_bound_by=f32_by, f32_tf32_bound_ms=f32_tf32_bound,
         f32_library_ms=f32_library_ms, f32_library_kernels=f32_library_kernels,
         f32_source="src/repro_torch/kernels/csrc/flash_attention.cu",
-        hgmma=hgmma, hgmma_f32=hgmma_f32, mla=mla)
+        hgmma=hgmma, hgmma_f32=hgmma_f32, mla=mla, zamba2=zamba2)
     out |= flash_rates(out, flash_flops(b, hq, s, d, d))
     out |= f32_rates(f32_ms, flash_flops(b, hq, s, d, d), f32_bound,
                      f32_tf32_bound, f32_library_ms)
@@ -896,6 +915,71 @@ def check_flash_mla(mod, inputs, sdpa):
         f"{f32_tf32_bound:.4f} ms ({out['f32_tf32_bound_share']:.3f} of it), "
         f"float32 SDPA (TF32 off) {f32_library_ms:.4f} ms "
         f"{f32_library_kernels}, {out['f32_sdpa_ratio']:.2f} x SDPA")
+    return out
+
+
+def check_flash_zamba2(mod, sdpa):
+    """Zamba2's shared attention, (D, Dv) = (80, 80), at its prefill shape
+    as the model hands it over (head-split views of (B, S, 2560)
+    projections, read in place): float32 at the tests' tolerance, bf16 at
+    the Yi shape's and against the bf16-scores plain version; each timed
+    beside the plain version, SDPA and the bound."""
+    b, h, s, d = FLASH_ZAMBA2
+    rng = np.random.RandomState(80)
+    q, k, v = (torch.tensor(rng.randn(b, s, h, d), dtype=torch.float32,
+                            device="cuda").transpose(1, 2) for _ in range(3))
+    if not all(mod.takes(t) for t in (q, k, v)):
+        raise AssertionError("flash Zamba2: the head-split views need a copy")
+    causal_sdpa = lambda q, k, v: sdpa(q, k, v, is_causal=True)
+    err32 = max_err(mod.flash_attention(q, k, v), mod.plain(q, k, v),
+                    F32_TOL, f"flash Zamba2 {FLASH_ZAMBA2} float32 causal")
+    f32_ms = time_ms(lambda: mod.flash_attention(q, k, v), iters=10)
+    f32_device = device_events(lambda: mod.flash_attention(q, k, v), 5)
+    f32_plain_ms = time_ms(lambda: mod.plain(q, k, v), iters=5)
+    f32_bound, f32_by = flash_bound(b, h, h, s, d, torch.float32)
+    f32_tf32_bound, _ = flash_bound_tf32(b, h, h, s, d)
+    f32_library_ms = time_ms(lambda: causal_sdpa(q, k, v), iters=5)
+    f32_library_kernels = top_kernels(lambda: causal_sdpa(q, k, v))
+    q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
+    err = max_err(mod.flash_attention(q, k, v), mod.plain(q, k, v),
+                  FLASH_MAIN_BF16_TOL, f"flash Zamba2 {FLASH_ZAMBA2} bf16 "
+                  "causal")
+    err_scores = max_err(mod.flash_attention(q, k, v),
+                         mod.plain(q, k, v, bf16_scores=True),
+                         FLASH_MAIN_BF16_TOL,
+                         f"flash Zamba2 {FLASH_ZAMBA2} bf16 vs bf16 scores")
+    bms, by = flash_bound(b, h, h, s, d, torch.bfloat16)
+    out = dict(
+        shape=f"q, k, v ({b},{h},{s},{d}) head-split views, causal",
+        max_abs_err=err, max_abs_err_bf16_scores=err_scores,
+        max_abs_err_f32_main=err32,
+        ms=time_ms(lambda: mod.flash_attention(q, k, v), iters=20),
+        device=device_events(lambda: mod.flash_attention(q, k, v), 5),
+        plain_ms=time_ms(lambda: mod.plain(q, k, v), iters=5),
+        bound_ms=bms, bound_by=by,
+        library_ms=time_ms(lambda: causal_sdpa(q, k, v)),
+        library_kernels=top_kernels(lambda: causal_sdpa(q, k, v)),
+        f32_ms=f32_ms, f32_device=f32_device, f32_plain_ms=f32_plain_ms,
+        f32_bound_ms=f32_bound, f32_bound_by=f32_by,
+        f32_tf32_bound_ms=f32_tf32_bound, f32_library_ms=f32_library_ms,
+        f32_library_kernels=f32_library_kernels)
+    out |= flash_rates(out, flash_flops(b, h, s, d, d))
+    out |= f32_rates(f32_ms, flash_flops(b, h, s, d, d), f32_bound,
+                     f32_tf32_bound, f32_library_ms)
+    log(f"flash Zamba2 {FLASH_ZAMBA2} vs plain, max |err|: float32 "
+        f"{err32:.3e}, bf16 {err:.3e}, bf16 vs bf16-scores plain "
+        f"{err_scores:.3e}; bf16 {out['ms']:.4f} ms (device "
+        f"{device_ms(out['device']):.4f} ms) = {out['tflops']:.1f} TFLOP/s, "
+        f"{out['bound_share']:.3f} of the bound ({bms:.4f} ms, {by}), "
+        f"{out['sdpa_ratio']:.2f} x SDPA ({out['library_ms']:.4f} ms "
+        f"{out['library_kernels']}), plain {out['plain_ms']:.4f} ms; "
+        f"float32 kernel {f32_ms:.4f} ms ({out['f32_tflops']:.1f} TFLOP/s; "
+        f"device {device_ms(f32_device):.4f} ms: {summary(f32_device)}), "
+        f"plain {f32_plain_ms:.4f} ms, float32 bound {f32_bound:.4f} ms "
+        f"({f32_by}), 3xTF32 bound {f32_tf32_bound:.4f} ms "
+        f"({out['f32_tf32_bound_share']:.3f} of it), float32 SDPA (TF32 "
+        f"off) {f32_library_ms:.4f} ms {f32_library_kernels}, "
+        f"{out['f32_sdpa_ratio']:.2f} x SDPA")
     return out
 
 
@@ -1304,8 +1388,10 @@ def prefill_vs_decode(lm, params, seed: int, layers, logit_tol=LOGIT_TOL,
     compute type's epsilon at random (about one ulp), and reads how far
     that moves the logits: what rounding alone does at this depth."""
     if depth is not None:
-        lm = type(lm)(dataclasses.replace(lm.cfg, n_layers=depth),
-                      device=lm.device)
+        cut = dict(n_layers=depth)
+        if lm.cfg.shared_attn_every:    # one segment: the shared block first
+            cut["shared_attn_every"] = min(lm.cfg.shared_attn_every, depth)
+        lm = type(lm)(dataclasses.replace(lm.cfg, **cut), device=lm.device)
         n_dense = lm.cfg.moe.first_k_dense if lm.cfg.moe else 0
         params = dict(params, layers=slice_layers(params["layers"], 0,
                                                   depth - n_dense))
@@ -2093,6 +2179,299 @@ def one_moe_layer(p, cfg, moe, layers, card, counters) -> dict:
                 tolerance=MOE_IMPL_TOL, **out)
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the serving path on the full-width Zamba2-2.7B
+# ---------------------------------------------------------------------------
+
+# The reference's SSD takes a sequence whole chunks long or one token
+# (src/repro/nn/ssm.py:173, ssd_chunked), with the model's chunk of 64: it
+# refuses 2000-token prompts (2000 % 64 = 16), and the port keeps that
+# rule and pads nothing.  So phase 8 prefills 4 x 2048 tokens, 32 chunks.
+ZAMBA_PREFILL_LEN = 2048
+# jax.eval_shape(repro.nn.model.LM(CONFIG).init, ...) of
+# configs/zamba2_2_7b.py, counted leaf by leaf
+ZAMBA_PARAMS = 2_435_494_048
+# (c) as phases 6 and 7 read theirs: end to end on the shared block and
+# the first ZAMBA_BIND_LAYERS Mamba-2 layers, held at ZAMBA_LOGIT_TOL;
+# each of the 9 shared-block uses and 54 Mamba-2 layers alone on the input
+# the prefill path hands it, held at ZAMBA_LAYER_TOL; the first segment
+# (the shared block and 6 layers) and all 54 layers end to end as smoke
+# runs, each beside a one-ulp nudge of the input, which the bind depth
+# reads too.  float32 binds, at phases 5-7's atol; bf16 is a sanity bound
+# (1 / 4 of the random model's logits' spread, as phase 7's), set before
+# the first reading.  States and K/V are compared relative to their
+# largest value, as RWKV-6's states are.  The first card run (NVIDIA H100
+# 80GB HBM3, 700.00 W, PERF.md) bound the first segment and read up to
+# 2.236e-4 there in float32 (0.389 in bf16): the random model amplifies
+# rounding as RWKV-6's does, so the bind depth is 2 layers, as phase 6's.
+ZAMBA_BIND_LAYERS = 2
+ZAMBA_SEGMENT = 6
+ZAMBA_LOGIT_TOL = {"bfloat16": dict(rtol=0.0, atol=0.25),
+                   "float32": dict(rtol=0.0, atol=1e-4)}
+ZAMBA_SMOKE_TOL = {"bfloat16": None, "float32": None}
+ZAMBA_LAYER_TOL = {"bfloat16": dict(logits=0.25, state=0.05),
+                   "float32": dict(logits=1e-4, state=1e-5)}
+
+
+def zamba_layerwise(lm, params, seed: int, layers) -> list[dict]:
+    """Every unit of the full depth alone, in each compute type of
+    ZAMBA_LAYER_TOL: each use of the shared block (on the hidden state and
+    the embeddings) and each Mamba-2 layer.  A unit's input is what the
+    prefill path hands it for PVD_PROMPTS prompts of PVD_LEN tokens; it
+    runs once over the whole prompt (the prefill path: SSD chunks, flash
+    attention) and PVD_LEN times a token (the decode path: the recurrence,
+    attention over a cache) from zero states.  One reading per unit: the
+    last token's logits through the final norm and head, and the states'
+    (conv and SSM; the shared block's K/V) largest difference over their
+    largest value."""
+    cfg = lm.cfg
+    toks = pvd_tokens(lm, seed)
+    readings = []
+    for dtype in ZAMBA_LAYER_TOL:
+        layers.COMPUTE_DTYPE = getattr(torch, dtype)
+        try:
+            x0 = x = lm.embed_inputs(params, {"tokens": toks})
+            cos, sin = lm._rope(PVD_LEN, x.device)
+            steps = [lm._rope_at(t, x.device) for t in range(PVD_LEN)]
+            units = []
+            for seg in range(cfg.n_layers // cfg.shared_attn_every):
+                units.append(("shared", seg))
+                units += [("mamba", seg * cfg.shared_attn_every + i)
+                          for i in range(cfg.shared_attn_every)]
+            for kind, idx in units:
+                if kind == "shared":
+                    sb = params["shared_block"]
+                    out_p, kv_p = lm._shared_block(sb, x, x0, cos, sin)
+                    kv = tuple(torch.zeros_like(t) for t in kv_p)
+                    for t in range(PVD_LEN):
+                        out_d, kv = lm._shared_block(
+                            sb, x[:, t:t + 1], x0[:, t:t + 1], *steps[t],
+                            cache=kv, pos=t)
+                    pairs = zip(kv_p, kv)
+                else:
+                    lp = layer_at(params["layers"], idx)
+                    out_p, _, st_p = lm._block(lp, x, None, None)
+                    st = tuple(torch.zeros_like(t) for t in st_p)
+                    for t in range(PVD_LEN):
+                        out_d, _, st = lm._block(lp, x[:, t:t + 1], None,
+                                                 None, cache=st)
+                    pairs = zip(st_p, st)
+                state = max(float((a - b).abs().max()
+                                  / a.abs().max().clamp_min(1e-30))
+                            for a, b in pairs)
+                lp_, ld_ = (lm.unembed(params, o[:, -1:]).float()
+                            for o in (out_p, out_d))
+                readings.append(dict(
+                    dtype=dtype, seed=seed, unit=f"{kind} {idx}",
+                    logits=float((lp_ - ld_).abs().max()),
+                    logit_abs_max=float(lp_.abs().max()), state=state,
+                    finite=bool(torch.isfinite(lp_).all()
+                                and torch.isfinite(ld_).all())))
+                x = out_p
+        finally:
+            layers.COMPUTE_DTYPE = torch.bfloat16
+    return readings
+
+
+def layer_at(tree, i: int):
+    """Layer i's parameters of a stacked tree."""
+    return {k: layer_at(v, i) if isinstance(v, dict) else v[i]
+            for k, v in tree.items()}
+
+
+def hold_zamba_layerwise(readings: list[dict]) -> dict:
+    """Print the worst unit of each weight seed and type, then fail if a
+    reading is past ZAMBA_LAYER_TOL or not finite."""
+    out = {}
+    for dtype, tol in ZAMBA_LAYER_TOL.items():
+        rs = [r for r in readings if r["dtype"] == dtype]
+        for seed in sorted({r["seed"] for r in rs}):
+            mine = [r for r in rs if r["seed"] == seed]
+            wl = max(mine, key=lambda r: r["logits"])
+            ws = max(mine, key=lambda r: r["state"])
+            log(f"zamba2 (c) unit by unit, {dtype} seed {seed}, "
+                f"{len(mine)} units: logits max |diff| {wl['logits']:.4e} "
+                f"({wl['unit']}, |logit| up to {wl['logit_abs_max']:.4f}), "
+                f"states max relative diff {ws['state']:.4e} ({ws['unit']})")
+        worst = {k: max(r[k] for r in rs) for k in ("logits", "state")}
+        log(f"zamba2 (c) unit by unit, {dtype}: largest over {len(rs)} "
+            f"unit readings {worst}, held at {tol}")
+        out[dtype] = dict(tolerance=tol, largest=worst, readings=rs)
+    for r in readings:
+        tol = ZAMBA_LAYER_TOL[r["dtype"]]
+        if not r["finite"] or r["logits"] > tol["logits"] or \
+                r["state"] > tol["state"]:
+            raise AssertionError(f"zamba2 (c) unit by unit past {tol}: {r}")
+    return out
+
+
+def serve_zamba(counters, result):
+    """Drive the Zamba2-2.7B serving path; every counter is zeroed before
+    (a) and read after it, then (b) and (c) are checked for their own
+    launches: flash_attention once a shared-block use in a prefill, no
+    kernel in a decode step."""
+    from repro_torch import obs
+    from repro_torch.configs import get_config
+    from repro_torch.nn import layers
+    from repro_torch.nn.model import LM
+    from repro_torch.serving import Request, ServingEngine
+
+    card, flash = result["card"], counters["flash_attention"]
+    cfg = get_config("zamba2_2_7b")
+    n_seg = cfg.n_layers // cfg.shared_attn_every
+    lm = LM(cfg)
+    gen = torch.Generator(device=lm.device)
+    gen.manual_seed(0)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params, t_init = timed(lambda: lm.init(gen))
+    n_params = sum(t.numel() for t in leaves(params))
+    param_bytes = sum(t.numel() * t.element_size() for t in leaves(params))
+    log(f"zamba2: {cfg.name}, {cfg.n_layers} Mamba-2 layers (d_model "
+        f"{cfg.d_model}, {cfg.n_heads_mamba()} heads of {cfg.ssm.head_dim}, "
+        f"d_state {cfg.ssm.d_state}, chunk {cfg.ssm.chunk}), a shared block "
+        f"every {cfg.shared_attn_every} ({cfg.n_heads} heads of "
+        f"{cfg.d_head}, d_ff {cfg.d_ff}), vocab {cfg.vocab}: {n_params} "
+        f"parameters, {param_bytes / 1e9:.2f} GB float32, made in "
+        f"{t_init:.2f} s")
+    if n_params != ZAMBA_PARAMS:
+        raise AssertionError(f"{n_params} parameters, not the JAX init's "
+                             f"{ZAMBA_PARAMS}")
+
+    # (a) bulk prefill: flash_attention once a shared-block use, nothing
+    # else (the SSD is PyTorch products)
+    rng = np.random.RandomState(0)
+    tokens = torch.from_numpy(rng.randint(
+        0, cfg.vocab, (PREFILL_BATCH, ZAMBA_PREFILL_LEN)).astype(
+            np.int32)).to(lm.device)
+    for fn in counters.values():
+        fn.launches = 0
+    (logits, cache), t_prefill = timed(
+        lambda: lm.prefill(params, {"tokens": tokens}))
+    launches = {name: fn.launches for name, fn in counters.items()}
+    expected = {name: 0 for name in counters} | {"flash_attention": n_seg}
+    if launches != expected:
+        raise AssertionError(f"zamba2 prefill launches {launches}, expected "
+                             f"{expected}")
+    peak_prefill = torch.cuda.max_memory_allocated()
+    shapes = lambda c: [(tuple(t.shape), t.dtype) for t in cache_leaves(c)]
+    want = shapes(lm.init_cache(PREFILL_BATCH, ZAMBA_PREFILL_LEN))
+    if logits.shape != (PREFILL_BATCH, 1, cfg.vocab) or \
+            not torch.isfinite(logits).all() or shapes(cache) != want or \
+            not all(torch.isfinite(t).all() for t in cache_leaves(cache)):
+        raise AssertionError(f"zamba2 prefill gave logits "
+                             f"{tuple(logits.shape)}, cache {shapes(cache)}, "
+                             f"expected {want}")
+    del cache
+
+    # (b) continuous batching, greedy: no decode_step call launches a
+    # kernel (the shared attention reads its cache in plain PyTorch)
+    eng = ServingEngine(lm, params, max_len=MAX_LEN, batch_slots=SLOTS)
+    eng.tracer = obs.Tracer()
+    for uid in range(REQUESTS):
+        eng.submit(Request(uid, rng.randint(0, cfg.vocab, int(
+            rng.randint(4, 33))).astype(np.int32), max_new_tokens=NEW_TOKENS))
+    done, t_serve = timed(eng.run_to_completion)
+    calls = (eng.tracer.counters["serve.prefill_tokens"]
+             + eng.tracer.histograms["serve.step_ms"]["count"])
+    got = {name: fn.launches - launches[name] for name, fn in counters.items()}
+    if any(got.values()):
+        raise AssertionError(f"the engine made {calls} decode_step calls and "
+                             f"launched {got}")
+    if sorted(r.uid for r in done) != list(range(REQUESTS)) or any(
+            len(r.generated) != NEW_TOKENS for r in done):
+        raise AssertionError("the engine left requests unserved: "
+                             f"{[(r.uid, len(r.generated)) for r in done]}")
+    n_generated = sum(len(r.generated) for r in done)
+    tokens4 = torch.zeros((SLOTS, 1), dtype=torch.int32, device=lm.device)
+    step = lambda: lm.decode_step(params, {"tokens": tokens4}, eng.cache, 100)
+    timed(step)
+    step_ms = min(timed(step)[1] for _ in range(3)) * 1e3
+
+    prefill = lambda: lm.prefill(params, {"tokens": tokens})
+    wall = timed(prefill)[1] * 1e3
+    n_tok = PREFILL_BATCH * ZAMBA_PREFILL_LEN
+    out = dict(
+        model=cfg.name, layers=cfg.n_layers, shared_block_uses=n_seg,
+        parameters=n_params, param_bytes=param_bytes, init_s=t_init,
+        prefill=dict(shape=f"{PREFILL_BATCH} x {ZAMBA_PREFILL_LEN} tokens",
+                     first_s=t_prefill, warm_ms=wall,
+                     tokens_per_s=n_tok / wall * 1e3, launches=launches,
+                     peak_bytes=peak_prefill),
+        engine=dict(slots=SLOTS, requests=REQUESTS, new_tokens=NEW_TOKENS,
+                    wall_s=t_serve, generated=n_generated,
+                    decode_step_calls=calls,
+                    tokens_per_s=n_generated / t_serve,
+                    counters=eng.tracer.counters,
+                    step_ms=eng.tracer.histograms.get("serve.step_ms")),
+        decode_step=dict(slots=SLOTS, ms=step_ms,
+                         tokens_per_s=SLOTS / step_ms * 1e3))
+    log(f"zamba2 (a) prefill {PREFILL_BATCH} x {ZAMBA_PREFILL_LEN} on "
+        f"{card}: first call {t_prefill:.4f} s, warm {wall:.4f} ms "
+        f"({out['prefill']['tokens_per_s']:.1f} tokens/s), launches "
+        f"{launches}, peak device memory {peak_prefill / 2**30:.2f} GiB")
+    log(f"zamba2 (b) engine on {card}: {len(done)} requests, {n_generated} "
+        f"tokens in {t_serve:.4f} s ({n_generated / t_serve:.2f} tokens/s), "
+        f"{calls} decode_step calls, counters {eng.tracer.counters}; decode "
+        f"step at {SLOTS} slots {step_ms:.4f} ms "
+        f"({SLOTS / step_ms * 1e3:.2f} tokens/s)")
+    # (d) the profiles
+    out["profile"] = dict(
+        prefill=device_profile(prefill, wall, "zamba2 prefill 4 x 2048",
+                               card),
+        decode_step=device_profile(step, step_ms,
+                                   "zamba2 decode step at 4 slots", card))
+    eng = step = prefill = None
+
+    # (c) prefill vs token-by-token decode, weight seeds 0, 1 and 2
+    def pvd(seed):
+        return dict(
+            bind=prefill_vs_decode(lm, params, seed, layers, ZAMBA_LOGIT_TOL,
+                                   ZAMBA_BIND_LAYERS, ulp=True),
+            layerwise=zamba_layerwise(lm, params, seed, layers),
+            segment=prefill_vs_decode(lm, params, seed, layers,
+                                      ZAMBA_SMOKE_TOL, ZAMBA_SEGMENT,
+                                      ulp=True),
+            full=prefill_vs_decode(lm, params, seed, layers,
+                                   ZAMBA_SMOKE_TOL, ulp=True))
+
+    before = flash.launches
+    readings = pvd(0)
+    for seed in PVD_SEEDS[1:]:
+        params = None
+        torch.cuda.empty_cache()
+        params = lm.init(gen.manual_seed(seed))
+        more = pvd(seed)
+        readings = {k: v + more[k] for k, v in readings.items()}
+    # flash, a seed and a type: two prefills (one nudged) at the bind depth
+    # and at the first segment, one a unit's shared block, two at the full
+    # depth
+    types = len(ZAMBA_LOGIT_TOL)
+    want = len(PVD_SEEDS) * types * (2 + n_seg + 2 + 2 * n_seg)
+    if flash.launches - before != want:
+        raise AssertionError(f"zamba2 (c) launched {flash.launches - before} "
+                             f"flash kernels, expected {want}")
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    # every reading is printed before any is held: the smoke runs first
+    out["prefill_vs_decode"] = pvd_out = {}
+    atol = ZAMBA_LOGIT_TOL["float32"]["atol"]
+    for key, depth in (("full", cfg.n_layers), ("segment", ZAMBA_SEGMENT)):
+        pvd_out[key] = hold_agreement(readings[key], ZAMBA_SMOKE_TOL,
+                                      f"zamba2 {depth} layers")
+        f32 = [r for r in readings[key] if r["dtype"] == "float32"]
+        log(f"zamba2 (c) {depth} layers, float32: "
+            f"{sum(r['max_abs_diff'] <= atol for r in f32)} of {len(f32)} "
+            f"readings within atol {atol}, largest |diff| "
+            f"{max(r['max_abs_diff'] for r in f32):.4e}, largest one-ulp "
+            f"nudge spread {max(r['ulp_abs_diff'] for r in f32):.4e}")
+    pvd_out["layerwise"] = hold_zamba_layerwise(readings["layerwise"])
+    pvd_out["bind"] = hold_agreement(readings["bind"], ZAMBA_LOGIT_TOL,
+                                     f"zamba2 {ZAMBA_BIND_LAYERS} layers")
+    log(f"zamba2 peak device memory {out['peak_bytes'] / 2**30:.2f} GiB")
+    result["zamba2"] = out
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to drive", file=sys.stderr)
@@ -2183,6 +2562,7 @@ def main() -> int:
     launches["rwkv6_scan"] = serve_rwkv(counters, result)["rwkv6_scan"]
     launches["moe_dispatch"] = serve_deepseek(counters, result)[
         "moe_dispatch"]
+    serve_zamba(counters, result)
 
     line = {"kernels": [
         {k: r[k] for k in ("name", "route", "source", "replaces")}

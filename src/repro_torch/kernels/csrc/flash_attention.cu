@@ -74,7 +74,15 @@
 // and 1 KB of alignment, of the 232,448 a block may have; whole K (96 KB)
 // and V (64 KB) tiles beside Q would need 256 KB.  One block an SM.  Any
 // S >= 1; (D, Dv) are template parameters: the nine pairs with D in
-// {32, 64, 128, 192}, Dv in {32, 64, 128}, Dv <= D.  q, k and v are read
+// {32, 64, 128, 192}, Dv in {32, 64, 128}, Dv <= D, and Zamba2's (80, 80).
+// 80 is padded to 96, three 32-column chunks: the third K chunk's tensor
+// map keeps the scratch's own width of 80, so TMA writes zeros into its
+// columns 80-95; the consumers store zeros for Q's; V^T is cut into three
+// 32-row blocks whose rows 80-95 TMA fills with zeros the same way.  So the
+// scratch holds only what exists (``scratch_numel`` is unchanged).  Q K^T
+// runs D / 8 = 10 k-steps, the work's own; P V runs 96 columns, 1.2x its
+// products, and the epilogue stores 80.  Shared memory at 80 / 80: Q 48 KB,
+// the ring 128 KB.  q, k and v are read
 // by their batch, head and sequence strides (16-byte loads where base and
 // strides allow, else 4-byte ones), so the model's head-split views go in
 // without a copy.
@@ -101,11 +109,12 @@ constexpr uint32_t kChunk = 2 * kPart;   // hi, then lo
 // Q lo, the ring of kSlots chunks, then the mbarriers.
 template <int D, int DV>
 struct Plan {
-  static_assert(D % 32 == 0 && DV % 32 == 0 && DV <= D && D <= 192,
-                "D, Dv in {32, 64, 128, 192}, Dv <= D");
-  static constexpr int kKChunks = D / 32;            // chunks of a K tile
-  static constexpr int kVW = DV >= 64 ? 64 : 32;     // dv rows a V chunk
-  static constexpr int kVBlocks = DV / kVW;
+  static_assert(D % 16 == 0 && DV % 16 == 0 && DV <= D && D <= 192,
+                "D, Dv in {32, 64, 80, 128, 192}, Dv <= D");
+  static constexpr int kKChunks = (D + 31) / 32;     // chunks of a K tile
+  static constexpr int kVW = DV % 64 == 0 ? 64 : 32;  // dv rows a V chunk
+  static constexpr int kVBlocks = (DV + kVW - 1) / kVW;
+  static constexpr int kDVP = kVBlocks * kVW;        // P V's width
   static constexpr int kPerTile = kKChunks + 2 * kVBlocks;
   static constexpr uint32_t kQPart = kKChunks * kPart;
   static constexpr uint32_t kRing = 2 * kQPart;
@@ -241,7 +250,8 @@ __global__ void split_rows(const float* __restrict__ src, int64_t s_b,
 // The pre-pass, V: a (batch, heads, S, Dv) operand written as V^T,
 // (batch, heads, Dv, S_pad) in hi and lo, keys past S as zeros, each group
 // of 8 keys in the order 0 2 4 6 1 3 5 7.  One block transposes 32 keys by
-// 32 dv through shared memory, reading and writing whole rows.
+// 32 dv (fewer in the last block where 32 does not divide Dv) through
+// shared memory, reading and writing whole rows.
 __global__ void split_vt(const float* __restrict__ src, int64_t s_b,
                          int64_t s_h, int64_t s_s, int heads, int S,
                          int S_pad, int Dv, float* __restrict__ hi,
@@ -254,7 +264,8 @@ __global__ void split_vt(const float* __restrict__ src, int64_t s_b,
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int key = k0 + ty + 8 * i;
-    tile[ty + 8 * i][tx] = key < S ? __ldg(base + key * s_s + tx) : 0.f;
+    tile[ty + 8 * i][tx] =
+        key < S && d0 + tx < Dv ? __ldg(base + key * s_s + tx) : 0.f;
   }
   __syncthreads();
   const int pos = k0 + tx;                       // place in the V^T row
@@ -263,6 +274,7 @@ __global__ void split_vt(const float* __restrict__ src, int64_t s_b,
   if (pos >= S_pad) return;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
+    if (d0 + ty + 8 * i >= Dv) break;
     const int64_t at = (bh * Dv + d0 + ty + 8 * i) * S_pad + pos;
     uint32_t h, l;
     split(tile[key][ty + 8 * i], h, l);
@@ -272,14 +284,15 @@ __global__ void split_vt(const float* __restrict__ src, int64_t s_b,
 }
 
 // The consumers' share of 64 rows x 32 columns of q: rows r0 + p/8 + 16e,
-// columns c0 + 4 (p % 8) .. + 3, e < 4; rows at or past S read as zeros.
+// columns c0 + 4 (p % 8) .. + 3, e < 4; rows at or past S and columns at or
+// past D (a multiple of 4) read as zeros.
 __device__ __forceinline__ void load_rows(const float* base, int64_t rs,
-                                          int r0, int S, int c0, int p,
-                                          bool vec, float (&x)[16]) {
+                                          int r0, int S, int c0, int D,
+                                          int p, bool vec, float (&x)[16]) {
 #pragma unroll
   for (int e = 0; e < 4; ++e) {
     const int row = r0 + p / 8 + 16 * e;
-    if (row < S) {
+    if (row < S && c0 + 4 * (p % 8) < D) {
       load4(base + row * rs + c0 + 4 * (p % 8), vec, &x[4 * e]);
     } else {
       x[4 * e] = x[4 * e + 1] = x[4 * e + 2] = x[4 * e + 3] = 0.f;
@@ -475,7 +488,7 @@ flash_fwd(const __grid_constant__ CUtensorMap tm_khi,
     float x[P::kKChunks][16];
 #pragma unroll
     for (int kc = 0; kc < P::kKChunks; ++kc)
-      load_rows(qb, q_s, q0, S, 32 * kc, tid, vec != 0, x[kc]);
+      load_rows(qb, q_s, q0, S, 32 * kc, D, tid, vec != 0, x[kc]);
 #pragma unroll
     for (int kc = 0; kc < P::kKChunks; ++kc)
       store_rows(sq + kc * kPart, P::kQPart, tid, x[kc]);
@@ -489,9 +502,10 @@ flash_fwd(const __grid_constant__ CUtensorMap tm_khi,
   const int qpos0 = q0 + warp * 16 + lane / 4, qpos1 = qpos0 + 8;
   const int col = 2 * (lane % 4);
 
-  float o[DV / 2];
+  constexpr int DVP = P::kDVP;            // P V's width, zero rows of V^T too
+  float o[DVP / 2];
 #pragma unroll
-  for (int i = 0; i < DV / 2; ++i) o[i] = 0.f;
+  for (int i = 0; i < DVP / 2; ++i) o[i] = 0.f;
   float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
   int c = 0;                             // chunks consumed so far
   // frees the slots of chunks c0 .. c0 + n - 1, whose products have
@@ -514,20 +528,20 @@ flash_fwd(const __grid_constant__ CUtensorMap tm_khi,
     for (int i = 0; i < kBN / 2; ++i) s[i] = 0.f;
     hold(s);
     wgmma_fence();
+    // 8 columns (32 bytes) a k-step, four to a chunk; D / 8 of them, so
+    // the zero columns of a part-filled last chunk are skipped
 #pragma unroll
-    for (int kc = 0; kc < P::kKChunks; ++kc) {
+    for (int t = 0; t < D / 8; ++t) {
+      const int kc = t / 4, kk = t % 4;
       const uint32_t kh = ring + ((c + kc) % kSlots) * kChunk;
       const uint32_t qh = sq + kc * kPart;
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {   // 8 columns (32 bytes) a k-step
-        const uint64_t q_hi = desc(qh + 32 * kk);
-        const uint64_t q_lo = desc(qh + P::kQPart + 32 * kk);
-        const uint64_t k_hi = desc(kh + 32 * kk);
-        const uint64_t k_lo = desc(kh + kPart + 32 * kk);
-        wgmma_ss_n64(s, q_lo, k_hi, kc + kk > 0);
-        wgmma_ss_n64(s, q_hi, k_lo, 1);
-        wgmma_ss_n64(s, q_hi, k_hi, 1);
-      }
+      const uint64_t q_hi = desc(qh + 32 * kk);
+      const uint64_t q_lo = desc(qh + P::kQPart + 32 * kk);
+      const uint64_t k_hi = desc(kh + 32 * kk);
+      const uint64_t k_lo = desc(kh + kPart + 32 * kk);
+      wgmma_ss_n64(s, q_lo, k_hi, t > 0);
+      wgmma_ss_n64(s, q_hi, k_lo, 1);
+      wgmma_ss_n64(s, q_hi, k_hi, 1);
     }
     wgmma_commit();
     wgmma_wait_all();
@@ -583,7 +597,7 @@ flash_fwd(const __grid_constant__ CUtensorMap tm_khi,
     l0 = l0 * alpha0 + sum0;
     l1 = l1 * alpha1 + sum1;
 #pragma unroll
-    for (int i = 0; i < DV / 8; ++i) {
+    for (int i = 0; i < DVP / 8; ++i) {
       o[4 * i] *= alpha0;
       o[4 * i + 1] *= alpha0;
       o[4 * i + 2] *= alpha1;
@@ -729,7 +743,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
   split_rows<<<grid, 256, 0, stream>>>(
       static_cast<const float*>(k), st[3], st[4], st[5], hkv, s, D, k_hi,
       k_lo, units, aligned(k, st + 3));
-  split_vt<<<dim3((s_pad + 31) / 32, DV / 32, batch * hkv), dim3(32, 8), 0,
+  split_vt<<<dim3((s_pad + 31) / 32, (DV + 31) / 32, batch * hkv),
+             dim3(32, 8), 0,
              stream>>>(static_cast<const float*>(v), st[6], st[7], st[8],
                        hkv, s, s_pad, DV, v_hi, v_lo);
   cudaError_t e = cudaGetLastError();
@@ -760,7 +775,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
 // [6..8] (v); out: [batch, hq, s, dv] float32, contiguous; scratch:
 // 2 batch hkv (s d + dv s_pad) floats, 16-byte aligned, s_pad = s rounded
 // up to 8 (the split K and V^T).  hq % hkv == 0 and (d, dv) one of the
-// nine pairs.  Three launches: the two halves of the pre-pass, then the
+// ten pairs.  Three launches: the two halves of the pre-pass, then the
 // attention.  Returns cudaGetLastError() after them, or the error that
 // kept them from launching.
 extern "C" int flash_attention_launch(const void* q, const void* k,
@@ -781,6 +796,7 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   FLASH_CASE(32, 32)
   FLASH_CASE(64, 32)
   FLASH_CASE(64, 64)
+  FLASH_CASE(80, 80)
   FLASH_CASE(128, 32)
   FLASH_CASE(128, 64)
   FLASH_CASE(128, 128)

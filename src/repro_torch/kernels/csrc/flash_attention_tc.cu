@@ -54,10 +54,16 @@
 // never visited, and query tiles go out longest first (the block index
 // walks the (b, h) pairs fastest and the query tiles from the last).  Any
 // S >= 1; (D, Dv) are template parameters: the nine pairs with D in
-// {32, 64, 128, 192}, Dv in {32, 64, 128}, Dv <= D.  Shared memory is Q,
-// two K and two V stages: 160 KB at D = Dv = 128, 208 KB at 192 / 128 (plus
-// 1 KB of alignment), so one block an SM; ptxas gives 128-168 registers a
-// thread, no spills.  The two warpgroups are not synchronised with each
+// {32, 64, 128, 192}, Dv in {32, 64, 128}, Dv <= D, and Zamba2's (80, 80).
+// 80 is no whole number of slabs.  Its Q, K and V tiles take two 64-column
+// slabs each, whose tensor maps keep the operands' own inner extent of 80,
+// so TMA writes zeros into columns 80-127 as it writes zeros into the rows
+// past S.  Q K^T runs D / 16 = 5 k-steps, no more than the work needs; P V
+// runs the (128, 128) instance's n128 product over V's zero columns (1.6x
+// the products of P V) and the epilogue stores the 80 columns that exist.
+// Shared memory is Q, two K and two V stages: 160 KB at D = Dv = 128 and
+// at 80 / 80, 208 KB at 192 / 128 (plus 1 KB of alignment), so one block an
+// SM; ptxas gives 128-168 registers a thread, no spills.  The two warpgroups are not synchronised with each
 // other, so one's softmax runs under the other's products as the warp
 // schedulers interleave them.  FlashAttention-3's further steps (a
 // producer warpgroup with setmaxnreg 24 / 240, S of tile j + 1 issued with
@@ -81,20 +87,25 @@ constexpr float kNegInf = -1e30f;        // the reference's mask value
 constexpr float kLog2e = 1.4426950408889634f;
 
 // Shared memory, in bytes from a 1024-aligned base (the swizzle repeats every
-// 1024 bytes): Q [D/W slabs][kBM rows][W], then kStages K tiles [D/W][kBN][W]
-// and kStages V tiles [Dv/Wv][kBN][Wv], then the mbarriers.
+// 1024 bytes): Q [slabs][kBM rows][W], then kStages K tiles [slabs][kBN][W]
+// and kStages V tiles [v slabs][kBN][Wv], then the mbarriers.  D and Dv are
+// the operands' widths; a tile holds them rounded up to whole slabs (kDP,
+// kDVP), the columns past them zeros.
 template <int D, int DV>
 struct Tile {
-  static_assert(D % 32 == 0 && DV % 32 == 0 && DV <= D && D <= 192,
-                "D, Dv in {32, 64, 128, 192}, Dv <= D");
+  static_assert(D % 16 == 0 && DV % 16 == 0 && DV <= D && D <= 192,
+                "D, Dv in {32, 64, 80, 128, 192}, Dv <= D");
   static constexpr int kW = D >= 64 ? 64 : 32;      // q/k columns a slab
   static constexpr int kWv = DV >= 64 ? 64 : 32;    // v columns a slab
-  static_assert(D % kW == 0 && DV % kWv == 0, "whole slabs");
+  static constexpr int kSlabs = (D + kW - 1) / kW;
+  static constexpr int kSlabsV = (DV + kWv - 1) / kWv;
+  static constexpr int kDP = kSlabs * kW, kDVP = kSlabsV * kWv;
+  static_assert(kDVP == 32 || kDVP == 64 || kDVP == 128, "a P V width");
   static constexpr uint32_t kRow = kW * 2, kRowV = kWv * 2;  // slab row bytes
   static constexpr uint32_t kQSlab = kBM * kRow, kKSlab = kBN * kRow;
   static constexpr uint32_t kVSlab = kBN * kRowV;
-  static constexpr uint32_t kQBytes = kBM * D * 2;
-  static constexpr uint32_t kKBytes = kBN * D * 2, kVBytes = kBN * DV * 2;
+  static constexpr uint32_t kQBytes = kBM * kDP * 2;
+  static constexpr uint32_t kKBytes = kBN * kDP * 2, kVBytes = kBN * kDVP * 2;
   static constexpr uint32_t kK = kQBytes;
   static constexpr uint32_t kV = kK + kStages * kKBytes;
   static constexpr uint32_t kBar = kV + kStages * kVBytes;
@@ -339,17 +350,17 @@ flash_tc(const __grid_constant__ CUtensorMap tm_q,
   if (tid >= kConsumers) {               // the producer warp
     if (tid == kConsumers) {
       mbar_expect_tx(q_bar, T::kQBytes);
-      for (int i = 0; i < D / T::kW; ++i)
+      for (int i = 0; i < T::kSlabs; ++i)
         tma_load(sq + i * T::kQSlab, &tm_q, q_bar, i * T::kW, q0, h, b);
       for (int j = 0; j < n_kv; ++j) {
         const int st = j % kStages;
         if (j >= kStages) mbar_wait(empty0 + 8 * st, (j / kStages - 1) & 1);
         const uint32_t full = full0 + 8 * st;
         mbar_expect_tx(full, T::kKBytes + T::kVBytes);
-        for (int i = 0; i < D / T::kW; ++i)
+        for (int i = 0; i < T::kSlabs; ++i)
           tma_load(sk + st * T::kKBytes + i * T::kKSlab, &tm_k, full,
                    i * T::kW, j * kBN, hk, b);
-        for (int i = 0; i < DV / T::kWv; ++i)
+        for (int i = 0; i < T::kSlabsV; ++i)
           tma_load(sv + st * T::kVBytes + i * T::kVSlab, &tm_v, full,
                    i * T::kWv, j * kBN, hk, b);
       }
@@ -365,9 +376,10 @@ flash_tc(const __grid_constant__ CUtensorMap tm_q,
   const int col = 2 * (lane % 4);
   const uint32_t sq_wg = sq + wg * 64 * T::kRow;
 
-  float o[DV / 2];
+  constexpr int DVP = T::kDVP;           // P V's width, zero columns included
+  float o[DVP / 2];
 #pragma unroll
-  for (int i = 0; i < DV / 2; ++i) o[i] = 0.f;
+  for (int i = 0; i < DVP / 2; ++i) o[i] = 0.f;
   float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
   mbar_wait(q_bar, 0);
 
@@ -444,7 +456,7 @@ flash_tc(const __grid_constant__ CUtensorMap tm_q,
     l0 = l0 * alpha0 + sum0;
     l1 = l1 * alpha1 + sum1;
 #pragma unroll
-    for (int i = 0; i < DV / 8; ++i) {
+    for (int i = 0; i < DVP / 8; ++i) {
       o[4 * i] *= alpha0;
       o[4 * i + 1] *= alpha0;
       o[4 * i + 2] *= alpha1;
@@ -456,7 +468,7 @@ flash_tc(const __grid_constant__ CUtensorMap tm_q,
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kBN / 16; ++kk)
-      wgmma_pv<DV>(o, &p[4 * kk],
+      wgmma_pv<DVP>(o, &p[4 * kk],
                    smem_desc(sv + st * T::kVBytes + kk * 16 * T::kRowV,
                              T::kVSlab, 8 * T::kRowV, T::kSwzV));
     wgmma_commit();
@@ -570,7 +582,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
 // bfloat16, each with unit stride in its last axis, a 16-byte-aligned base
 // and the element strides of its batch, head and sequence axes (multiples
 // of 8) in strides[0..2] (q), [3..5] (k), [6..8] (v); out: [batch, hq, s,
-// dv] bfloat16, contiguous.  hq % hkv == 0 and (d, dv) one of the nine
+// dv] bfloat16, contiguous.  hq % hkv == 0 and (d, dv) one of the ten
 // pairs.  Returns cudaGetLastError() after the launch, or the error that
 // kept it from launching (a tensor map the driver refused: invalid value).
 extern "C" int flash_attention_tc_launch(const void* q, const void* k,
@@ -591,6 +603,7 @@ extern "C" int flash_attention_tc_launch(const void* q, const void* k,
   FLASH_TC_CASE(32, 32)
   FLASH_TC_CASE(64, 32)
   FLASH_TC_CASE(64, 64)
+  FLASH_TC_CASE(80, 80)
   FLASH_TC_CASE(128, 32)
   FLASH_TC_CASE(128, 64)
   FLASH_TC_CASE(128, 128)

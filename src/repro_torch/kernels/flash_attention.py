@@ -12,7 +12,9 @@ why and what bounds each.  Both replace the Pallas TPU kernel
 
 q (B, Hq, S, D), k (B, Hkv, S, D) and v (B, Hkv, S, Dv), all float32 or
 all bfloat16, Hq a multiple of Hkv, (D, Dv) in ``HEAD_DIMS`` (Dv = D, or
-MLA's D = 192 with Dv = 128, among others); any ragged S.  Each operand
+MLA's D = 192 with Dv = 128, among others; Zamba2's shared attention is
+(80, 80), which both kernels pad to whole slabs on chip: the sources say
+how); any ragged S.  Each operand
 needs unit stride in its last axis, and in bf16 what TMA needs besides: a
 16-byte-aligned base and batch, head and sequence strides of whole 16-byte
 units (``takes`` says whether a tensor qualifies; ``ops`` copies one that
@@ -37,9 +39,10 @@ _LIBS = {torch.float32: ("flash_attention", "flash_attention_launch",
          torch.bfloat16: ("flash_attention_tc", "flash_attention_tc_launch",
                           [_I, _P])}
 #: the (D, Dv) pairs both kernels are built for: D in {32, 64, 128, 192},
-#: Dv in {32, 64, 128}, Dv <= D
-HEAD_DIMS = tuple((d, dv) for d in (32, 64, 128, 192) for dv in (32, 64, 128)
-                  if dv <= d)
+#: Dv in {32, 64, 128}, Dv <= D; and (80, 80), Zamba2's shared attention
+HEAD_DIMS = tuple(sorted(
+    [(d, dv) for d in (32, 64, 128, 192) for dv in (32, 64, 128) if dv <= d]
+    + [(80, 80)]))
 
 
 def _strides(t: torch.Tensor) -> tuple[int, int, int]:

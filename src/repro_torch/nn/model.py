@@ -7,6 +7,9 @@ families:
   vlm     — dense backbone, stub vision frontend feeds embeddings (internvl2)
   audio   — MHA + LayerNorm + GELU over stub EnCodec frame embeds (musicgen)
   ssm     — RWKV-6 time mix + channel mix, no attention (rwkv6)
+  hybrid  — Mamba-2 (SSD) mixers with one shared attention + SwiGLU block
+            applied before every ``shared_attn_every`` layers (zamba2); the
+            shared block's weights live under ``params["shared_block"]``
 
 The parameter tree is the JAX package's: nested dicts, the layer stack
 under ``params["layers"]`` with a leading L axis, float32 storage cast to
@@ -14,11 +17,17 @@ under ``params["layers"]`` with a leading L axis, float32 storage cast to
 JAX ``LM.init`` tree into this class's parameters unchanged.  The JAX
 ``lax.scan`` over the stack is a Python loop over that axis.
 
-Entry points:
+Entry points, and the kernels each runs on the card:
   init(generator) → params
   forward(params, batch) → (logits (B,S,V), aux)
-  prefill(params, batch) → (last-token logits, cache)   [flash or rwkv6_scan]
-  decode_step(params, batch, cache, pos) → (logits, cache)   [ssm: rwkv6_scan]
+  prefill(params, batch) → (last-token logits, cache)
+      dense/vlm/audio: flash_attention a layer; ssm: rwkv6_scan a layer;
+      moe: flash_attention a layer, with impl="sort" moe_dispatch and
+      relational_matmul a MoE layer; hybrid: flash_attention a use of the
+      shared block (n_layers / shared_attn_every)
+  decode_step(params, batch, cache, pos) → (logits, cache)
+      ssm: rwkv6_scan a layer; moe with impl="sort": moe_dispatch and
+      relational_matmul a MoE layer; dense/vlm/audio and hybrid: none
 
 Full-sequence attention (``forward``, ``prefill``) goes through the
 ``flash_attention`` kernel on the card, one launch per layer (MLA's too,
@@ -30,9 +39,12 @@ goes through the ``rwkv6_scan`` kernel in every layer, in prefill and in
 each decode step.  The moe family's routed experts go through
 ``nn/moe.py``: with ``impl="sort"``, ``moe_dispatch`` and
 ``relational_matmul`` once each per MoE layer, in prefill and in each
-decode step.  ``decode_step`` writes the step's K/V (MLA: latent and
-rope key), or the ssm family's new states, into ``cache`` in place (the
-JAX version returns a new cache), so serving holds one cache, not two.
+decode step.  The hybrid family's Mamba-2 mixers (``nn/ssm.py``'s SSD)
+are PyTorch products with no kernel, as the JAX package's are jnp; its
+shared block's full-sequence attention is the flash kernel at head dim
+80.  ``decode_step`` writes the step's K/V (MLA: latent and rope key), or
+the recurrent families' new states, into ``cache`` in place (the JAX
+version returns a new cache), so serving holds one cache, not two.
 """
 from __future__ import annotations
 
@@ -48,8 +60,6 @@ from . import ssm as S
 
 #: what this slice leaves out, and the ROADMAP.md item that brings it
 _LATER = {
-    "hybrid": "family 'hybrid' (Mamba-2 + shared attention) comes with "
-              "the Mamba-2 slice (ROADMAP.md queue 1, item 14)",
     "attn_impl": "attn_impl={!r}: only 'flash' is ported; the chunked "
                  "schedule and the dense path come with ROADMAP.md queue 1, "
                  "item 12",
@@ -80,8 +90,6 @@ def _depth(tree) -> int:
 
 class LM:
     def __init__(self, cfg: ArchConfig, device="cuda"):
-        if cfg.family not in ("dense", "moe", "vlm", "audio", "ssm"):
-            raise NotImplementedError(_LATER[cfg.family])
         if cfg.attn_impl != "flash":
             raise NotImplementedError(_LATER["attn_impl"].format(
                 cfg.attn_impl))
@@ -107,11 +115,14 @@ class LM:
         d, v = cfg.d_model, cfg.vocab
         n_dense = cfg.moe.first_k_dense if cfg.moe else 0
         n = cfg.n_layers - n_dense
-        layers: dict[str, Any] = {
-            "norm1": self._norm_init(d, (n,)),
-            "norm2": self._norm_init(d, (n,)),
-        }
-        if cfg.family == "ssm":
+        layers: dict[str, Any] = {"norm1": self._norm_init(d, (n,))}
+        if cfg.family != "hybrid":      # a hybrid layer has one norm
+            layers["norm2"] = self._norm_init(d, (n,))
+        if cfg.family == "hybrid":
+            layers["mixer"] = S.mamba2_init(
+                generator, d, cfg.n_heads_mamba(), cfg.ssm.d_state,
+                cfg.ssm.d_conv, cfg.ssm.expand, lead=(n,))
+        elif cfg.family == "ssm":
             layers["tmix"] = S.rwkv6_init(generator, d, self._ssm_heads,
                                           lead=(n,))
             layers["cmix"] = S.rwkv6_channel_mix_init(generator, d, cfg.d_ff,
@@ -144,6 +155,17 @@ class LM:
                 "mlp": L.swiglu_init(generator, d, cfg.moe.d_ff_dense,
                                      lead=(n_dense,)),
             }
+        if cfg.shared_attn_every:
+            # Zamba2's shared block: (hidden, embeddings) → d, then a plain
+            # GQA attention and a SwiGLU, as the JAX init has it
+            params["shared_block"] = {
+                "in_proj": L.dense_init(generator, (2 * d, d)),
+                "norm1": L.rmsnorm_init(d, device=self.device),
+                "norm2": L.rmsnorm_init(d, device=self.device),
+                "attn": L.gqa_init(generator, d, cfg.n_heads, cfg.n_kv_heads,
+                                   cfg.d_head),
+                "mlp": L.swiglu_init(generator, d, cfg.d_ff),
+            }
         if cfg.param_dtype == "bfloat16":
             params = _map(lambda a: a.to(torch.bfloat16)
                           if a.dim() >= 2 and a.dtype == torch.float32
@@ -163,6 +185,13 @@ class LM:
     @property
     def _ssm_heads(self) -> int:
         return self.cfg.d_model // self.cfg.ssm.head_dim
+
+    @property
+    def _mamba_dims(self) -> tuple[int, int, int, int]:
+        """(d_inner, head_dim, d_state, d_conv) of the Mamba-2 mixers."""
+        ssm = self.cfg.ssm
+        return (ssm.expand * self.cfg.d_model, ssm.head_dim, ssm.d_state,
+                ssm.d_conv)
 
     # ------------------------------------------------------------- embedding
     def embed_inputs(self, params, batch) -> torch.Tensor:
@@ -283,6 +312,13 @@ class LM:
                 state=None if cache is None else cache[1])
             x = x + o
             return x, aux, (st_t, st_c)
+        if cfg.family == "hybrid":
+            o, st = S.mamba2_mixer(
+                p["mixer"], norm(p["norm1"], x), self._mamba_dims,
+                state=cache, chunk=cfg.ssm.chunk, ssd_impl=cfg.ssd_impl,
+                compute_dtype=(torch.bfloat16 if cfg.ssm_bf16
+                               else torch.float32))
+            return x + o, aux, st
         attn_out, kv = self._attn_block(p["attn"], norm(p["norm1"], x),
                                         cos, sin, cache=cache, pos=pos)
         x = x + attn_out
@@ -330,6 +366,9 @@ class LM:
         Returns (hidden (B,S,d), aux_loss)."""
         x = self.embed_inputs(params, batch)
         cos, sin = self._rope(x.shape[1], x.device)
+        if self.cfg.shared_attn_every:
+            x, _ = self._hybrid_forward(params, x, cos, sin)
+            return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
         def body(carry, lp):
             xx, aux = carry
@@ -346,6 +385,51 @@ class LM:
         x, aux = self.backbone(params, batch)
         return self.unembed(params, x), aux
 
+    # ------------------------------------------------------------- hybrid
+    def _hybrid_forward(self, params, x, cos, sin, cache=None, pos=None):
+        """Zamba2: before each segment of ``shared_attn_every`` Mamba-2
+        layers, the shared block on (hidden, embeddings).  Without a cache
+        (full sequence) returns (x, (mamba states, shared K/V)) stacked as
+        ``init_cache`` lays them out, for S positions; with one (a decode
+        step at ``pos``) writes the step's states and K/V into it in place
+        and returns (x, cache)."""
+        x0 = x
+        mamba, attn = (None, None) if cache is None else cache
+        period = self.cfg.shared_attn_every
+        states, kvs = [], []
+        for seg in range(self.cfg.n_layers // period):
+            x, kv = self._shared_block(
+                params["shared_block"], x, x0, cos, sin,
+                cache=None if cache is None else (attn[0][seg],
+                                                  attn[1][seg]),
+                pos=pos)
+            kvs.append(kv)
+            for i in range(seg * period, (seg + 1) * period):
+                lp = _index(params["layers"], i)
+                if cache is None:
+                    x, _, st = self._block(lp, x, cos, sin)
+                    states.append(st)
+                else:
+                    conv, h = mamba[0][i], mamba[1][i]
+                    x, _, (nc, nh) = self._block(lp, x, cos, sin,
+                                                 cache=(conv, h))
+                    conv.copy_(nc)
+                    h.copy_(nh)
+        if cache is not None:
+            return x, cache
+        return x, (_stack(states), _stack(kvs))
+
+    def _shared_block(self, p, x, x0, cos, sin, cache=None, pos=None):
+        """Zamba2's shared block: concat(hidden, embeddings) → 2d → d
+        projection, attention and SwiGLU, the residual back into the
+        Mamba stream.  Returns (x, kv) as ``_attn_block`` gives kv."""
+        h = torch.cat([x, x0], dim=-1) @ L.cdt(p["in_proj"])
+        attn_out, kv = self._attn_block(p["attn"], L.rmsnorm(p["norm1"], h),
+                                        cos, sin, cache=cache, pos=pos)
+        h = h + attn_out
+        h = h + L.swiglu(p["mlp"], L.rmsnorm(p["norm2"], h))
+        return x + h, kv
+
     # ------------------------------------------------------------- serving
     def init_cache(self, batch_size: int, max_len: int):
         """dense/vlm/audio and GQA moe: (K, V), each (L, B, Hkv, max_len,
@@ -353,7 +437,9 @@ class LM:
         (L,B,max_len,d_rope)) in the compute type, as (prologue's, layers')
         where a dense-FFN prologue leads; ssm: ((x_prev (L,B,1,d), S
         (L,B,H,N,N)), cm_prev (L,B,1,d)) in float32, whatever
-        ``max_len``."""
+        ``max_len``; hybrid: ((conv (L,B,d_conv-1,d_inner+2N), h
+        (L,B,H,N,P)) in float32, (K, V) of the shared block, each
+        (n_seg,B,Hkv,max_len,dh) in the compute type)."""
         cfg = self.cfg
         if cfg.family == "ssm":
             n = cfg.ssm.head_dim
@@ -364,6 +450,15 @@ class LM:
                     z(cfg.n_layers, batch_size, 1, cfg.d_model))
         z = lambda *s: torch.zeros(s, dtype=L.COMPUTE_DTYPE,
                                    device=self.device)
+        if cfg.family == "hybrid":
+            di, hd, n, d_conv = self._mamba_dims
+            f32 = lambda *s: torch.zeros(s, dtype=torch.float32,
+                                         device=self.device)
+            mamba = (f32(cfg.n_layers, batch_size, d_conv - 1, di + 2 * n),
+                     f32(cfg.n_layers, batch_size, di // hd, n, hd))
+            shape = (cfg.n_layers // cfg.shared_attn_every, batch_size,
+                     cfg.n_kv_heads, max_len, cfg.d_head)
+            return (mamba, (z(*shape), z(*shape)))
         n_dense = cfg.moe.first_k_dense if cfg.moe else 0
         ls = cfg.n_layers - n_dense
         if cfg.mla is not None:
@@ -383,6 +478,11 @@ class LM:
             return self._decode_ssm(params, x, cache)
         cos, sin = self._rope_at(pos, x.device) if self.cfg.rope \
             else (None, None)
+        if self.cfg.family == "hybrid":
+            # x0, the shared block's second input, is this step's own
+            # embedding, as in the JAX model
+            x, cache = self._hybrid_forward(params, x, cos, sin, cache, pos)
+            return self.unembed(params, x), cache
 
         def body(carry, lp, *kv_l):
             out, _, _ = self._block(lp, carry, cos, sin, cache=kv_l,
@@ -434,10 +534,14 @@ class LM:
         """Full-context forward that also materialises the decode cache.
         Returns (last-position logits, cache) in ``init_cache``'s layout:
         (K, V), each (L,B,Hkv,S,dh); MLA's latent caches, each (L,B,S,.),
-        as (prologue's, layers') where a prologue leads; or the ssm
-        family's states."""
+        as (prologue's, layers') where a prologue leads; or the recurrent
+        families' states (hybrid: with the shared block's K/V, each
+        (n_seg,B,Hkv,S,dh))."""
         x = self.embed_inputs(params, batch)
         cos, sin = self._rope(x.shape[1], x.device)
+        if self.cfg.family == "hybrid":
+            x, cache = self._hybrid_forward(params, x, cos, sin)
+            return self.unembed(params, x[:, -1:]), cache
 
         def body(carry, lp):
             out, _, kv = self._block(lp, carry, cos, sin)

@@ -1,8 +1,8 @@
-"""RWKV-6 (Finch) time mix and channel mix, PyTorch port of the RWKV-6 half
-of ``repro.nn.ssm`` (arXiv:2404.05892).
+"""Recurrent sequence mixers, PyTorch port of ``repro.nn.ssm``: RWKV-6
+(Finch) and Mamba-2 (SSD).
 
-Time mix: a per-head N×N matrix state S with a data-dependent *vector*
-decay w_t,
+RWKV-6 time mix (arXiv:2404.05892): a per-head N×N matrix state S with a
+data-dependent *vector* decay w_t,
 
     o_t = r_t · (S_{t-1} + diag(u) k_t v_tᵀ)
     S_t = diag(w_t) S_{t-1} + k_t v_tᵀ
@@ -12,6 +12,20 @@ through ``ops.rwkv6_scan``: the ``rwkv6_scan`` kernel on the card, its plain
 version (the same loop over time) on the CPU.  r, k and v go to float32
 before the recurrence, and the decay, the per-head group norm and the
 carried states are float32, as in the JAX layer (``layers.ACCUM_DTYPE``).
+
+Mamba-2 SSD (arXiv:2405.21060): a *scalar* decay per head, so the chunked
+block decomposition is stable.  Diagonal blocks take the masked-decay
+product, off-diagonal ones flow through a chunk-state recurrence.  It has
+no Pallas kernel in the JAX package and none here: on the card it is
+PyTorch products, cumulative sums and exponentials.  Each of the JAX
+version's four-operand einsums is written as two-operand steps in the
+order that keeps the intermediates small: ``Cs·Bs``, then ``L``, then
+``xs`` for the diagonal blocks, where contracting ``Bs`` with ``xs`` first
+would build a (B, nc, C, N, H, P) tensor (10.7 GB at Zamba2-2.7B's
+prefill).  With ``compute_dtype`` bf16 the chunk tensors (x, B, C, L, the
+decays, the entering states) are rounded to bf16 where JAX rounds them and
+every product accumulates in float32; the decay cumsums and the state h
+stay float32.
 
 Params are nested dicts as in the JAX package; the init functions take a
 ``torch.Generator`` (its device is where the tensors are made) and
@@ -24,7 +38,7 @@ import torch.nn.functional as F
 
 from ..kernels import ops
 from . import layers as L
-from .layers import _full, dense_init, layernorm_init
+from .layers import _full, dense_init, layernorm_init, rmsnorm_init
 
 _MIX = ("r", "k", "v", "w", "g")
 
@@ -125,3 +139,194 @@ def rwkv6_channel_mix(p, x, state=None):
     h = torch.square(torch.relu(xk @ p["wk"].to(x.dtype)))
     r = torch.sigmoid(xr @ p["wr"].to(x.dtype))
     return r * (h @ p["wv"].to(x.dtype)), x[:, -1:].to(L.ACCUM_DTYPE)
+
+
+# ---------------------------------------------------------------------------
+# Mamba-2 (SSD): chunked block decomposition
+# ---------------------------------------------------------------------------
+
+def mamba2_init(gen: torch.Generator, d: int, n_heads: int, d_state: int,
+                d_conv: int = 4, expand: int = 2, lead=()):
+    d_inner, dev = expand * d, gen.device
+    return {
+        # in_proj emits z (gate), x, B, C, dt
+        "in_proj": dense_init(gen, (*lead, d,
+                                    2 * d_inner + 2 * d_state + n_heads)),
+        "conv_w": dense_init(gen, (*lead, d_conv, d_inner + 2 * d_state),
+                             scale=0.5),
+        "a_log": _full((*lead, n_heads), 0.0, dev),
+        "dt_bias": _full((*lead, n_heads), 0.0, dev),
+        "d_skip": _full((*lead, n_heads), 1.0, dev),
+        "norm": rmsnorm_init(d_inner, lead, dev),
+        "out_proj": dense_init(gen, (*lead, d_inner, d)),
+    }
+
+
+def _segsum(a):
+    """exp-able segment sums: out[..., t, s] = Σ_{r=s+1..t} a[..., r] for
+    t ≥ s, -inf above the diagonal; a difference of cumulative sums, as
+    the JAX version takes it."""
+    t = a.shape[-1]
+    cs = torch.cumsum(a, dim=-1)
+    out = cs[..., :, None] - cs[..., None, :]
+    mask = torch.ones((t, t), dtype=torch.bool, device=a.device).tril()
+    return out.masked_fill(~mask, float("-inf"))
+
+
+def _f32(*ts):
+    """float32 views of the operands of a product that accumulates in
+    float32 (bf16 widens exactly)."""
+    return tuple(t.to(torch.float32) for t in ts)
+
+
+def _step(x, a, b_in, c_in, h_prev):
+    """One token of the recurrence: h ← exp(a) h + b xᵀ, y = c · h, in
+    float32.  x (B,H,P), a (B,H), b_in/c_in (B,N), h_prev (B,H,N,P)."""
+    f32 = torch.float32
+    da = torch.exp(a)
+    h = h_prev * da[..., None, None] + torch.einsum(
+        "bn,bhp->bhnp", b_in.to(f32), x.to(f32))
+    return torch.einsum("bn,bhnp->bhp", c_in.to(f32), h), h
+
+
+def ssd_chunked(x, a, b_in, c_in, chunk: int = 64, h0=None,
+                compute_dtype=torch.float32):
+    """Mamba-2 SSD. x: (B,S,H,P), a: (B,S,H) log-decay (≤0), b_in/c_in:
+    (B,S,N). Returns (y (B,S,H,P) in x's type, h_fin (B,H,N,P) float32).
+    ``compute_dtype=bf16`` keeps the big chunk tensors in bf16 (the decay
+    cumsums stay float32)."""
+    bsz, s, h, p = x.shape
+    n = b_in.shape[-1]
+    f32 = torch.float32
+    assert s % chunk == 0 or s == 1
+    if s == 1:                      # decode step: the plain recurrence
+        h_prev = (torch.zeros((bsz, h, n, p), dtype=f32, device=x.device)
+                  if h0 is None else h0)
+        y, hb = _step(x[:, 0], a[:, 0], b_in[:, 0], c_in[:, 0], h_prev)
+        return y[:, None].to(x.dtype), hb
+    nc = s // chunk
+    cd = compute_dtype
+    xs = x.reshape(bsz, nc, chunk, h, p).to(cd)
+    As = a.reshape(bsz, nc, chunk, h).permute(0, 3, 1, 2).to(f32)  # (B,H,nc,C)
+    Bs = b_in.reshape(bsz, nc, chunk, n).to(cd)
+    Cs = c_in.reshape(bsz, nc, chunk, n).to(cd)
+    A_cum = torch.cumsum(As, dim=-1)                              # (B,H,nc,C)
+    # 1. diagonal blocks: (Cs·Bs) ∘ L, then · xs
+    L = torch.exp(_segsum(As)).to(cd)                             # (B,H,nc,C,C)
+    cb = torch.einsum("bzln,bzsn->bzls", *_f32(Cs, Bs))
+    m = cb[:, None] * L.to(f32)                                   # (B,H,nc,l,s)
+    xs32 = xs.to(f32)
+    y_diag = torch.einsum("bhzls,bzshp->bzlhp", m, xs32)
+    del cb, m
+    # 2. chunk states (decay to the chunk's end): (decay ∘ xs), then · Bs
+    decay_states = torch.exp(A_cum[..., -1:] - A_cum).to(cd)     # (B,H,nc,C)
+    xd = xs32 * decay_states.to(f32).permute(0, 2, 3, 1)[..., None]
+    states = torch.einsum("bzcn,bzchp->bzhnp", *_f32(Bs), xd)
+    del xd, xs32
+    # 3. the inter-chunk recurrence, on the float32 state
+    chunk_decay = torch.exp(A_cum[..., -1])                      # (B,H,nc)
+    hcur = (torch.zeros((bsz, h, n, p), dtype=f32, device=x.device)
+            if h0 is None else h0)
+    h_prevs = []
+    for z in range(nc):
+        h_prevs.append(hcur)
+        hcur = hcur * chunk_decay[:, :, z, None, None] + states[:, z]
+    h_prevs = torch.stack(h_prevs, dim=1)                         # (B,nc,H,N,P)
+    del states
+    # 4. off-diagonal part (the state entering each chunk): Cs · h_prev,
+    # then ∘ state_decay
+    state_decay = torch.exp(A_cum).to(cd)                         # (B,H,nc,C)
+    y_off = torch.einsum("bzln,bzhnp->bzlhp",
+                         *_f32(Cs, h_prevs.to(cd)))
+    y_off = y_off * state_decay.to(f32).permute(0, 2, 3, 1)[..., None]
+    y = (y_diag + y_off).reshape(bsz, s, h, p)
+    return y.to(x.dtype), hcur
+
+
+def ssd_scan(x, a, b_in, c_in, chunk: int = 64, h0=None,
+             compute_dtype=torch.float32):
+    """ssd_chunked with one loop over chunks, in float32: the same math,
+    but the decay matrix L (B,H,C,C) and the states exist for one chunk at
+    a time.  A ragged S (or S = 1) goes to ssd_chunked, as in JAX."""
+    bsz, s, h, p = x.shape
+    n = b_in.shape[-1]
+    if s == 1 or s % chunk:
+        return ssd_chunked(x, a, b_in, c_in, chunk=chunk, h0=h0,
+                           compute_dtype=compute_dtype)
+    f32 = torch.float32
+    nc = s // chunk
+    xs = x.reshape(bsz, nc, chunk, h, p).to(f32)
+    As = a.reshape(bsz, nc, chunk, h).permute(0, 1, 3, 2).to(f32)  # (B,nc,H,C)
+    Bs = b_in.reshape(bsz, nc, chunk, n).to(f32)
+    Cs = c_in.reshape(bsz, nc, chunk, n).to(f32)
+    hprev = (torch.zeros((bsz, h, n, p), dtype=f32, device=x.device)
+             if h0 is None else h0)
+    ys = []
+    for z in range(nc):
+        xc, ac, bc, cc = xs[:, z], As[:, z], Bs[:, z], Cs[:, z]
+        a_cum = torch.cumsum(ac, dim=-1)                         # (B,H,C)
+        L = torch.exp(_segsum(ac))                                # (B,H,C,C)
+        m = torch.einsum("bln,bsn->bls", cc, bc)[:, None] * L
+        y_diag = torch.einsum("bhls,bshp->blhp", m, xc)
+        y_off = torch.einsum("bln,bhnp->blhp", cc, hprev) \
+            * torch.exp(a_cum).permute(0, 2, 1)[..., None]
+        decay_states = torch.exp(a_cum[..., -1:] - a_cum)        # (B,H,C)
+        st = torch.einsum("bcn,bchp->bhnp", bc,
+                          xc * decay_states.permute(0, 2, 1)[..., None])
+        hprev = hprev * torch.exp(a_cum[..., -1])[..., None, None] + st
+        ys.append(y_diag + y_off)
+    y = torch.stack(ys, dim=1).reshape(bsz, s, h, p)
+    return y.to(x.dtype), hprev
+
+
+def ssd_naive(x, a, b_in, c_in, h0=None):
+    """Step-by-step oracle for ssd_chunked."""
+    bsz, s, h, p = x.shape
+    n = b_in.shape[-1]
+    hst = (torch.zeros((bsz, h, n, p), dtype=torch.float32, device=x.device)
+           if h0 is None else h0)
+    ys = []
+    for t in range(s):
+        y, hst = _step(x[:, t], a[:, t], b_in[:, t], c_in[:, t], hst)
+        ys.append(y)
+    return torch.stack(ys, dim=1).to(x.dtype), hst
+
+
+def mamba2_mixer(p, xin, dims: tuple[int, int, int, int], state=None,
+                 chunk: int = 64, ssd_impl: str = "parallel",
+                 compute_dtype=torch.float32):
+    """The Mamba-2 block's mixer. xin: (B,S,d); dims = (d_inner, head_dim,
+    d_state, d_conv). state: (conv_state (B, d_conv-1, d_inner+2N), h
+    (B,H,N,P)) or None. Returns (out (B,S,d), (conv_state, h)), both
+    float32."""
+    d_inner, head_p, n, d_conv = dims
+    b, s, _ = xin.shape
+    n_heads = d_inner // head_p
+    zxbcdt = xin @ p["in_proj"].to(xin.dtype)
+    z, xbc, dt = torch.split(zxbcdt, [d_inner, d_inner + 2 * n, n_heads],
+                             dim=-1)
+    # causal depthwise conv over (x, B, C)
+    if state is None:
+        conv_in = F.pad(xbc, (0, 0, d_conv - 1, 0))
+    else:
+        conv_in = torch.cat([state[0].to(xbc.dtype), xbc], dim=1)
+    wconv = p["conv_w"].to(xbc.dtype)
+    xbc_c = conv_in[:, 0:s] * wconv[0]
+    for i in range(1, d_conv):       # JAX's sum(), in its order
+        xbc_c = xbc_c + conv_in[:, i:i + s] * wconv[i]
+    xbc_c = F.silu(xbc_c)
+    xpart, b_in, c_in = torch.split(xbc_c, [d_inner, n, n], dim=-1)
+    dt_f = F.softplus(dt.to(torch.float32) + p["dt_bias"])        # (B,S,H)
+    a = -torch.exp(p["a_log"]) * dt_f                             # log decay
+    xh = xpart.reshape(b, s, n_heads, head_p) * dt_f[..., None].to(
+        xpart.dtype)
+    h0 = None if state is None else state[1]
+    ssd = ssd_scan if ssd_impl == "scan" else ssd_chunked
+    y, h_fin = ssd(xh, a, b_in, c_in, chunk=min(chunk, s), h0=h0,
+                   compute_dtype=compute_dtype)
+    y = y + p["d_skip"][:, None].to(y.dtype) * xh
+    y = y.reshape(b, s, d_inner)
+    y = L.rmsnorm(p["norm"], y * F.silu(z))
+    out = y @ p["out_proj"].to(xin.dtype)
+    new_conv = conv_in[:, conv_in.shape[1] - (d_conv - 1):]
+    return out, (new_conv.to(torch.float32), h_fin)

@@ -377,7 +377,7 @@ def test_flash_attention_tc_kernel(cuda, d, dv, s, group, causal):
                                      bf16_scores=True).float(), **TC_SCORES)
 
 
-@pytest.mark.parametrize("d,dv", [(32, 32), (128, 128), (192, 128)])
+@pytest.mark.parametrize("d,dv", [(32, 32), (80, 80), (128, 128), (192, 128)])
 def test_flash_attention_tc_kernel_takes_head_split_views(cuda, d, dv):
     """bf16 (B, S, H, D) projections viewed as (B, H, S, D): the tensor maps
     take their strides, nothing is copied."""
@@ -452,7 +452,7 @@ def test_flash_attention_f32_kernel(cuda, d, dv, s, group, causal):
                                **F32)
 
 
-@pytest.mark.parametrize("d,dv", [(32, 32), (128, 128), (192, 128)])
+@pytest.mark.parametrize("d,dv", [(32, 32), (80, 80), (128, 128), (192, 128)])
 @pytest.mark.parametrize("offset", [0, 1])
 def test_flash_attention_f32_kernel_takes_head_split_views(cuda, d, dv,
                                                            offset):
@@ -472,6 +472,36 @@ def test_flash_attention_f32_kernel_takes_head_split_views(cuda, d, dv,
         torch.testing.assert_close(
             flash_mod.flash_attention(q, k, v, causal=causal),
             flash_mod.plain(q, k, v, causal=causal), **F32)
+
+
+# Zamba2-2.7B's shared attention at its prefill shape: B = 4, 32 heads of
+# 80 (MHA), S = 2048, causal, scale 80 ** -0.5, as the model's head-split
+# views of its (B, S, 2560) projections
+ZAMBA2 = (4, 32, 2048, 80)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_at_zamba2s_shape(cuda, dtype):
+    """Both kernels at (80, 80), padded on chip to whole slabs, against the
+    plain version at the full Zamba2 shape; bf16 also against the
+    bf16-scores plain version, whose numerics the kernel has."""
+    b, h, s, d = ZAMBA2
+    rng = np.random.RandomState(80)
+    q, k, v = (rnd(rng, b, s, h, d, device=cuda, dtype=dtype).transpose(1, 2)
+               for _ in range(3))
+    assert all(flash_mod.takes(t) for t in (q, k, v))
+    before = flash_mod.flash_attention.launches
+    got = ops.flash_attention(q, k, v)
+    assert flash_mod.flash_attention.launches == before + 1
+    assert got.dtype == dtype and got.shape == (b, h, s, d)
+    want = flash_mod.plain(q, k, v)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, **F32)
+    else:
+        torch.testing.assert_close(got.float(), want.float(), **BF16)
+        torch.testing.assert_close(
+            got.float(), flash_mod.plain(q, k, v, bf16_scores=True).float(),
+            **TC_SCORES)
 
 
 def test_flash_attention_kernel_refuses_other_head_dims(cuda):

@@ -280,6 +280,9 @@ def test_flash_tma_rule_for_bf16_operands():
     from repro_torch.kernels import flash_attention as flash_mod
     bf = torch.zeros(2, 100, 8, 128, dtype=torch.bfloat16)
     assert flash_mod.takes(bf.transpose(1, 2))          # head-split view
+    zamba2 = torch.zeros(1, 64, 32, 80, dtype=torch.bfloat16)  # rows of 160 B
+    assert flash_mod.takes(zamba2.transpose(1, 2))
+    assert flash_mod._strides(zamba2.transpose(1, 2)) == (64 * 2560, 80, 2560)
     assert flash_mod.takes(bf[:1, :, :, :64].transpose(1, 2))
     assert not flash_mod.takes(bf[..., 1:65])           # base 2 bytes off
     assert not flash_mod.takes(torch.zeros(1, 2, 5, 68, dtype=torch.bfloat16)
@@ -356,12 +359,13 @@ def test_tf32_split_is_exact_to_2_pow_minus_22():
 
 
 @pytest.mark.parametrize("b,h,s,d,dv", [(1, 4, 256, 192, 128),
-                                        (1, 4, 512, 128, 128)])
+                                        (1, 4, 512, 128, 128),
+                                        (1, 4, 512, 80, 80)])
 def test_3xtf32_attention_meets_float32_and_one_tf32_does_not(b, h, s, d,
                                                               dv):
     """Causal attention with both products in 3xTF32 meets the float32
-    tolerance against a float64 oracle at MLA's and Yi-6B's head dims; with
-    single TF32 products it does not."""
+    tolerance against a float64 oracle at MLA's, Yi-6B's and Zamba2's head
+    dims; with single TF32 products it does not."""
     rng = np.random.RandomState(s + d)
     q, k = (torch.from_numpy(rnd(rng, b, h, s, d)) for _ in range(2))
     v = torch.from_numpy(rnd(rng, b, h, s, dv))

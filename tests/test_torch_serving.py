@@ -110,6 +110,17 @@ def test_rwkv6_engine_emits_the_jax_engines_tokens(monkeypatch):
         assert t.generated == [int(x) for x in j.generated], t.uid
 
 
+def test_zamba2_engine_emits_the_jax_engines_tokens(monkeypatch):
+    """The hybrid cache (Mamba-2 conv and SSM states, the shared block's
+    K/V) through both engines, token for token: admission advances every
+    active slot's Mamba states by its current token and a freed slot's
+    states are never reset, in the port as in the reference."""
+    jdone, tdone = run_both(monkeypatch, arch="zamba2_2_7b")
+    assert [r.uid for r in tdone] == [r.uid for r in jdone]
+    for j, t in zip(jdone, tdone):
+        assert t.generated == [int(x) for x in j.generated], t.uid
+
+
 @pytest.mark.parametrize("arch", ["deepseek_v2_lite_16b", "dbrx_132b"])
 def test_moe_engine_emits_the_jax_engines_tokens(monkeypatch, arch):
     """The moe family with the relational (sort) MoE through both engines,
@@ -170,6 +181,30 @@ def test_convert_nested_round_trip():
                                       np.asarray(leaf, np.float32))
 
 
+def test_convert_carries_the_zamba2_tree():
+    """The hybrid family's JAX tree (the stacked ``layers.mixer``, the
+    ``shared_block`` outside the stack) comes across unchanged: the same
+    paths, shapes, types and values, and the port's ``LM.init`` draws the
+    same paths."""
+    jp = jax.jit(JLM(jget_config("zamba2_2_7b", reduced=True)).init)(
+        jax.random.PRNGKey(0))
+    tp = convert.from_jax_params(jp, device="cpu")
+    assert set(tp["shared_block"]) == {"in_proj", "norm1", "norm2", "attn",
+                                       "mlp"}
+    assert set(tp["layers"]) == {"norm1", "mixer"}
+    flat_j = jax.tree_util.tree_flatten_with_path(jp)[0]
+    flat_t = dict(jax.tree_util.tree_flatten_with_path(
+        convert.to_numpy(tp))[0])
+    assert len(flat_j) == len(flat_t)
+    for path, leaf in flat_j:
+        assert flat_t[path].dtype == leaf.dtype, path
+        np.testing.assert_array_equal(flat_t[path], np.asarray(leaf))
+    mine = LM(get_config("zamba2_2_7b", reduced=True), device="cpu").init(
+        torch.Generator().manual_seed(0))
+    assert {p for p, _ in jax.tree_util.tree_flatten_with_path(
+        convert.to_numpy(mine))[0]} == set(flat_t)
+
+
 def test_serve_launcher_on_the_cpu(capsys):
     done = serve.main(["--arch", "yi_6b", "--reduced", "--device", "cpu",
                        "--requests", "3", "--slots", "2", "--max-new", "4"])
@@ -183,6 +218,16 @@ def test_serve_launcher_serves_rwkv6_on_the_cpu(capsys):
     assert sorted(r.uid for r in done) == [0, 1, 2]
     assert all(len(r.generated) == 4 for r in done)
     assert "rwkv6-reduced on cpu: 3 requests, 12 tokens" in \
+        capsys.readouterr().out
+
+
+def test_serve_launcher_serves_zamba2_on_the_cpu(capsys):
+    done = serve.main(["--arch", "zamba2_2_7b", "--reduced", "--device",
+                       "cpu", "--requests", "3", "--slots", "2",
+                       "--max-new", "4"])
+    assert sorted(r.uid for r in done) == [0, 1, 2]
+    assert all(len(r.generated) == 4 for r in done)
+    assert "zamba2-reduced on cpu: 3 requests, 12 tokens" in \
         capsys.readouterr().out
 
 
