@@ -92,7 +92,23 @@ Phases (any failure exits non-zero; nothing is caught and carried on past):
            the shared block and 2 layers, each of the 9 shared-block uses
            and 54 layers alone (float32 binds in both), and the first
            segment (6 layers) and all 54 as smoke runs beside a one-ulp
-           nudge; (d) a profile of one prefill and one decode step.
+           nudge; (d) a profile of one prefill and one decode step;
+9. in-db   the paper's training inside sqlite (``:memory:``) at Fig. 10's
+           widths (784 → 200 → 10, lr 0.1, Listing 2's weights) on 32 rows
+           (cut for sqlite's time) for 3 iterations, after phase 8 has
+           freed Zamba2's model: (a) ``nn2sql.train`` with
+           ``Engine("sql")``, relational and ``dialect="array"`` (Listing
+           10's recursion), Listing 7's step as INSERT … SELECT, and the
+           stepped ``sgd_step_fn`` in both representations, the weights
+           back as float32 on the card; (b) ``Engine("dense")`` and
+           ``Engine("relational")`` on the card from the same start, every
+           weight within 1e-4 of every (a) run, the launches of
+           onehot_embed, fused_sigmoid_matmul and relational_matmul
+           counted; (c) the card's weights through sqlite and back as
+           RelTensors bit for bit, inference on them through
+           relational_matmul, and ``infer_in_db`` against the card within
+           1e-4 with equal accuracy; (d) wall times, ingest, plan-cache
+           hits and peak memory.
 
 ``python3 chip_smoke.py --kernels [name ...]`` runs phases 1 and 2 alone,
 for the named kernels (all six without a name), and prints no result line:
@@ -108,6 +124,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import re
 import subprocess
 import sys
@@ -2472,11 +2489,207 @@ def serve_zamba(counters, result):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the paper's in-database training beside the card
+# ---------------------------------------------------------------------------
+
+# Fig. 10's widths (784 -> 200 -> 10), lr 0.1, Listing 2's weights.  The
+# rows are cut for sqlite's time, never the widths: sqlite runs the
+# SQL-92 forms at about 0.4 s a row and an iteration on one CPU core (the
+# join of img with w_xh is rows x 784 x 200 tuples), so 32 rows, the
+# count of BENCH_db_mnist.json's own sqlite run, and its 3 iterations
+# keep the phase near 2 minutes.
+DB_ROWS, DB_ITERS = 32, 3
+DB_TOL = 1e-4                 # tests/test_db_backend.py: TOL
+DB_DEVICE = "cuda"            # where the weights come back and (b) runs
+
+
+def in_database(counters, core, nn2sql, data_mod, result):
+    """(a) train in sqlite in both representations and the stepped form;
+    (b) the card's engines from the same start, held to (a) within
+    ``DB_TOL`` with their kernel launches counted; (c) relations across
+    the boundary and inference in the database against the card's; (d) the
+    readings.  The SQL runs on the host: sqlite is the executor."""
+    import sqlite3
+
+    from repro_torch.core import rel_engine
+    from repro_torch.core.relational import RelTensor
+    from repro_torch.db import connect, relation_io
+    from repro_torch.db import train as db_train
+
+    card = result["card"]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    x, y = data_mod.make_mnist_like(DB_ROWS)
+    spec = nn2sql.MLPSpec(DB_ROWS, N_FEAT, N_HID, N_CLS, lr=LR)
+    graph = nn2sql.build_graph(spec)
+    w0 = nn2sql.init_weights(spec)
+    y_oh = data_mod.one_hot_labels(y, N_CLS)
+    log(f"in-database: sqlite {sqlite3.sqlite_version}, {DB_ROWS} rows "
+        f"(cut for sqlite's time), {N_FEAT}->{N_HID}->{N_CLS} (Fig. 10's "
+        f"widths), lr {LR}, {DB_ITERS} iterations")
+
+    # (a) training in the database.  nn2sql.train hands Engine("sql")'s
+    # relational form to train_in_db as "auto", as the reference does: on
+    # sqlite, whose recursive CTE cannot hold Listing 7, that is Listing
+    # 10's recursion too; the relational recursion runs below, stepped
+    trained, walls, stats = {}, {}, {}
+    for rep, opts in (("relational", {}), ("array", {"dialect": "array"})):
+        eng = core.Engine("sql", **opts)
+        (final, hist), t = timed(lambda: nn2sql.train(
+            graph, w0, x, y_oh, DB_ITERS, eng, materialize_history=True))
+        for name, w in final.items():
+            if w.dtype != torch.float32 or w.device.type != DB_DEVICE or \
+                    hist[name].shape != (DB_ITERS + 1,) + w.shape:
+                raise AssertionError(
+                    f"in-database {rep}: {name} came back as {w.dtype} on "
+                    f"{w.device}, history {tuple(hist[name].shape)}")
+        trained[f"train sql {rep}"] = final
+        walls[f"train sql {rep}"] = t / DB_ITERS
+        stats[f"train sql {rep}"] = eng._sql.stats
+        eng.close()
+    # Listing 7's step as INSERT ... SELECT: the relational recursion in
+    # pure SQL-92 (sqlite's recursive CTE cannot hold Listing 7 itself)
+    res, t = timed(lambda: db_train.train_in_db(
+        graph, w0, x, y_oh, DB_ITERS, representation="relational"))
+    if res.strategy != "stepped":
+        raise AssertionError(f"relational recursion ran as {res.strategy}")
+    trained["listing 7 stepped"] = {
+        k: torch.as_tensor(v, dtype=torch.float32, device=DB_DEVICE)
+        for k, v in res.weights.items()}
+    walls["listing 7 stepped"] = t / DB_ITERS
+    # the stepped form through sgd_step_fn: forward and Algorithm 1 in the
+    # database, the update on the host, in both representations
+    for rep, opts in (("relational", {}), ("array", {"dialect": "array"})):
+        eng = core.Engine("sql", **opts)
+        step = core.sgd_step_fn(graph.loss, [graph.w_xh, graph.w_ho], LR,
+                                eng)
+        w = dict(w0)
+        t0 = time.perf_counter()
+        for _ in range(DB_ITERS):
+            w, loss = step(w, {"img": x, "one_hot": y_oh})
+        walls[f"sgd_step {rep}"] = (time.perf_counter() - t0) / DB_ITERS
+        trained[f"sgd_step {rep}"] = {
+            k: torch.as_tensor(v, dtype=torch.float32, device=DB_DEVICE)
+            for k, v in w.items()}
+        stats[f"sgd_step {rep}"] = eng._sql.stats
+        eng.close()
+
+    # (b) the card's engines from the same start, every launch counted
+    for fn in counters.values():
+        fn.launches = 0
+    y_card = data_mod.one_hot_labels(y, N_CLS)
+    card_w = {}
+    for kind in ("dense", "relational"):
+        eng = core.Engine(kind)
+        (card_w[kind], _), t = timed(lambda: nn2sql.train(
+            graph, w0, x, y_card, DB_ITERS, eng))
+        walls[f"card {kind}, first run"] = t / DB_ITERS
+    launches = {name: fn.launches for name, fn in counters.items()}
+    for kind in ("dense", "relational"):       # warm, after the count
+        eng = core.Engine(kind)
+        _, t = timed(lambda: nn2sql.train(graph, w0, x, y_card, DB_ITERS,
+                                          eng))
+        walls[f"card {kind}"] = t / DB_ITERS
+    expected = {"onehot_embed": 1, "fused_sigmoid_matmul": 2 * DB_ITERS,
+                "relational_matmul": 5 * DB_ITERS, "moe_dispatch": 0,
+                "flash_attention": 0, "rwkv6_scan": 0}
+    if launches != expected:
+        raise AssertionError(f"in-database (b) launches {launches}, "
+                             f"expected {expected}")
+    if not torch.equal(y_card, y_oh):
+        raise AssertionError("one-hot labels differ between two calls")
+    diffs = {}
+    for kind, cw in card_w.items():
+        for what, dw in trained.items():
+            for name in ("w_xh", "w_ho"):
+                d = float((cw[name] - dw[name]).abs().max())
+                diffs[f"card {kind} vs {what} {name}"] = d
+    for what, d in diffs.items():
+        log(f"  max |diff| {what}: {d:.3e}")
+    worst = max(diffs, key=diffs.get)
+    if diffs[worst] > DB_TOL:
+        raise AssertionError(f"in-database (b): {worst} {diffs[worst]:.3e} "
+                             f"above {DB_TOL}")
+
+    # (c) relations across the boundary: the card's weights into sqlite and
+    # back onto the card bit for bit, then inference on the read-back
+    # relations through relational_matmul and inference in the database
+    before = counters["relational_matmul"].launches
+    ad = connect("sqlite")
+    back = {}
+    for name, w in card_w["relational"].items():
+        relation_io.write_reltensor(ad, name, RelTensor.from_dense(w))
+        back[name] = relation_io.read_reltensor(ad, name, tuple(w.shape),
+                                                device=DB_DEVICE)
+        if not torch.equal(back[name].to_dense(), w):
+            raise AssertionError(f"in-database (c): {name} did not survive "
+                                 "sqlite bit for bit")
+    ad.close()
+    probs_rel, = rel_engine.evaluate(
+        [graph.a_ho], {**back, "img": RelTensor.from_dense(x)}, DB_DEVICE)
+    card_probs = nn2sql.infer(graph, core.Engine("relational"))(
+        card_w["relational"], x)
+    if not torch.equal(probs_rel.to_dense(), card_probs):
+        raise AssertionError("in-database (c): read-back relations infer "
+                             "differently")
+    db_w = trained["train sql relational"]
+    probs_db, t_infer_db = timed(lambda: db_train.infer_in_db(
+        graph, db_w, x))
+    probs_card = nn2sql.infer(graph, core.Engine("relational"))(db_w, x)
+    infer_diff = float(np.abs(probs_db - probs_card.cpu().numpy()).max())
+    acc_db = float(nn2sql.accuracy(probs_db, y.cpu()))
+    acc_card = float(nn2sql.accuracy(probs_card, y))
+    labels_db = db_train.predict_in_db(graph, db_w, x)
+    if infer_diff > DB_TOL or acc_db != acc_card or not np.array_equal(
+            labels_db, probs_card.argmax(dim=1).cpu().numpy()):
+        raise AssertionError(
+            f"in-database (c): infer |diff| {infer_diff:.3e}, accuracy "
+            f"{acc_db} in the database against {acc_card} on the card")
+    infer_launches = counters["relational_matmul"].launches - before
+    if infer_launches != 6:     # 2 products a pass: card, read-back, db_w
+        raise AssertionError(f"in-database (c): {infer_launches} "
+                             "relational_matmul launches, expected 6")
+    if not (torch.isfinite(card_probs).all()
+            and card_probs.shape == (DB_ROWS, N_CLS)):
+        raise AssertionError("in-database (c): probabilities not finite")
+
+    # (d) readings
+    peak = torch.cuda.max_memory_allocated()
+    for what, wall in walls.items():
+        log(f"in-database wall a {'step' if 'card' in what else 'iteration'}"
+            f", {what}: {wall * 1e3:.4f} ms on {card}")
+    for what, st in stats.items():
+        a = st["adapter"]
+        log(f"in-database {what}: ingest {st['ingest_bytes']} bytes, "
+            f"{a.get('ingest_cells', 0)} cells, {st['queries']} queries, "
+            f"plan cache {st['cache_hits']} hits / {st['cache_misses']} "
+            f"misses")
+    log(f"in-database (c): round trip bit for bit, infer |diff| "
+        f"{infer_diff:.3e}, accuracy {acc_db:.4f} both, infer_in_db "
+        f"{t_infer_db * 1e3:.4f} ms; peak device memory "
+        f"{peak / 2**20:.1f} MiB on {card}")
+    log(f"in-database launches: {launches}, inference "
+        f"{infer_launches} relational_matmul")
+    result["in_database"] = dict(
+        sqlite=sqlite3.sqlite_version, rows=DB_ROWS, iters=DB_ITERS,
+        widths=[N_FEAT, N_HID, N_CLS], lr=LR, tolerance=DB_TOL,
+        wall_s=walls, max_abs_diff=diffs, infer_abs_diff=infer_diff,
+        accuracy=acc_db, launches=launches, infer_launches=infer_launches,
+        peak_bytes=peak,
+        stats={k: {f: v for f, v in st.items() if f != "plan_cache"}
+               for k, st in stats.items()})
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to drive", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
+    # phase 9's rendered-SQL plan cache keeps its store inside the checkout
+    OUT_DIR.mkdir(exist_ok=True)
+    os.environ.setdefault("REPRO_PLAN_CACHE", str(OUT_DIR / "plan_cache.db"))
     import repro_torch
     if not Path(repro_torch.__file__).resolve().is_relative_to(ROOT / "src"):
         print(f"chip_smoke: repro_torch from {repro_torch.__file__}, not this "
@@ -2563,6 +2776,7 @@ def main() -> int:
     launches["moe_dispatch"] = serve_deepseek(counters, result)[
         "moe_dispatch"]
     serve_zamba(counters, result)
+    in_database(counters, core, nn2sql, data_mod, result)
 
     line = {"kernels": [
         {k: r[k] for k in ("name", "route", "source", "replaces")}

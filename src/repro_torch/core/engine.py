@@ -3,21 +3,25 @@
 
 ``Engine("dense")``      — the array-data-type backend (paper Section 5).
 ``Engine("relational")`` — the SQL-92 relational backend (paper Section 4).
-``Engine("sql")``        — the in-database backend; not ported yet (slice 2
-                           of the port), so it raises NotImplementedError.
+``Engine("sql")``        — the *in-database* backend: the same DAG rendered
+                           as SQL and executed by sqlite/duckdb
+                           (:mod:`repro_torch.db.sql_engine`).
 
-Both evaluate the same expression DAG; gradients come from Algorithm 1
+All three evaluate the same expression DAG; gradients come from Algorithm 1
 (``core.autodiff``), *not* ``torch.autograd`` — autograd is used only as a
 test oracle.  PyTorch runs eagerly, so the ``*_fn`` builders return plain
-callables where the JAX package returns ``jax.jit`` functions.
+callables where the JAX package returns ``jax.jit`` functions.  The SQL
+backend's results are numpy float64 arrays, as the database computed them;
+tensors cross to it through :func:`repro_torch.device.to_host`.
 """
 from __future__ import annotations
 
 from typing import Callable
 
+import numpy as np
 import torch
 
-from ..device import resolve
+from ..device import resolve, to_host
 from . import autodiff, dense, expr as E, rel_engine
 from .relational import RelTensor
 
@@ -25,13 +29,23 @@ KINDS = ("dense", "relational", "sql")
 
 
 class Engine:
-    def __init__(self, kind: str, device="cuda"):
+    def __init__(self, kind: str, device="cuda", **db_opts):
+        """``db_opts`` (``backend=``, ``path=``, ``dialect=`` …) reach
+        :class:`repro_torch.db.sql_engine.SQLEngine` when ``kind == "sql"``.
+        ``device`` is where the tensor engines run and where
+        ``nn2sql.train`` puts the weights the database trained."""
         if kind not in KINDS:
             raise ValueError(f"unknown engine kind {kind!r}; have {KINDS}")
-        if kind == "sql":
-            raise NotImplementedError("slice 2")
+        if db_opts and kind != "sql":
+            raise ValueError(f"db options {sorted(db_opts)} only apply to "
+                             f"Engine('sql')")
         self.kind = kind
         self.device = resolve(device)
+        self._sql = None
+        if kind == "sql":
+            from ..db.sql_engine import SQLEngine  # lazy: core ↛ db cycle
+
+            self._sql = SQLEngine(**db_opts)
 
     # -- representation conversion ------------------------------------------
     def lift(self, x):
@@ -45,11 +59,17 @@ class Engine:
 
     # -- evaluation -----------------------------------------------------------
     def evaluate(self, roots: list[E.Expr], env: dict):
+        if self.kind == "sql":
+            return self._sql.evaluate(roots, env)
         ev = rel_engine.evaluate if self.kind == "relational" else dense.evaluate
         return ev(roots, env, self.device)
 
     def eval_fn(self, roots: list[E.Expr]) -> Callable:
-        """Evaluator: env dict (dense tensors or arrays) → dense outputs."""
+        """Evaluator: env dict (dense tensors or arrays) → dense outputs.
+        For the SQL backend the query is rendered once and executed per
+        call (the database is the executor)."""
+        if self.kind == "sql":
+            return self._sql.eval_fn(roots)
 
         def fn(env: dict) -> list[torch.Tensor]:
             lifted = {k: self.lift(v) for k, v in env.items()}
@@ -59,6 +79,8 @@ class Engine:
 
     def value_and_grad_fn(self, loss: E.Expr, wrt: list[E.Var]) -> Callable:
         """fn: env → (loss value, {var name: gradient}) via Algorithm 1."""
+        if self.kind == "sql":
+            return self._sql.value_and_grad_fn(loss, wrt)
         grads = autodiff.gradients(loss, wrt)
         roots = [loss] + [grads[v] for v in wrt]
 
@@ -71,12 +93,27 @@ class Engine:
 
         return fn
 
+    def close(self) -> None:
+        if self._sql is not None:
+            self._sql.close()
+
 
 def sgd_step_fn(loss: E.Expr, wrt: list[E.Var], lr: float, engine: Engine
                 ) -> Callable:
     """One gradient-descent update — the recursive step of Listing 7/10:
     ``select iter+1, w.v - γ·d_w.v from w_, d_w where …``."""
     vg = engine.value_and_grad_fn(loss, wrt)
+
+    if engine.kind == "sql":
+        # every forward/backward evaluation runs in the database; the
+        # weight update mirrors Listing 7's final select on the host
+        def sql_step(weights, data_env):
+            env = {**weights, **data_env}
+            loss_val, grads = vg(env)
+            new_w = {k: to_host(weights[k]) - lr * grads[k] for k in weights}
+            return new_w, float(np.mean(loss_val))
+
+        return sql_step
 
     def step(weights: dict[str, torch.Tensor],
              data_env: dict[str, torch.Tensor]):

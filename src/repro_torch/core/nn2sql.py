@@ -5,7 +5,8 @@
     l(x, y)   = (m(x) − y_ones)^∘2                              (Eq. 5)
 
 with the backward pass of Equations 6–11 generated by Algorithm 1
-(``core.autodiff``), executable on either engine. Weight init follows
+(``core.autodiff``), executable on any engine and printable as SQL
+(``core.sqlgen``). Weight init follows
 Listing 2: seed(1), U[-1, 1) — the same numpy stream as the JAX package,
 so both start from bit-identical weights.
 """
@@ -47,8 +48,9 @@ class MLPGraph:
 @functools.lru_cache(maxsize=64)
 def build_graph(spec: MLPSpec) -> MLPGraph:
     """Memoised per spec (frozen, hashable): callers asking for the same
-    topology share one DAG object, so engine-side memoisation hits by
-    identity within a session."""
+    topology share one DAG object, so engine-side memoisation and the
+    rendered-SQL plan cache (``repro_torch.db.plan_cache``) hit by identity
+    within a session — and by structural signature across sessions."""
     img = E.var("img", (spec.n_rows, spec.n_features))
     one_hot = E.var("one_hot", (spec.n_rows, spec.n_classes))
     w_xh = E.var("w_xh", (spec.n_features, spec.n_hidden))
@@ -73,10 +75,35 @@ def init_weights(spec: MLPSpec, seed: int = 1, device="cuda"
 
 def train(graph: MLPGraph, weights, x: torch.Tensor, y_onehot: torch.Tensor,
           n_iters: int, engine: Engine, materialize_history: bool = False):
-    """Gradient descent as a recursive CTE (Listing 7 / Listing 10), run
-    by :func:`repro_torch.core.recursive_cte.recursive_cte`."""
+    """Gradient descent as a recursive CTE (Listing 7 / Listing 10).
+
+    With ``Engine("sql")`` the recursion itself runs *inside* the database
+    (one recursive-CTE query, :mod:`repro_torch.db.train`), and the result
+    comes back as float32 tensors on ``engine.device``; the tensor engines
+    run it by :func:`repro_torch.core.recursive_cte.recursive_cte`.
+    """
     if engine.kind == "sql":
-        raise NotImplementedError("in-database training is slice 2")
+        from ..db.train import train_in_db  # lazy: core ↛ db cycle
+
+        sql_eng = engine._sql
+        res = train_in_db(graph, weights, x, y_onehot, n_iters,
+                          adapter=sql_eng.adapter,
+                          representation=("array"
+                                          if sql_eng.representation == "array"
+                                          else "auto"),
+                          plan_cache_=(sql_eng.plans
+                                       if sql_eng.plans is not None
+                                       else False))
+
+        def on_device(a):
+            return torch.from_numpy(np.array(a, dtype=np.float32)).to(
+                engine.device)
+
+        final = {k: on_device(v) for k, v in res.weights.items()}
+        if not materialize_history:
+            return final, None
+        return final, {k: on_device(np.stack([w[k] for w in res.history]))
+                       for k in final}
     step = sgd_step_fn(graph.loss, [graph.w_xh, graph.w_ho],
                        graph.spec.lr, engine)
     data_env = {"img": x, "one_hot": y_onehot}
@@ -102,7 +129,10 @@ def infer(graph: MLPGraph, engine: Engine):
 
 def accuracy(probs: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """``highestposition(m(x)) = highestposition(one_hot)`` — the paper's
-    rank-1 comparison (Listing 8/11), as a fraction of correct tuples."""
+    rank-1 comparison (Listing 8/11), as a fraction of correct tuples.
+    ``probs`` may be the SQL backend's numpy result."""
+    probs = torch.as_tensor(probs)
+    labels = torch.as_tensor(labels, device=probs.device)
     return (probs.argmax(dim=1) == labels).to(torch.float32).mean()
 
 

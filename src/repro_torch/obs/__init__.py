@@ -1,19 +1,41 @@
-"""Tracing and metrics for the port: copies of the JAX package's pure-Python
-``obs/tracer.py`` and of the histogram and time-series part of
-``obs/metrics.py``.
+"""Observability for the port: tracing, metrics, exporters, profiler
+(PyTorch port of ``repro.obs``, pure Python).
+
+:class:`~repro_torch.obs.tracer.Tracer` collects nested, attributed spans
+from every layer of the in-database path (plan render, cache lookup, leaf
+ingestion, query execution, result decode, training iterations) and from
+serving (``serve.prefill``, ``serve.step``); counters, gauges, histograms
+(``tracer.observe``) and the ``metric_points`` time series
+(``tracer.point``) ride along.  The exporters turn a capture into a
+Chrome-trace/Perfetto JSON or a ``trace_spans`` relation *inside the
+traced database*; :mod:`~repro_torch.obs.profiler` is the per-IR-node
+profiled execution mode (``SQLEngine.profile``).  The regression gate and
+the report CLI of ``repro.obs`` come with ROADMAP.md's tooling items.
 
 Zero-cost by default: the active tracer is a no-op singleton until
 :func:`install`/:func:`use` swaps a collecting one in (or an engine is
-given ``tracer=...``).  The ``metric_points`` relation, exporters,
-profiler, regression gate and report of ``repro.obs`` come with the port's
-in-database tier.
+given ``tracer=...``).
 """
-from .metrics import Histogram, MetricPoint
+from .export import (STAGE_SQL, TRACE_SPAN_COLUMNS, chrome_trace,
+                     stage_breakdown, summarize, write_chrome_trace,
+                     write_trace_spans)
+from .metrics import (METRIC_POINT_COLUMNS, METRIC_SQL, Histogram,
+                      MetricPoint, percentiles_from_values,
+                      write_metric_points)
+from .profiler import (NODE_SQL, PROFILE_NODE_COLUMNS, NodeCost,
+                       ProfileResult, profile_evaluate,
+                       profile_value_and_grad, write_profile_nodes)
 from .tracer import (NOOP_SPAN, NullTracer, Span, Tracer, current, install,
                      tracer_of, use)
 
 __all__ = [
     "Span", "Tracer", "NullTracer", "NOOP_SPAN",
     "current", "install", "use", "tracer_of",
-    "Histogram", "MetricPoint",
+    "chrome_trace", "write_chrome_trace", "write_trace_spans",
+    "summarize", "stage_breakdown", "STAGE_SQL", "TRACE_SPAN_COLUMNS",
+    "Histogram", "MetricPoint", "write_metric_points",
+    "percentiles_from_values", "METRIC_SQL", "METRIC_POINT_COLUMNS",
+    "NodeCost", "ProfileResult", "profile_evaluate",
+    "profile_value_and_grad", "write_profile_nodes",
+    "NODE_SQL", "PROFILE_NODE_COLUMNS",
 ]

@@ -1,4 +1,4 @@
-"""Histogram metrics and the metric time series.
+"""Histogram metrics and the ``metric_points`` time-series relation.
 
 Two shapes of numeric telemetry ride the tracer next to spans:
 
@@ -11,11 +11,14 @@ Two shapes of numeric telemetry ride the tracer next to spans:
     ``Tracer.observe(name, value)`` feeds one; the engine observes
     per-statement execution time, serving observes decode-step latency.
 
-``MetricPoint``
-    An append-only time-series: one ``(seq, t, metric, step, value,
-    labels)`` record per observation, appended by ``serving/engine.py``
-    each step (serving tokens/s).  Writing the series into a database
-    relation comes with the port's in-database tier.
+``MetricPoint`` / ``write_metric_points``
+    An append-only time-series: training loss, gradient norm, plan-cache
+    hit rate, rows ingested, serving tokens/s — one ``(seq, t, metric,
+    step, value, labels)`` record per observation, appended by
+    ``db/train.py``, ``SQLEngine`` and ``serving/engine.py`` each step.
+    :func:`write_metric_points` pivots the series into a ``metric_points``
+    relation *inside the traced database* (same stance as
+    ``trace_spans``): training curves become a ``GROUP BY metric`` away.
 
 Both are collected only when a collecting tracer is active — the
 :class:`~repro_torch.obs.tracer.NullTracer` no-ops ``observe``/``point``.
@@ -23,6 +26,7 @@ Both are collected only when a collecting tracer is active — the
 from __future__ import annotations
 
 import dataclasses
+import json
 import math
 
 #: per-bucket growth factor: 8 buckets per octave — percentile values are
@@ -30,6 +34,19 @@ import math
 GROWTH = 2.0 ** 0.125
 
 _LOG_GROWTH = math.log(GROWTH)
+
+#: column layout of the in-database time-series relation
+METRIC_POINT_COLUMNS = (
+    ("seq", "integer"), ("t_us", "double precision"), ("metric", "text"),
+    ("step", "integer"), ("value", "double precision"), ("labels", "text"),
+)
+
+#: the SQL recipe: one summary row per metric over the time-series relation
+METRIC_SQL = (
+    "select metric, count(*) as n, min(value) as lo, max(value) as hi,\n"
+    "       avg(value) as mean\n"
+    "  from metric_points group by metric order by metric"
+)
 
 
 class Histogram:
@@ -108,3 +125,32 @@ class MetricPoint:
     step: int | None
     value: float
     labels: dict
+
+    def as_row(self) -> tuple:
+        return (self.seq, round(self.t * 1e6, 3), self.metric, self.step,
+                self.value, json.dumps(self.labels, default=str,
+                                       sort_keys=True))
+
+
+def write_metric_points(adapter, tracer, table: str = "metric_points") -> int:
+    """Store the collected time-series as a relation in the target database
+    (replacing any previous capture); returns the row count.  Duck-typed
+    like ``write_trace_spans``: any object with ``create_table`` +
+    ``bulk_insert`` works, so the points land in the engine that produced
+    them and :data:`METRIC_SQL` runs on the same connection."""
+    points = list(tracer.points)
+    adapter.create_table(table, METRIC_POINT_COLUMNS)
+    adapter.bulk_insert(table, [p.as_row() for p in points])
+    return len(points)
+
+
+def percentiles_from_values(values, ps=(50, 90, 95, 99)) -> dict:
+    """Exact percentiles of a raw value list (nearest-rank) — what the
+    report CLI computes when it has the ``metric_points`` rows rather than
+    a live histogram."""
+    vs = sorted(float(v) for v in values)
+    if not vs:
+        return {f"p{p}": 0.0 for p in ps}
+    return {f"p{p}": vs[min(len(vs) - 1,
+                            max(0, math.ceil(len(vs) * p / 100.0) - 1))]
+            for p in ps}

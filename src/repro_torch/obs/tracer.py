@@ -27,9 +27,10 @@ The *active* tracer is a module global (``current()`` / ``install()`` /
 the ``use()`` context manager); engines and adapters additionally accept a
 ``tracer`` attribute that overrides the global for their own spans
 (:func:`tracer_of` resolves it).  This is a copy of the JAX package's
-``repro.obs.tracer``; the port serves from it (``serve.prefill``,
-``serve.step`` and the token counters).  The exporters (Chrome trace, the
-``trace_spans`` relation) come with the port's in-database tier.
+``repro.obs.tracer``.  Exporters live in :mod:`repro_torch.obs.export`:
+Chrome-trace/Perfetto JSON, and the ``trace_spans`` relation written back
+*into the database being traced*, so plain SQL answers "which stage
+dominates a training step".
 """
 from __future__ import annotations
 

@@ -246,8 +246,12 @@ def test_algorithm1_matches_torch_autograd(kind):
 
 
 def test_engine_errors():
-    with pytest.raises(NotImplementedError):
-        Engine("sql", device="cpu")
+    from repro_torch.db.sql_engine import SQLEngine
+    sql = Engine("sql", device="cpu")
+    assert isinstance(sql._sql, SQLEngine) and sql.device.type == "cpu"
+    sql.close()
+    with pytest.raises(ValueError, match="only apply to"):
+        Engine("dense", device="cpu", backend="sqlite")
     with pytest.raises(ValueError, match="unknown engine"):
         Engine("columnar", device="cpu")
     x, idx = E.var("x", (3, 2)), E.var("idx", (2, 1))

@@ -41,7 +41,16 @@ def test_the_port_has_modules():
             "repro_torch/nn/ssm.py", "repro_torch/kernels/rwkv6_scan.py",
             "repro_torch/nn/moe.py", "repro_torch/kernels/moe_dispatch.py",
             "repro_torch/serving/engine.py",
-            "repro_torch/launch/serve.py"} <= names
+            "repro_torch/launch/serve.py", "repro_torch/core/sqlgen.py",
+            "repro_torch/db/__init__.py", "repro_torch/db/dialect.py",
+            "repro_torch/db/adapter.py", "repro_torch/db/adapters/base.py",
+            "repro_torch/db/adapters/sqlite.py",
+            "repro_torch/db/adapters/duckdb.py",
+            "repro_torch/db/adapters/postgres.py",
+            "repro_torch/db/relation_io.py", "repro_torch/db/plan_cache.py",
+            "repro_torch/db/sql_engine.py", "repro_torch/db/train.py",
+            "repro_torch/obs/export.py",
+            "repro_torch/obs/profiler.py"} <= names
 
 
 @pytest.mark.parametrize("path", PORT + [SMOKE],
