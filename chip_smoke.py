@@ -109,6 +109,29 @@ Phases (any failure exits non-zero; nothing is caught and carried on past):
            relational_matmul, and ``infer_in_db`` against the card within
            1e-4 with equal accuracy; (d) wall times, ingest, plan-cache
            hits and peak memory.
+10. db-tier the rest of the in-database tier, all SQL in sqlite
+           ``:memory:`` on the host under one tracer: (a) ``train_in_db(...,
+           shards=N)`` at phase 9's size, array at N = 1, 2, 4 for 3
+           iterations and relational at N = 1, 4 for 1 (N = 1: one shard
+           through the sharded trainer), every run within 1e-4 of both
+           card engines from the same start and of each other, with the
+           wall of an iteration and the SQL AllReduce's traffic; (b)
+           ``SQLBatchServer`` serving Listing 8's forward with (a)'s
+           weights, 32 one-row requests over 2 pooled connections in each
+           representation, every future within 1e-4 of the dense card
+           engine with equal argmax, with requests/s, p50/p99 latency and
+           the micro-batches formed; (c) the DAG zoo in
+           SQL against the card on inputs from ``RandomState(0)``: the MoE
+           bucket fill and combine at d_model 2048 (the relational form at
+           256) against moe_dispatch and relational_matmul, one RWKV-6 head
+           (12, 64) against rwkv6_scan in both forms, the SSD at (64, 64)
+           against ``ssd_chunked``, and the MoE layer, channel mix and LRU
+           against their float32 counterparts on the card, within 1e-4,
+           the launches counted; (d) the capture into
+           ``db_tier_trace.db`` and ``db_tier_trace.json`` beside
+           ``chip_smoke.json``, both printed by ``python -m
+           repro_torch.obs.report --top 5``, and (a)'s and (b)'s metrics
+           through ``regress.compare`` against themselves.
 
 ``python3 chip_smoke.py --kernels [name ...]`` runs phases 1 and 2 alone,
 for the named kernels (all six without a name), and prints no result line:
@@ -2682,6 +2705,425 @@ def in_database(counters, core, nn2sql, data_mod, result):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the rest of the in-database tier beside the card
+# ---------------------------------------------------------------------------
+
+# (a) sharded training at phase 9's size (Fig. 10's widths, DB_ROWS rows,
+# lr 0.1, Listing 2's weights): one shard through the sharded trainer, the
+# baseline sharding is measured against, then N pooled connections.  The
+# relational form runs 1 iteration, cut for sqlite's time: at 32 rows an
+# iteration took 16.2 s with 1 shard and 52.3 s with 4 on the card
+# machine's host (sqlite 3.45.1, 8 cores), 3 of each 205 s.
+SHARD_COUNTS = {"array": (1, 2, 4), "relational": (1, 4)}
+SHARD_ITERS = {"array": 3, "relational": 1}
+# (b) Listing 8's forward served from the database: one-row requests over
+# a pool of sqlite :memory: connections, in each representation.
+SERVE_REQUESTS, SERVE_POOL = 32, 2
+# (c) the zoo in SQL against the card, inputs from RandomState(0):
+# the MoE bucket fill and combine at DeepSeek-V2-Lite's d_model, top-6 of
+# 16 tokens (96 slots); the relational form at a d cut for sqlite's time
+ZOO_MOE = dict(tokens=16, top_k=6, d=2048, d_relational=256)
+# one head of the RWKV-6 time mix at RWKV-6 7B's head size; S cut so that
+# the relational form stays near 30 s (S = 16 took 40.4 s there)
+ZOO_RWKV = dict(seq=12, n=64)
+# one head of the SSD at Zamba2's (d_state, head dim), S whole chunks
+ZOO_SSD = dict(seq=16, chunk=8, n=64, p=64)
+# the MoE layer, channel mix and LRU at examples/zoo_in_db.py's sizes (the
+# LRU at tests/test_ssm_db.py's)
+ZOO_MOE_LAYER = dict(n_tokens=16, d_model=8, n_experts=4, top_k=2, d_ff=16)
+ZOO_CMIX = dict(seq=12, d=6, d_ff=12)
+ZOO_LRU = dict(seq=6, d_in=3, d_state=4, d_out=2)
+ZOO_TOL = 1e-4                # tests/test_zoo_db.py: TOL
+
+
+def zero_launches(counters) -> None:
+    for fn in counters.values():
+        fn.launches = 0
+
+
+def read_launches(counters) -> dict:
+    return {name: fn.launches for name, fn in counters.items()}
+
+
+def max_diff(got, want) -> float:
+    if isinstance(want, torch.Tensor):
+        want = want.detach().double().cpu().numpy()
+    return float(np.abs(np.asarray(got, np.float64) - want).max())
+
+
+def db_shard(counters, core, nn2sql, data_mod, card):
+    """(a) ``train_in_db(..., shards=N)`` in both representations, held to
+    both card engines from the same start and to each other."""
+    from repro_torch.db import train as db_train
+    from repro_torch.db.shard import train_in_db_sharded
+
+    x, y = data_mod.make_mnist_like(DB_ROWS)
+    spec = nn2sql.MLPSpec(DB_ROWS, N_FEAT, N_HID, N_CLS, lr=LR)
+    graph = nn2sql.build_graph(spec)
+    w0 = nn2sql.init_weights(spec)
+    y_oh = data_mod.one_hot_labels(y, N_CLS)
+    runs, walls, traffic = {}, {}, {}
+    for rep, shard_counts in SHARD_COUNTS.items():
+        iters = SHARD_ITERS[rep]
+        for n in shard_counts:
+            # train_in_db(shards=1) is the unsharded path phase 9 times
+            train = (train_in_db_sharded if n == 1 else db_train.train_in_db)
+            res, t = timed(lambda: train(graph, w0, x, y_oh, iters,
+                                         shards=n, representation=rep))
+            if res.strategy != "sharded" or len(res.history) != iters + 1:
+                raise AssertionError(f"db-tier (a) {rep} shards={n}: ran "
+                                     f"{res.strategy}, {len(res.history)} "
+                                     "iterates")
+            what = f"{rep} shards={n}"
+            runs[what] = (iters, res.weights)
+            walls[what] = t / iters
+            traffic[what] = res.cte_bytes
+            log(f"db-tier (a) {what}: {t / iters * 1e3:.4f} ms an "
+                f"iteration ({iters}), AllReduce traffic {res.cte_bytes} "
+                "bytes")
+
+    zero_launches(counters)
+    y_card = data_mod.one_hot_labels(y, N_CLS)
+    card_w = {}
+    for iters in sorted(set(SHARD_ITERS.values())):
+        for kind in ("dense", "relational"):
+            card_w[(kind, iters)], _ = nn2sql.train(graph, w0, x, y_card,
+                                                    iters, core.Engine(kind))
+    launches = read_launches(counters)
+    steps = sum(set(SHARD_ITERS.values()))
+    expected = {"onehot_embed": 1, "fused_sigmoid_matmul": 2 * steps,
+                "relational_matmul": 5 * steps, "moe_dispatch": 0,
+                "flash_attention": 0, "rwkv6_scan": 0}
+    if launches != expected:
+        raise AssertionError(f"db-tier (a) launches {launches}, expected "
+                             f"{expected}")
+    diffs = {}
+    for what, (iters, w) in runs.items():
+        for kind in ("dense", "relational"):
+            cw = card_w[(kind, iters)]
+            diffs[f"{what} vs card {kind}"] = max(
+                max_diff(w[k], cw[k]) for k in ("w_xh", "w_ho"))
+        for other, (o_iters, ow) in runs.items():
+            if other < what and o_iters == iters:
+                diffs[f"{what} vs {other}"] = max(
+                    max_diff(w[k], ow[k]) for k in ("w_xh", "w_ho"))
+    worst = max(diffs, key=diffs.get)
+    log(f"db-tier (a): largest |diff| {diffs[worst]:.3e} ({worst}); "
+        f"launches {launches}")
+    if diffs[worst] > DB_TOL:
+        raise AssertionError(f"db-tier (a): {worst} {diffs[worst]:.3e} "
+                             f"above {DB_TOL}")
+    served = runs[f"array shards={SHARD_COUNTS['array'][0]}"][1]
+    return dict(rows=DB_ROWS, iters=SHARD_ITERS, wall_s=walls,
+                allreduce_bytes=traffic, max_abs_diff=diffs,
+                launches=launches), served
+
+
+def db_serve(counters, core, nn2sql, data_mod, weights, tracer, card):
+    """(b) ``SQLBatchServer`` serving Listing 8's forward with (a)'s
+    weights, every future held to the dense card engine's inference."""
+    from repro_torch import obs
+    from repro_torch.serving import SQLBatchServer
+
+    x, _ = data_mod.make_mnist_like(SERVE_REQUESTS)
+    one = nn2sql.build_graph(nn2sql.MLPSpec(1, N_FEAT, N_HID, N_CLS, lr=LR))
+    every = nn2sql.build_graph(nn2sql.MLPSpec(SERVE_REQUESTS, N_FEAT, N_HID,
+                                              N_CLS, lr=LR))
+    w = {k: torch.from_numpy(np.array(v, dtype=np.float32)).to(DB_DEVICE)
+         for k, v in weights.items()}
+    zero_launches(counters)
+    card_probs = nn2sql.infer(every, core.Engine("dense"))(w, x)
+    launches = read_launches(counters)
+    if launches["fused_sigmoid_matmul"] != 2 or sum(launches.values()) != 2:
+        raise AssertionError(f"db-tier (b) card launches {launches}")
+    card_probs = card_probs.double().cpu().numpy()
+    out = {"launches": launches}
+    for rep, dialect in (("relational", None), ("array", "array")):
+        t_start = time.perf_counter()     # the tracer's clock
+        with SQLBatchServer([one.a_ho], ["img"], w, pool_size=SERVE_POOL,
+                            dialect=dialect) as srv:
+            done = [0.0] * SERVE_REQUESTS
+            sent, futs = [], []
+            t0 = time.perf_counter()
+            for i in range(SERVE_REQUESTS):
+                sent.append(time.perf_counter())
+                fut = srv.submit({"img": x[i:i + 1]}, tenant=f"t{i % 4}")
+                fut.add_done_callback(
+                    lambda f, i=i: done.__setitem__(i, time.perf_counter()))
+                futs.append(fut)
+            got = [f.result(timeout=900)[0] for f in futs]
+            t_all = max(done) - t0
+        lat_ms = [(d - s) * 1e3 for d, s in zip(done, sent)]
+        pct = obs.percentiles_from_values(lat_ms, ps=(50, 99))
+        sizes = [s.attrs["batch"] for s in tracer.spans
+                 if s.name == "sql.evaluate_batched" and s.t0 >= t_start]
+        diff = max(max_diff(g, card_probs[i:i + 1])
+                   for i, g in enumerate(got))
+        argmax = all(int(np.argmax(g)) == int(np.argmax(card_probs[i]))
+                     for i, g in enumerate(got))
+        log(f"db-tier (b) {rep}: {SERVE_REQUESTS} requests, pool "
+            f"{SERVE_POOL}: {SERVE_REQUESTS / t_all:.4f} requests/s, future "
+            f"p50 {pct['p50']:.4f} ms p99 {pct['p99']:.4f} ms, micro-batches "
+            f"{sorted(sizes, reverse=True)}, max |diff| vs the dense card "
+            f"engine {diff:.3e}, argmax equal {argmax}")
+        if diff > DB_TOL or not argmax or sum(sizes) != SERVE_REQUESTS:
+            raise AssertionError(f"db-tier (b) {rep}: |diff| {diff:.3e}, "
+                                 f"argmax equal {argmax}, batches {sizes}")
+        out[rep] = dict(requests_per_s=SERVE_REQUESTS / t_all,
+                        p50_ms=pct["p50"], p99_ms=pct["p99"],
+                        batch_sizes=sizes, max_abs_diff=diff)
+    return out
+
+
+def lru_on_card(u, a, wb, wc, diagonal: bool) -> torch.Tensor:
+    """The LRU layer's recurrence in float32 on the card: the plain version
+    the in-database LRU is held to (the port has no LRU model layer)."""
+    u, a, wb, wc = (torch.as_tensor(t, dtype=torch.float32, device=DB_DEVICE)
+                    for t in (u, a, wb, wc))
+    b = u @ wb
+    h = torch.zeros(wb.shape[1], dtype=torch.float32, device=DB_DEVICE)
+    hs = []
+    for t in range(u.shape[0]):
+        h = (h * a if diagonal else h @ a) + b[t]
+        hs.append(h)
+    return torch.stack(hs) @ wc
+
+
+def db_zoo(counters, card):
+    """(c) the zoo in SQL against its card counterparts on the same
+    inputs: kernels 4 and 1 (bucket fill and combine), kernel 6 (the RWKV-6
+    time mix), ``ssd_chunked``, and the MoE layer, channel mix and LRU."""
+    from repro_torch.db import zoo
+    from repro_torch.db.sql_engine import SQLEngine
+    from repro_torch.kernels import ops
+    from repro_torch.nn import layers, ssm
+    from repro_torch.nn import moe as nnmoe
+
+    rng = np.random.RandomState(0)
+    engines = {"relational": SQLEngine(), "array": SQLEngine(dialect="array")}
+    diffs, walls = {}, {}
+
+    def on_card(a, dtype=torch.float32):
+        return torch.as_tensor(np.asarray(a), dtype=dtype, device=DB_DEVICE)
+
+    def held(what, got, want, seconds=None):
+        diffs[what] = max_diff(got, want)
+        if seconds is not None:
+            walls[what] = seconds
+        log(f"db-tier (c) {what}: max |diff| {diffs[what]:.3e}"
+            + ("" if seconds is None else f", SQL {seconds * 1e3:.4f} ms"))
+
+    zero_launches(counters)
+    # MoE bucket fill and combine: the slot -> token index relation is a
+    # float64 (S, 1) column in the database, int32 indices on the card
+    t, k, d = ZOO_MOE["tokens"], ZOO_MOE["top_k"], ZOO_MOE["d"]
+    slots = t * k
+    x = rng.randn(t, d).astype(np.float32)
+    slot_token = rng.randint(0, t, (slots, 1)).astype(np.float64)
+    slot_gate = rng.rand(slots, 1).astype(np.float32)
+    y = rng.randn(slots, d).astype(np.float32)
+    idx = on_card(slot_token[:, 0].astype(np.int32), torch.int32)
+    fill = ops.moe_dispatch(on_card(x), idx, on_card(slot_gate[:, 0]))
+    combined = ops.moe_combine(on_card(y), idx, t)
+    # the relational form runs the first d_relational columns: both
+    # functions act on each column alone, so the card's columns compare
+    for rep, width in (("array", d), ("relational", ZOO_MOE["d_relational"])):
+        out, _, _, _ = zoo.moe_dispatch_graph(t, width, slots)
+        (got,), s = timed(lambda: engines[rep].evaluate([out], {
+            "x": x[:, :width], "slot_token": slot_token,
+            "slot_gate": slot_gate}))
+        held(f"moe bucket fill {rep} d={width} vs moe_dispatch", got,
+             fill[:, :width], s)
+        out, _, _ = zoo.moe_combine_graph(slots, width, t)
+        (got,), s = timed(lambda: engines[rep].evaluate([out], {
+            "expert_out": y[:, :width], "slot_token": slot_token}))
+        held(f"moe combine {rep} d={width} vs relational_matmul", got,
+             combined[:, :width], s)
+
+    # the RWKV-6 time mix, one head of (S, N)
+    s_len, n = ZOO_RWKV["seq"], ZOO_RWKV["n"]
+    r, kk, v = (rng.randn(s_len, n).astype(np.float32) * 0.5
+                for _ in range(3))
+    w = (rng.rand(s_len, n) * 0.5 + 0.3).astype(np.float32)
+    u = (rng.randn(n) * 0.5).astype(np.float32)
+    s0 = (rng.randn(n, n) * 0.3).astype(np.float32)
+    o_card, sfin_card = ops.rwkv6_scan(*(on_card(a)[None]
+                                         for a in (r, kk, v, w, u, s0)))
+    for rep in ("array", "relational"):
+        (o, sfin), s = timed(lambda: zoo.run_rwkv6_in_db(
+            r, kk, v, w, u, s0, engine=engines[rep]))
+        held(f"rwkv6 time mix {rep} (S, N) = ({s_len}, {n}) vs rwkv6_scan",
+             o, o_card[0], s)
+        held(f"rwkv6 final state {rep} vs rwkv6_scan", sfin, sfin_card[0])
+
+    # the SSD, one head at (N, P), against ssd_chunked on the card
+    s_len, chunk = ZOO_SSD["seq"], ZOO_SSD["chunk"]
+    n, p = ZOO_SSD["n"], ZOO_SSD["p"]
+    xs = rng.randn(s_len, p).astype(np.float32)
+    a = -rng.rand(s_len).astype(np.float32)
+    b = (rng.randn(s_len, n) * 0.5).astype(np.float32)
+    c = (rng.randn(s_len, n) * 0.5).astype(np.float32)
+    y_card, h_card = ssm.ssd_chunked(on_card(xs)[None, :, None],
+                                     on_card(a)[None, :, None],
+                                     on_card(b)[None], on_card(c)[None],
+                                     chunk=chunk)
+    (y_db, h_db), s = timed(lambda: zoo.run_ssd_in_db(
+        xs, a, b, c, chunk=chunk, engine=engines["array"]))
+    held(f"ssd array (S, N, P) = ({s_len}, {n}, {p}), chunk {chunk} vs "
+         "ssd_chunked", y_db, y_card[0, :, 0], s)
+    held("ssd final state array vs ssd_chunked", h_db, h_card[0, 0])
+
+    # the MoE layer: the oracle in float32 on the card, and the model's
+    # layer (impl="sort": moe_dispatch and relational_matmul)
+    cfg = zoo.MoESQLConfig(**ZOO_MOE_LAYER)
+    params = zoo.init_moe_params(cfg)
+    xm = rng.randn(cfg.n_tokens, cfg.d_model).astype(np.float32)
+    got, s = timed(lambda: zoo.run_moe_in_db(cfg, params, xm,
+                                             engine=engines["relational"]))
+    held("moe layer relational vs moe_ffn_ref float32 on the card", got,
+         zoo.moe_ffn_ref(cfg, params, on_card(xm), dtype=torch.float32,
+                         device=DB_DEVICE), s)
+    mcfg = nnmoe.MoEConfig(n_experts=cfg.n_experts, top_k=cfg.top_k,
+                           d_model=cfg.d_model, d_ff=cfg.d_ff, impl="sort")
+    compute = layers.COMPUTE_DTYPE
+    layers.COMPUTE_DTYPE = torch.float32
+    try:
+        layer_out, _ = nnmoe.moe_ffn({k_: on_card(v_)
+                                      for k_, v_ in params.items()},
+                                     on_card(xm), mcfg)
+    finally:
+        layers.COMPUTE_DTYPE = compute
+    held("moe layer relational vs nn/moe.py impl=sort float32", got,
+         layer_out)
+
+    # the channel mix against nn/ssm.py's (it mixes x + (x_prev - x)·mu,
+    # the zoo x·mu + x_prev·(1 - mu): the same function at mu' = 1 - mu)
+    s_len, d, f = ZOO_CMIX["seq"], ZOO_CMIX["d"], ZOO_CMIX["d_ff"]
+    xc = rng.randn(s_len, d).astype(np.float32)
+    mu_k, mu_r = rng.rand(d), rng.rand(d)
+    wk, wv, wr = (rng.randn(d, f) * 0.3, rng.randn(f, d) * 0.3,
+                  rng.randn(d, d) * 0.3)
+    got, s = timed(lambda: zoo.run_channel_mix_in_db(
+        xc, mu_k, mu_r, wk, wv, wr, engine=engines["relational"]))
+    cmix, _ = ssm.rwkv6_channel_mix(
+        {"mu_k": on_card(1.0 - mu_k), "mu_r": on_card(1.0 - mu_r),
+         "wk": on_card(wk), "wv": on_card(wv), "wr": on_card(wr)},
+        on_card(xc)[None])
+    held("channel mix relational vs nn/ssm.py float32", got, cmix[0], s)
+
+    # the LRU, dense block and diagonal
+    L = ZOO_LRU
+    u_in = rng.randn(L["seq"], L["d_in"]).astype(np.float32)
+    a_dense = (rng.randn(L["d_state"], L["d_state"]) * 0.3).astype(np.float32)
+    lam = (rng.rand(L["d_state"]) * 0.8).astype(np.float32)
+    wb = (rng.randn(L["d_in"], L["d_state"]) * 0.5).astype(np.float32)
+    wc = (rng.randn(L["d_state"], L["d_out"]) * 0.5).astype(np.float32)
+    for diagonal, a_lru in ((False, a_dense), (True, lam)):
+        got, s = timed(lambda: zoo.run_lru_in_db(
+            u_in, a_lru, wb, wc, diagonal=diagonal,
+            engine=engines["relational"]))
+        held(f"lru {'diagonal' if diagonal else 'dense'} relational vs "
+             "float32 scan on the card", got,
+             lru_on_card(u_in, a_lru, wb, wc, diagonal), s)
+    for eng in engines.values():
+        eng.close()
+
+    launches = read_launches(counters)
+    expected = {"onehot_embed": 0, "fused_sigmoid_matmul": 0,
+                "relational_matmul": 2, "moe_dispatch": 2,
+                "flash_attention": 0, "rwkv6_scan": 1}
+    if launches != expected:
+        raise AssertionError(f"db-tier (c) launches {launches}, expected "
+                             f"{expected}")
+    worst = max(diffs, key=diffs.get)
+    log(f"db-tier (c): largest |diff| {diffs[worst]:.3e} ({worst}); "
+        f"launches {launches}")
+    if diffs[worst] > ZOO_TOL:
+        raise AssertionError(f"db-tier (c): {worst} {diffs[worst]:.3e} "
+                             f"above {ZOO_TOL}")
+    return dict(max_abs_diff=diffs, sql_s=walls, launches=launches)
+
+
+def db_observe(tracer, out):
+    """(d) phase 10's capture into a sqlite file and a Chrome trace in
+    ``OUT_DIR``, both through the report CLI; (a)'s and (b)'s metrics
+    compared against themselves by the regression gate."""
+    from repro_torch import obs
+    from repro_torch.db import connect
+    from repro_torch.obs import regress
+
+    OUT_DIR.mkdir(exist_ok=True)
+    db_path = OUT_DIR / "db_tier_trace.db"
+    db_path.unlink(missing_ok=True)
+    ad = connect("sqlite", str(db_path))
+    n_spans = obs.write_trace_spans(ad, tracer)
+    n_points = obs.write_metric_points(ad, tracer)
+    ad.commit()
+    ad.close()
+    json_path = Path(obs.write_chrome_trace(tracer,
+                                            str(OUT_DIR / "db_tier_trace.json")))
+    log(f"db-tier (d): {n_spans} spans and {n_points} metric points into "
+        f"{db_path.relative_to(ROOT)}, Chrome trace "
+        f"{json_path.relative_to(ROOT)}")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    for path in (db_path, json_path):
+        log(f"$ python -m repro_torch.obs.report {path.relative_to(ROOT)} "
+            "--top 5")
+        run = subprocess.run([sys.executable, "-m", "repro_torch.obs.report",
+                              str(path), "--top", "5"], capture_output=True,
+                             text=True, env=env, timeout=300, check=True)
+        log(run.stdout.rstrip())
+
+    metrics = {}
+    for what, wall in out["shard"]["wall_s"].items():
+        metrics[f"shard.{what.replace(' ', '.')}.iter_s"] = regress.metric(
+            wall, "s", "lower")
+    for rep in ("relational", "array"):
+        r = out["serve"][rep]
+        metrics[f"serve.{rep}.requests_per_s"] = regress.metric(
+            r["requests_per_s"], "req/s", "higher")
+        metrics[f"serve.{rep}.p50_ms"] = regress.metric(r["p50_ms"], "ms")
+        metrics[f"serve.{rep}.p99_ms"] = regress.metric(r["p99_ms"], "ms")
+    report_ = {"metrics": metrics}
+    deltas = regress.compare(report_, report_)
+    log(regress.delta_table(deltas, title="db-tier (d): (a) and (b) against "
+                                          "themselves"))
+    bad = [d.name for d in deltas if d.status != "ok"]
+    if bad or len(deltas) != len(metrics):
+        raise AssertionError(f"db-tier (d): regress.compare against itself "
+                             f"flagged {bad}")
+    return dict(spans=n_spans, metric_points=n_points, metrics=metrics)
+
+
+def db_tier(counters, core, nn2sql, data_mod, result):
+    """Phase 10: (a) sharded training, (b) the SQL batch server, (c) the
+    zoo in SQL against the card, all SQL in sqlite ``:memory:`` on the
+    host under one tracer; (d) that capture through the report CLI and the
+    regression gate."""
+    import sqlite3
+
+    from repro_torch import obs
+
+    card = result["card"]
+    log(f"db-tier: sqlite {sqlite3.sqlite_version}, os.cpu_count() "
+        f"{os.cpu_count()}, {card}")
+    tracer = obs.Tracer()
+    out = {"sqlite": sqlite3.sqlite_version, "cpu_count": os.cpu_count()}
+    t0 = time.perf_counter()
+    with obs.use(tracer):
+        out["shard"], served = db_shard(counters, core, nn2sql, data_mod,
+                                        card)
+        out["serve"] = db_serve(counters, core, nn2sql, data_mod, served,
+                                tracer, card)
+        out["zoo"] = db_zoo(counters, card)
+    out["obs"] = db_observe(tracer, out)
+    out["wall_s"] = time.perf_counter() - t0
+    log(f"db-tier: phase 10 in {out['wall_s']:.1f} s")
+    result["db_tier"] = out
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to drive", file=sys.stderr)
@@ -2777,6 +3219,7 @@ def main() -> int:
         "moe_dispatch"]
     serve_zamba(counters, result)
     in_database(counters, core, nn2sql, data_mod, result)
+    db_tier(counters, core, nn2sql, data_mod, result)
 
     line = {"kernels": [
         {k: r[k] for k in ("name", "route", "source", "replaces")}

@@ -14,9 +14,11 @@ PyTorch port of ``repro.db``).
 * :mod:`~repro_torch.db.train` — Listing 7/10 training + Listing 8 inference
   executed inside the database.
 
-``shard`` (data-parallel training, ROADMAP.md queue 1, item 8) and ``zoo``
-(the DAG zoo in SQL, item 10) are not ported yet: asking for them raises
-``AttributeError``.
+* :mod:`~repro_torch.db.shard` — data-parallel training across a
+  connection pool with a SQL AllReduce (``train_in_db(shards=N)``);
+* :mod:`~repro_torch.db.zoo` — the DAG zoo in SQL: MoE dispatch/combine,
+  the RWKV recurrences and the SSD/LRU scans transpiled to executable
+  queries (§8 outlook).
 
 Submodules that depend on :mod:`repro_torch.core` are loaded lazily so that
 ``core`` ↔ ``db`` imports cannot cycle.
@@ -30,24 +32,28 @@ from .dialect import (ARRAY_UDFS, HAVE_DUCKDB, ArrayDialect, DuckDBDialect,
 
 __all__ = [
     "adapter", "adapters", "dialect", "relation_io", "plan_cache",
-    "sql_engine", "train",
+    "sql_engine", "train", "shard", "zoo",
     "Adapter", "SQLiteAdapter", "DuckDBAdapter", "PostgresAdapter",
     "ConnectionPool", "connect",
     "Sql92Dialect", "SqliteDialect", "DuckDBDialect", "PostgresDialect",
     "ArrayDialect", "get_dialect",
     "ARRAY_UDFS", "HAVE_DUCKDB", "matrix_to_json", "json_to_matrix",
     "SQLEngine", "PlanCache", "train_in_db", "infer_in_db", "predict_in_db",
+    "train_in_db_sharded",
 ]
 
 _LAZY = {
     "plan_cache": ("repro_torch.db.plan_cache", None),
     "sql_engine": ("repro_torch.db.sql_engine", None),
     "train": ("repro_torch.db.train", None),
+    "shard": ("repro_torch.db.shard", None),
+    "zoo": ("repro_torch.db.zoo", None),
     "SQLEngine": ("repro_torch.db.sql_engine", "SQLEngine"),
     "PlanCache": ("repro_torch.db.plan_cache", "PlanCache"),
     "train_in_db": ("repro_torch.db.train", "train_in_db"),
     "infer_in_db": ("repro_torch.db.train", "infer_in_db"),
     "predict_in_db": ("repro_torch.db.train", "predict_in_db"),
+    "train_in_db_sharded": ("repro_torch.db.shard", "train_in_db_sharded"),
 }
 
 

@@ -231,6 +231,17 @@ def write_matrix_array_batch(adapter: Adapter, name: str, x,
         _count_ingest(adapter, a)
 
 
+def write_matrix_json(adapter: Adapter, name: str, x) -> None:
+    """The JSON-array ingestion path (``SQLiteAdapter.insert_matrix_json``):
+    the (i, j, v) expansion happens inside the engine via ``json_each``.
+    Values may differ from the source by ~1 ulp (sqlite's text→real)."""
+    if not adapter.supports_json_ingest:
+        raise NotImplementedError(
+            f"{type(adapter).__name__} has no table-valued JSON ingestion")
+    adapter.create_table(name, MATRIX_COLUMNS)
+    adapter.insert_matrix_json(name, to_host(x))
+
+
 def write_matrix_percell(adapter: Adapter, name: str, x) -> None:
     """The pre-vectorization ingestion path (per-cell pivot + one flat
     ``executemany``) — the benchmark baseline."""
@@ -332,6 +343,57 @@ def update_matrix_array(adapter: Adapter, name: str, x) -> bool:
 def read_matrix_array(adapter: Adapter, name: str) -> np.ndarray:
     rows = adapter.execute(f"select m from {_check_ident(name)}")
     return json_to_matrix(rows[0][0])
+
+
+# ---------------------------------------------------------------------------
+# cross-connection gradient shipping (the AllReduce input of db/shard.py)
+# ---------------------------------------------------------------------------
+
+#: coordinator-side gradient relation: ``r`` the multi-root tag of the
+#: shard plan's result rows (1.. = the wrt weights, in order), ``s`` the
+#: shard index — the SQL AllReduce groups on (r, i, j) across ``s``
+SHARD_GRAD_COLUMNS = (("r", "integer"), ("s", "integer")) + MATRIX_COLUMNS
+
+#: array-representation twin: one codec row per (weight, shard)
+SHARD_GRAD_ARRAY_COLUMNS = (("r", "integer"), ("s", "integer")) + ARRAY_COLUMNS
+
+
+def create_shard_grads(adapter: Adapter, name: str, representation: str,
+                       temp: bool = True) -> None:
+    """The coordinator's gradient landing relation (temp by default — it
+    is per-coordinator scratch, rebuilt every step)."""
+    cols = (SHARD_GRAD_COLUMNS if representation == "relational"
+            else SHARD_GRAD_ARRAY_COLUMNS)
+    adapter.create_table(name, cols, temp=temp)
+
+
+def ship_grad_rows(adapter: Adapter, name: str, shard: int, rows,
+                   representation: str, grad_roots_from: int = 1) -> int:
+    """Import one shard's tagged multi-root result rows (the raw output of
+    ``SQLEngine.evaluate_rows``) into the coordinator's gradient relation,
+    stamped with the shard index — the export/import half of the SQL
+    AllReduce.  Rows tagged below ``grad_roots_from`` (the loss root) are
+    not gradients and are skipped.  Returns the number of rows shipped.
+    The rows are database values already (host tuples), never tensors."""
+    kept = [row for row in rows if row[0] >= grad_roots_from]
+    n = len(kept)
+    with tracer_of(adapter).span("io.ship_grads", table=name, shard=shard,
+                                 rows=n):
+        if not n:
+            return 0
+        if representation == "relational":
+            arr = np.asarray(kept, dtype=np.float64)
+            adapter.insert_columns(name, (
+                arr[:, 0].astype(np.int64),
+                np.full(n, shard, dtype=np.int64),
+                arr[:, 1].astype(np.int64),
+                arr[:, 2].astype(np.int64),
+                arr[:, 3]))
+        else:
+            adapter.bulk_insert(name, [(int(r), shard, m)
+                                       for r, m in kept])
+        adapter.add_counters(shipped_rows=n)
+    return n
 
 
 def write_reltensor(adapter: Adapter, name: str, rt: RelTensor) -> None:

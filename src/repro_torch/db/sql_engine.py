@@ -371,9 +371,9 @@ class SQLEngine:
         """Like :meth:`evaluate`, but return the RAW tagged result rows —
         relational ``(r, i, j, v)`` / array ``(r, m)`` — without the dense
         decode.  The export half of cross-connection gradient shipping
-        (``db/shard.py``, ROADMAP.md item 8): the coordinator re-ingests
-        the tuples verbatim, so pivoting to dense here would be round-trip
-        waste.  The whole round trip holds the adapter lock
+        (``db/shard.py``): the coordinator re-ingests the tuples verbatim
+        (``relation_io.ship_grad_rows``), so pivoting to dense here would
+        be round-trip waste.  The whole round trip holds the adapter lock
         — one shard thread per connection serializes cleanly."""
         tr = tracer_of(self, self.adapter)
         with self.adapter.lock:

@@ -9,8 +9,11 @@ serving (``serve.prefill``, ``serve.step``); counters, gauges, histograms
 (``tracer.point``) ride along.  The exporters turn a capture into a
 Chrome-trace/Perfetto JSON or a ``trace_spans`` relation *inside the
 traced database*; :mod:`~repro_torch.obs.profiler` is the per-IR-node
-profiled execution mode (``SQLEngine.profile``).  The regression gate and
-the report CLI of ``repro.obs`` come with ROADMAP.md's tooling items.
+profiled execution mode (``SQLEngine.profile``);
+:mod:`~repro_torch.obs.regress` compares benchmark ``metrics`` blocks
+against baselines (the perf gate's comparison); ``python -m
+repro_torch.obs.report`` prints all of it from a trace JSON or a traced
+database.
 
 Zero-cost by default: the active tracer is a no-op singleton until
 :func:`install`/:func:`use` swaps a collecting one in (or an engine is
@@ -25,6 +28,8 @@ from .metrics import (METRIC_POINT_COLUMNS, METRIC_SQL, Histogram,
 from .profiler import (NODE_SQL, PROFILE_NODE_COLUMNS, NodeCost,
                        ProfileResult, profile_evaluate,
                        profile_value_and_grad, write_profile_nodes)
+from .regress import (Delta, compare, delta_table, metric,
+                      metrics_from_report)
 from .tracer import (NOOP_SPAN, NullTracer, Span, Tracer, current, install,
                      tracer_of, use)
 
@@ -38,4 +43,5 @@ __all__ = [
     "NodeCost", "ProfileResult", "profile_evaluate",
     "profile_value_and_grad", "write_profile_nodes",
     "NODE_SQL", "PROFILE_NODE_COLUMNS",
+    "Delta", "compare", "delta_table", "metric", "metrics_from_report",
 ]

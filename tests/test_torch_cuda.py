@@ -669,3 +669,78 @@ def test_rwkv6_scan_kernel_time_edges(cuda, n, s, layout):
     torch.testing.assert_close(o, o_ref, **SCAN)
     torch.testing.assert_close(s_fin, s_ref, **SCAN)
     assert torch.equal(s0, s0_before)
+
+
+# ---------------------------------------------------------------------------
+# the DAG zoo in SQL against the kernels (chip_smoke.py phase 10 (c))
+# ---------------------------------------------------------------------------
+
+ZOO_TOL = 1e-4                                   # tests/test_zoo_db.py
+
+
+def _slots(rng, t, slots):
+    return rng.randint(0, t, slots).astype(np.int32), \
+        rng.rand(slots).astype(np.float32)
+
+
+def test_zoo_dispatch_in_sql_equals_moe_dispatch_kernel(cuda):
+    from repro_torch.db import zoo
+    from repro_torch.db.sql_engine import SQLEngine
+
+    rng = np.random.RandomState(0)
+    t, d, slots = 16, 64, 96
+    x = rng.randn(t, d).astype(np.float32)
+    tok, gate = _slots(rng, t, slots)
+    out, _, _, _ = zoo.moe_dispatch_graph(t, d, slots)
+    with SQLEngine(dialect="array", plan_cache_=False) as eng:
+        sql, = eng.evaluate([out], {
+            "x": x, "slot_token": tok.astype(np.float64).reshape(-1, 1),
+            "slot_gate": gate.reshape(-1, 1)})
+    before = moe_mod.moe_dispatch.launches
+    card = ops.moe_dispatch(torch.from_numpy(x).to(cuda),
+                            torch.from_numpy(tok).to(cuda),
+                            torch.from_numpy(gate).to(cuda))
+    assert moe_mod.moe_dispatch.launches == before + 1
+    np.testing.assert_allclose(card.cpu().numpy(), sql, rtol=0, atol=ZOO_TOL)
+
+
+def test_zoo_combine_in_sql_equals_relational_matmul_kernel(cuda):
+    from repro_torch.db import zoo
+    from repro_torch.db.sql_engine import SQLEngine
+
+    rng = np.random.RandomState(1)
+    t, d, slots = 16, 64, 96
+    tok, _ = _slots(rng, t, slots)
+    y = rng.randn(slots, d).astype(np.float32)
+    out, _, _ = zoo.moe_combine_graph(slots, d, t)
+    with SQLEngine(dialect="array", plan_cache_=False) as eng:
+        sql, = eng.evaluate([out], {
+            "expert_out": y,
+            "slot_token": tok.astype(np.float64).reshape(-1, 1)})
+    before = relmm_mod.relational_matmul.launches
+    card = ops.moe_combine(torch.from_numpy(y).to(cuda),
+                           torch.from_numpy(tok).to(cuda), t)
+    assert relmm_mod.relational_matmul.launches == before + 1
+    np.testing.assert_allclose(card.cpu().numpy(), sql, rtol=0, atol=ZOO_TOL)
+
+
+def test_zoo_rwkv6_time_mix_in_sql_equals_rwkv6_scan_kernel(cuda):
+    from repro_torch.db import zoo
+    from repro_torch.db.sql_engine import SQLEngine
+
+    rng = np.random.RandomState(2)
+    s, n = 8, 16
+    r, k, v = (rng.randn(s, n).astype(np.float32) * 0.5 for _ in range(3))
+    w = (rng.rand(s, n) * 0.5 + 0.3).astype(np.float32)
+    u = (rng.randn(n) * 0.5).astype(np.float32)
+    s0 = (rng.randn(n, n) * 0.3).astype(np.float32)
+    with SQLEngine(dialect="array", plan_cache_=False) as eng:
+        o_sql, sfin_sql = zoo.run_rwkv6_in_db(r, k, v, w, u, s0, engine=eng)
+    before = scan_mod.rwkv6_scan.launches
+    o, sfin = ops.rwkv6_scan(*(torch.from_numpy(a)[None].to(cuda)
+                               for a in (r, k, v, w, u, s0)))
+    assert scan_mod.rwkv6_scan.launches == before + 1
+    np.testing.assert_allclose(o[0].cpu().numpy(), o_sql, rtol=0,
+                               atol=ZOO_TOL)
+    np.testing.assert_allclose(sfin[0].cpu().numpy(), sfin_sql, rtol=0,
+                               atol=ZOO_TOL)

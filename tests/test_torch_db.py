@@ -316,12 +316,15 @@ def test_train_in_db_arguments():
                     representation="array")
     with pytest.raises(ValueError, match="representation"):
         train_in_db(g, w0, x, y, 1, representation="sparse")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        train_in_db(g, w0, x, y, 1, shards=2)
+    two = train_in_db(g, w0, x, y, 1, shards=2, plan_cache_=False)
+    one = train_in_db(g, w0, x, y, 1, shards=1, plan_cache_=False)
+    assert two.strategy == "sharded"
+    for k in ("w_xh", "w_ho"):
+        close(two.weights[k], one.weights[k], msg=k)
     import repro_torch.db as db
-    for later in ("shard", "zoo", "train_in_db_sharded"):
-        with pytest.raises(AttributeError):
-            getattr(db, later)
+    for module in ("shard", "zoo", "train_in_db_sharded"):
+        assert getattr(db, module) is not None
+    assert db.train_in_db_sharded is db.shard.train_in_db_sharded
     assert db.SQLEngine is SQLEngine and db.train_in_db is train_in_db
 
 

@@ -50,7 +50,13 @@ def test_the_port_has_modules():
             "repro_torch/db/relation_io.py", "repro_torch/db/plan_cache.py",
             "repro_torch/db/sql_engine.py", "repro_torch/db/train.py",
             "repro_torch/obs/export.py",
-            "repro_torch/obs/profiler.py"} <= names
+            "repro_torch/obs/profiler.py", "repro_torch/obs/regress.py",
+            "repro_torch/obs/report.py", "repro_torch/launch/mesh.py",
+            "repro_torch/db/shard.py", "repro_torch/db/zoo/__init__.py",
+            "repro_torch/db/zoo/moe_to_sql.py",
+            "repro_torch/db/zoo/rwkv_to_sql.py",
+            "repro_torch/db/zoo/ssm_to_sql.py",
+            "repro_torch/serving/db_serve.py"} <= names
 
 
 @pytest.mark.parametrize("path", PORT + [SMOKE],
