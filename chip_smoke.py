@@ -34,7 +34,16 @@ Phases (any failure exits non-zero; nothing is caught and carried on past):
            device time, two calls equal bit for bit, and no tensor-core
            instruction in its SASS; onehot_embed: the profiler's device
            events of a call, which must be one kernel and no memset or
-           memcpy, and the C launcher's launch-and-wait alone);
+           memcpy, and the C launcher's launch-and-wait alone;
+           flash_attention_bwd: at Yi-6B's training microbatch as phase
+           11 hands it over ((2, 32/4, 4096, 128) head-split views), at
+           its global batch (4, 32/4, 4096, 128), MLA's and Zamba2's,
+           causal and full, float32 (F32_TOL) and bf16 (BF16_BWD_TOL: one
+           bf16 ulp beyond it), against the plain backward in float64,
+           two calls equal bit for bit, timed beside its bound, its
+           design's operation count, the plain backward and SDPA's
+           backward alone; and the forward's bf16 kernel against the
+           float32-P plain version at the microbatch);
 3. main    the paper's pipeline at the full width of Fig. 10 (2000 rows,
            784 → 200 → 10, random weights from Listing 2's seed): one-hot
            labels, 5 training steps and inference on Engine("dense") and
@@ -132,9 +141,28 @@ Phases (any failure exits non-zero; nothing is caught and carried on past):
            ``chip_smoke.json``, both printed by ``python -m
            repro_torch.obs.report --top 5``, and (a)'s and (b)'s metrics
            through ``regress.compare`` against themselves.
+11. train  LM training on the full-width Yi-6B cut to 12 layers (2.6 B
+           parameters; float32 weights, gradients and AdamW moments, 41.6
+           GB), after phase 10: (a) ``Trainer(LM, adamw(3e-4),
+           TokenPipeline(seq 4096, global batch 4), grad_accum=2)`` for 1
+           warm step and 3 more (remat="full", loss "full"), the counts
+           zeroed before and read after: 48 flash_attention and 24
+           flash_attention_bwd launches a step; each step's wall, tokens/s,
+           loss and grad norm (finite), the peak device memory, and one
+           profiled step; (b) at the same width on 2 layers, one
+           microbatch of 2 x 4096, the loss and every gradient leaf in
+           float32 compute (both flash kernels) against float64 on the card
+           with attention through the plain versions (each leaf within 1e-3
+           of its largest magnitude, the loss within 1e-5 relative), bf16
+           compute beside it as a reading; (c) the reduced Yi-6B on the card
+           for 6 steps with a checkpoint every 3 under ``chiprun_out/``: a
+           fresh Trainer resumes at 6, every parameter and AdamW leaf equal
+           bit for bit; (d) moe_dispatch refuses an operand that requires
+           grad before it launches.  The device bytes allocated after the
+           phase, cuBLAS's workspaces let go, must equal those before it.
 
 ``python3 chip_smoke.py --kernels [name ...]`` runs phases 1 and 2 alone,
-for the named kernels (all six without a name), and prints no result line:
+for the named kernels (all seven without a name), and prints no result line:
 two trees are compared on one card by running it in each, in turns.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
@@ -146,6 +174,7 @@ result.  It imports neither JAX nor the JAX package.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import os
 import re
@@ -1023,6 +1052,176 @@ def check_flash_zamba2(mod, sdpa):
     return out
 
 
+# flash_attention_bwd at the training shape of phase 11 (Yi-6B, the
+# repo's train_4k sequence: B, Hq, Hkv, S, D; B = 2 is a microbatch, 4 the
+# global batch), and at the MLA and Zamba2 shapes phase 2 times the
+# forward at
+FLASH_TRAIN = (2, 32, 4, 4096, 128)
+FLASH_TRAIN_B4 = (4, 32, 4, 4096, 128)
+# bf16 gradients: the kernel widens the operands exactly, sums in float32
+# (F32_TOL's error) and rounds each gradient once; the oracle is the
+# float64 answer rounded once.  So they lie at most one bf16 ulp (2^-7 of
+# the rounded value) beyond the float32 error: F32_TOL plus 2^-7, with
+# 1 % for measuring against the rounded value rather than the exact one.
+BF16_BWD_TOL = dict(rtol=8.1e-3, atol=2.1e-5)
+
+
+def bwd_pairs(b, hq, s, causal=True):
+    return b * hq * (s * (s + 1) // 2 if causal else s * s)
+
+
+def bwd_flops(b, hq, s, d, dv, causal=True):
+    """The least operations of the backward: five products over the live
+    pairs (S, dP, dV, dK, dQ), 2 FLOPs a multiply-add."""
+    return 2 * bwd_pairs(b, hq, s, causal) * (3 * d + 2 * dv)
+
+
+def bwd_design_flops(b, hq, s, d, dv, causal=True):
+    """What the kernel's design computes: S and dP in the pre-pass, S, dP,
+    dV and dK in the dK/dV kernel, S, dP and dQ in the dQ kernel."""
+    return 2 * bwd_pairs(b, hq, s, causal) * (5 * d + 4 * dv)
+
+
+def bwd_bound(b, hq, hkv, s, d, dv, dtype, causal=True):
+    """q, k, v and dO read once, dq, dk and dv written once; the least
+    operations at the type's peak."""
+    size = torch.tensor([], dtype=dtype).element_size()
+    n_bytes = 2 * size * (b * hq * s * (d + dv) + b * hkv * s * (d + dv))
+    peak = BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS
+    return bound_ms(n_bytes, bwd_flops(b, hq, s, d, dv, causal), peak)
+
+
+def bwd_oracle(mod, q, k, v, do, causal):
+    """The plain backward in float64 on the card, one batch entry at a
+    time (a (1, 32, 4096, 4096) float64 score tensor is 4.3 GB)."""
+    outs = [mod.plain_bwd(*(t[i:i + 1].double() for t in (q, k, v, do)),
+                          causal=causal) for i in range(q.shape[0])]
+    return [torch.cat(parts).to(t.dtype) for parts, t in
+            zip(zip(*outs), (q, k, v))]
+
+
+def check_flash_bwd(mod, report):
+    """The gradient kernel against its plain version (float64 oracle) at
+    Yi-6B's training microbatch as phase 11 hands it over (head-split
+    views), Yi-6B's global batch, MLA's and Zamba2's (head-split views),
+    causal and full, float32 at F32_TOL and bf16 at BF16_BWD_TOL; two
+    calls equal bit for bit; timed beside its bound, its design's count, the plain
+    backward and one library call (the backward of SDPA alone, its forward
+    outside the timed region).  Also the forward's bf16 kernel against
+    the float32-P plain version at the training shape (the difference the
+    backward makes visible: it differentiates the float32-P function)."""
+    rng = np.random.RandomState(22)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    def inputs(b, hq, hkv, s, d, dv, dtype, views=False):
+        if views:        # (B, S, H, D) projections seen as (B, H, S, D)
+            return [torch.tensor(rng.randn(b, s, h, w), dtype=torch.float32,
+                                 device="cuda").to(dtype).transpose(1, 2)
+                    for h, w in ((hq, d), (hkv, d), (hkv, dv), (hq, dv))]
+        return [torch.tensor(rng.randn(b, h, s, w), dtype=torch.float32,
+                             device="cuda").to(dtype)
+                for h, w in ((hq, d), (hkv, d), (hkv, dv), (hq, dv))]
+
+    def sdpa_backward(q, k, v, do):
+        leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+        out = sdpa(*leaves, is_causal=True, enable_gqa=True)
+        return lambda: torch.autograd.grad(out, leaves, do,
+                                           retain_graph=True)
+
+    # name: (B, Hq, Hkv, S, D, Dv, head-split views)
+    cases = {"yi_train": FLASH_TRAIN + (128, True),
+             "yi_b4": FLASH_TRAIN_B4 + (128, False),
+             "mla": (4, 16, 16, 2000, 192, 128, False),
+             "zamba2": (4, 32, 32, 2048, 80, 80, True)}
+    out = {}
+    for name, (b, hq, hkv, s, d, dv, views) in cases.items():
+        for dtype, tol in ((torch.float32, F32_TOL),
+                           (torch.bfloat16, BF16_BWD_TOL)):
+            q, k, v, do = inputs(b, hq, hkv, s, d, dv, dtype, views=views)
+            key = f"{name}_{str(dtype).removeprefix('torch.')}"
+            row = dict(shape=f"q ({b},{hq},{s},{d}), k/v ({b},{hkv},{s},"
+                             f"{d}/{dv}) {dtype}"
+                             + (" head-split views" if views else ""))
+            for causal in (True, False):
+                got = mod.flash_attention_bwd(q, k, v, do, causal=causal)
+                want = bwd_oracle(mod, q, k, v, do, causal)
+                errs = [max_err(g, w, tol, f"flash_bwd {key} d{n} "
+                                f"causal={causal}")
+                        for n, g, w in zip("qkv", got, want)]
+                mode = "causal" if causal else "full"
+                row[f"max_abs_err_{mode}"] = max(errs)
+                # the largest |got - want| / (atol + rtol |want|): 1 is
+                # the tolerance's edge
+                row[f"tol_share_{mode}"] = max(
+                    float(((g.float() - w.float()).abs() / (
+                        tol["atol"] + tol["rtol"] * w.float().abs())).max())
+                    for g, w in zip(got, want))
+                del got, want
+            first = mod.flash_attention_bwd(q, k, v, do)
+            if not all(torch.equal(a, c) for a, c in
+                       zip(first, mod.flash_attention_bwd(q, k, v, do))):
+                raise AssertionError(f"flash_bwd {key}: two calls differ")
+            del first
+            row["ms"] = time_ms(lambda: mod.flash_attention_bwd(q, k, v, do),
+                                iters=5, warmup=1)
+            row["device"] = device_events(
+                lambda: mod.flash_attention_bwd(q, k, v, do), 2)
+            row["plain_ms"] = time_ms(lambda: mod.plain_bwd(q, k, v, do),
+                                      iters=2, warmup=1)
+            torch.cuda.empty_cache()
+            row["library_ms"] = time_ms(sdpa_backward(q, k, v, do), iters=5,
+                                        warmup=1)
+            row["library_kernels"] = top_kernels(sdpa_backward(q, k, v, do))
+            row["bound_ms"], row["bound_by"] = bwd_bound(b, hq, hkv, s, d,
+                                                         dv, dtype)
+            flops = bwd_flops(b, hq, s, d, dv)
+            design = bwd_design_flops(b, hq, s, d, dv)
+            peak = BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS
+            row |= dict(flops=flops, design_flops=design,
+                        design_ms=design / peak * 1e3,
+                        design_f32_ms=design / F32_FLOPS * 1e3,
+                        tflops=flops / row["ms"] * 1e-9,
+                        design_tflops=design / row["ms"] * 1e-9,
+                        bound_share=row["bound_ms"] / row["ms"])
+            if name == "yi_train" and dtype == torch.bfloat16:
+                # the forward's bf16 kernel rounds P before P V; the plain
+                # version (and JAX's attend_flash) keeps P in float32
+                row["fwd_bf16_vs_f32p"] = max_err(
+                    mod.flash_attention(q, k, v),
+                    mod.plain(q, k, v), FLASH_MAIN_BF16_TOL,
+                    f"flash {key} forward bf16 vs float32-P plain")
+            out[key] = row
+            log(f"flash_bwd {key} {row['shape']}: max |err| causal "
+                f"{row['max_abs_err_causal']:.3e}, full "
+                f"{row['max_abs_err_full']:.3e} (held at {tol}, "
+                f"{row['tol_share_causal']:.3f} / {row['tol_share_full']:.3f}"
+                f" of it); "
+                f"{row['ms']:.4f} ms (device {device_ms(row['device']):.4f} "
+                f"ms: {summary(row['device'])}) = {row['tflops']:.1f} "
+                f"TFLOP/s least, {row['design_tflops']:.1f} TFLOP/s done; "
+                f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}), "
+                f"{row['bound_share']:.3f} of it; the design's "
+                f"{design / 1e12:.3f} TFLOP at the type's peak "
+                f"{row['design_ms']:.4f} ms, at float32 FFMA "
+                f"{row['design_f32_ms']:.4f} ms; plain {row['plain_ms']:.4f}"
+                f" ms; SDPA backward {row['library_ms']:.4f} ms "
+                f"{row['library_kernels']}")
+            del q, k, v, do
+            torch.cuda.empty_cache()
+    main = out["yi_train_bfloat16"]
+    log(f"flash forward bf16 kernel vs the float32-P plain version at "
+        f"{main['shape']}: max |err| {main['fwd_bf16_vs_f32p']:.3e}")
+    report["flash_attention_bwd"] = dict(
+        name="flash_attention_bwd", route="cuda",
+        source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        replaces="src/repro/kernels/flash_attention.py:69",
+        shape=main["shape"] + " causal",
+        max_abs_err=main["max_abs_err_causal"], ms=main["ms"],
+        plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
+        bound_by=main["bound_by"], library_ms=main["library_ms"],
+        cases=out)
+
+
 RWKV_MAIN = (4, 64, 2000, 64)      # RWKV-6 7B prefill: B, H, S, N
 SCAN_TOL = dict(rtol=3e-4, atol=3e-4)         # tests/test_kernels.py
 
@@ -1147,7 +1346,8 @@ def main_path(counters, core, nn2sql, data_mod, result):
     expected = {"onehot_embed": 1,
                 "fused_sigmoid_matmul": 2 * ITERS + 2,
                 "relational_matmul": 5 * ITERS + 2,
-                "moe_dispatch": 0, "flash_attention": 0, "rwkv6_scan": 0}
+                "moe_dispatch": 0, "flash_attention": 0,
+                "flash_attention_bwd": 0, "rwkv6_scan": 0}
     if launches != expected:
         raise AssertionError(f"launches {launches}, expected {expected}")
 
@@ -1219,9 +1419,14 @@ def device_profile(fn, wall_ms: float, what: str, card: str) -> dict:
     for name, ms in top.items():
         log(f"  {ms:9.4f} ms  {name[:100]}")
     flash_ms = sum(ms for name, ms in by_name.items() if "flash" in name)
+    flash_bwd_ms = sum(ms for name, ms in by_name.items()
+                       if "flash_bwd" in name)
     if flash_ms:
         log(f"  flash_attention kernels: {flash_ms:.4f} ms, "
             f"{flash_ms / device:.4f} of device time")
+    if flash_bwd_ms:
+        log(f"    of which the backward (flash_bwd_*): {flash_bwd_ms:.4f} "
+            f"ms, {flash_bwd_ms / device:.4f} of device time")
     # copies and casts: PyTorch's copy kernels (a type conversion is one)
     # and the runtime's memcpys
     copies = {name: ms for name, ms in by_name.items()
@@ -1232,8 +1437,8 @@ def device_profile(fn, wall_ms: float, what: str, card: str) -> dict:
             f"{sum(counts[name] for name in copies)} events")
     return dict(wall_ms=wall_ms, device_ms=device,
                 busy_share=device / wall_ms, device_events=n_events,
-                top_ms=top, flash_ms=flash_ms, copies_ms=copies_ms,
-                counts=counts)
+                top_ms=top, flash_ms=flash_ms, flash_bwd_ms=flash_bwd_ms,
+                copies_ms=copies_ms, counts=counts)
 
 
 def profile_step(counters, core, nn2sql, data_mod, result):
@@ -2616,7 +2821,8 @@ def in_database(counters, core, nn2sql, data_mod, result):
         walls[f"card {kind}"] = t / DB_ITERS
     expected = {"onehot_embed": 1, "fused_sigmoid_matmul": 2 * DB_ITERS,
                 "relational_matmul": 5 * DB_ITERS, "moe_dispatch": 0,
-                "flash_attention": 0, "rwkv6_scan": 0}
+                "flash_attention": 0, "flash_attention_bwd": 0,
+                "rwkv6_scan": 0}
     if launches != expected:
         raise AssertionError(f"in-database (b) launches {launches}, "
                              f"expected {expected}")
@@ -2794,7 +3000,8 @@ def db_shard(counters, core, nn2sql, data_mod, card):
     steps = sum(set(SHARD_ITERS.values()))
     expected = {"onehot_embed": 1, "fused_sigmoid_matmul": 2 * steps,
                 "relational_matmul": 5 * steps, "moe_dispatch": 0,
-                "flash_attention": 0, "rwkv6_scan": 0}
+                "flash_attention": 0, "flash_attention_bwd": 0,
+                "rwkv6_scan": 0}
     if launches != expected:
         raise AssertionError(f"db-tier (a) launches {launches}, expected "
                              f"{expected}")
@@ -3032,7 +3239,8 @@ def db_zoo(counters, card):
     launches = read_launches(counters)
     expected = {"onehot_embed": 0, "fused_sigmoid_matmul": 0,
                 "relational_matmul": 2, "moe_dispatch": 2,
-                "flash_attention": 0, "rwkv6_scan": 1}
+                "flash_attention": 0, "flash_attention_bwd": 0,
+                "rwkv6_scan": 1}
     if launches != expected:
         raise AssertionError(f"db-tier (c) launches {launches}, expected "
                              f"{expected}")
@@ -3124,6 +3332,310 @@ def db_tier(counters, core, nn2sql, data_mod, result):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 11: LM training on the full-width Yi-6B, cut in depth
+# ---------------------------------------------------------------------------
+
+# The full width (d_model 4096, 32/4 heads of 128, d_ff 11008, vocab
+# 64000), cut in depth because one card forces it: float32 parameters,
+# gradients and AdamW's m and v take 16 bytes a parameter, 97.0 GB at 32
+# layers (6,061,035,520 parameters) and 41.6 GB at 12 (2,600,570,880), which
+# leaves room for the activations under remat="full" and the float32
+# logits.  The repo's training sequence (train_4k, 4096); the global batch
+# 4 (train_4k's 256, cut) in 2 microbatches of 2 x 4096 tokens.
+TRAIN_LAYERS, TRAIN_SEQ, TRAIN_BATCH, TRAIN_ACCUM = 12, 4096, 4, 2
+TRAIN_STEPS = 4                    # 1 warm step, then the 3 that are read
+TRAIN_PARAMS = 2_600_570_880
+# (b) the gradients at the same width on 2 layers, one microbatch of
+# 2 x 4096, float32 compute (the 3xTF32 forward kernel, the float32
+# backward) against float64 on the card with attention through the plain
+# versions.  Bound: each leaf's largest difference within 1e-3 of the
+# leaf's largest magnitude (3xTF32 products and float32 sums over 8192
+# tokens); the loss within 1e-5 relative.
+GRAD_LAYERS, GRAD_BATCH, GRAD_REL, LOSS_REL = 2, 2, 1e-3, 1e-5
+# (c) restart on the reduced Yi-6B: 6 steps, a checkpoint every 3
+RESTART_STEPS, RESTART_EVERY, RESTART_SEQ = 6, 3, 64
+
+
+class OracleAttention(torch.autograd.Function):
+    """Attention through the plain versions (``ref.flash_attention`` and
+    ``ref.flash_attention_bwd``), one KV head's query group at a time: at
+    (2, 32, 4096, 4096) one float64 score tensor of all heads is 8.6 GB.
+    An oracle only; the port never calls it."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale):
+        from repro_torch.kernels import ref
+        ctx.save_for_backward(q, k, v)
+        ctx.causal, ctx.scale = causal, scale
+        g = q.shape[1] // k.shape[1]
+        return torch.cat([ref.flash_attention(
+            q[:, h * g:(h + 1) * g], k[:, h:h + 1], v[:, h:h + 1],
+            causal=causal, scale=scale) for h in range(k.shape[1])], dim=1)
+
+    @staticmethod
+    def backward(ctx, do):
+        from repro_torch.kernels import ref
+        q, k, v = ctx.saved_tensors
+        g = q.shape[1] // k.shape[1]
+        parts = [ref.flash_attention_bwd(
+            q[:, h * g:(h + 1) * g], k[:, h:h + 1], v[:, h:h + 1],
+            do[:, h * g:(h + 1) * g], causal=ctx.causal, scale=ctx.scale)
+            for h in range(k.shape[1])]
+        return (*(torch.cat(p, dim=1) for p in zip(*parts)), None, None)
+
+
+def value_and_grad(lm, params, batch):
+    """(loss, gradient leaves in JAX's order) of ``lm.loss_fn``."""
+    from repro_torch.tree import leaves, unflatten
+    flat = [t.detach().requires_grad_() for t in leaves(params)]
+    loss, _ = lm.loss_fn(unflatten(params, flat), batch)
+    return loss.detach(), torch.autograd.grad(loss, flat)
+
+
+def train_trainer(counters, card):
+    """(a) ``Trainer`` on the full-width 12-layer Yi-6B: the counts are
+    zeroed just before ``run`` and read just after it."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenPipeline
+    from repro_torch.nn.model import LM
+    from repro_torch.optim import adamw
+    from repro_torch.train import Trainer
+    from repro_torch.tree import leaves
+
+    cfg = dataclasses.replace(get_config("yi_6b"), n_layers=TRAIN_LAYERS)
+    lm = LM(cfg)
+    data = TokenPipeline(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                         global_batch=TRAIN_BATCH)
+    trainer = Trainer(lm, adamw(3e-4), data, grad_accum=TRAIN_ACCUM)
+    gen = torch.Generator(device=lm.device)
+    gen.manual_seed(0)
+    log(f"train (a): {cfg.name} at {cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of "
+        f"{cfg.d_head}, d_ff {cfg.d_ff}, vocab {cfg.vocab}, remat "
+        f"{cfg.remat}, loss {cfg.loss_impl}; global batch {TRAIN_BATCH} x "
+        f"{TRAIN_SEQ} in {TRAIN_ACCUM} microbatches, AdamW 3e-4, on {card}")
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches(counters)
+    run = trainer.run(gen, TRAIN_STEPS, log_every=0)
+    launches = read_launches(counters)
+    peak = torch.cuda.max_memory_allocated()
+    params, opt_state, hist = run["params"], run["opt_state"], run["history"]
+    n_params = sum(t.numel() for t in leaves(params))
+    if n_params != TRAIN_PARAMS:
+        raise AssertionError(f"train (a): {n_params} parameters, expected "
+                             f"{TRAIN_PARAMS}")
+    # a microbatch: each layer's forward once and once more in remat's
+    # recompute, and one backward
+    per_step = {"flash_attention": 2 * TRAIN_ACCUM * cfg.n_layers,
+                "flash_attention_bwd": TRAIN_ACCUM * cfg.n_layers}
+    expected = {name: 0 for name in counters} | {
+        k: n * TRAIN_STEPS for k, n in per_step.items()}
+    if launches != expected:
+        raise AssertionError(f"train (a) launches {launches}, expected "
+                             f"{expected}")
+    if not all(np.isfinite([h["loss"], h["grad_norm"]]).all() for h in hist):
+        raise AssertionError(f"train (a): a loss or norm is not finite: "
+                             f"{hist}")
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    read = hist[1:]
+    step_s = [h["seconds"] for h in read]
+    out = dict(
+        model=cfg.name, layers=cfg.n_layers, parameters=n_params,
+        tokens_per_step=tokens, steps=len(hist),
+        history=hist, step_s=step_s,
+        step_s_mean=float(np.mean(step_s)),
+        tokens_per_s=[tokens / t for t in step_s],
+        launches=launches, launches_per_step=per_step, peak_bytes=peak)
+    for h in hist:
+        log(f"train (a) step {h['step']}: {h['seconds'] * 1e3:.4f} ms, "
+            f"{tokens / h['seconds']:.1f} tokens/s, loss {h['loss']:.6f}, "
+            f"grad norm {h['grad_norm']:.6f}")
+    log(f"train (a): {TRAIN_STEPS} steps, launches {launches} ({per_step} a "
+        f"step), peak device memory {peak / 2**30:.2f} GiB")
+    batch = data.batch_at(TRAIN_STEPS)
+    out["profile"] = device_profile(
+        lambda: trainer.step_fn(params, opt_state, batch),
+        out["step_s_mean"] * 1e3, "training step (2 x 2 x 4096 tokens)",
+        card)
+    return out
+
+
+def train_gradients(card):
+    """(b) loss and every gradient leaf of a 2-layer full-width Yi-6B,
+    float32 compute through both flash kernels, against float64 on the
+    card with attention through the plain versions; bf16 compute beside
+    it as a sanity reading."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenPipeline
+    from repro_torch.kernels import flash_attention as flash_mod
+    from repro_torch.kernels import ops
+    from repro_torch.nn import layers
+    from repro_torch.nn.model import LM
+    from repro_torch.tree import tree_map
+
+    cfg = dataclasses.replace(get_config("yi_6b"), n_layers=GRAD_LAYERS)
+    lm = LM(cfg)
+    gen = torch.Generator(device=lm.device)
+    params = lm.init(gen.manual_seed(1))
+    batch = TokenPipeline(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                          global_batch=GRAD_BATCH, seed=1).batch_at(0)
+    compute, accum = layers.COMPUTE_DTYPE, layers.ACCUM_DTYPE
+    fwd0 = flash_mod.flash_attention.launches
+    bwd0 = flash_mod.flash_attention_bwd.launches
+    layers.COMPUTE_DTYPE = torch.float32
+    try:
+        (l32, g32), t32 = timed(lambda: value_and_grad(lm, params, batch))
+    finally:
+        layers.COMPUTE_DTYPE = compute
+    got = (flash_mod.flash_attention.launches - fwd0,
+           flash_mod.flash_attention_bwd.launches - bwd0)
+    if got != (2 * GRAD_LAYERS, GRAD_LAYERS):
+        raise AssertionError(f"train (b) float32: flash launches {got}, "
+                             f"expected {(2 * GRAD_LAYERS, GRAD_LAYERS)}")
+    (l16, g16), t16 = timed(lambda: value_and_grad(lm, params, batch))
+    p64 = tree_map(lambda t: t.double(), params)
+    del params
+    plain = ops.flash_attention
+    layers.COMPUTE_DTYPE = layers.ACCUM_DTYPE = torch.float64
+    ops.flash_attention = (lambda q, k, v, causal=True, scale=None,
+                           bf16_scores=False:
+                           OracleAttention.apply(q, k, v, causal, scale))
+    try:
+        (l64, g64), t64 = timed(lambda: value_and_grad(lm, p64, batch))
+    finally:
+        layers.COMPUTE_DTYPE, layers.ACCUM_DTYPE = compute, accum
+        ops.flash_attention = plain
+    del p64
+    loss_rel = abs(float(l32) - float(l64)) / abs(float(l64))
+    ratios32, ratios16 = [], []
+    for a, c, w in zip(g32, g16, g64):
+        scale = float(w.abs().max())
+        ratios32.append(float((a.double() - w).abs().max()) / scale)
+        ratios16.append(float((c.double() - w).abs().max()) / scale)
+    out = dict(layers=GRAD_LAYERS, tokens=GRAD_BATCH * TRAIN_SEQ,
+               loss_f32=float(l32), loss_bf16=float(l16),
+               loss_f64=float(l64), loss_rel=loss_rel,
+               grad_ratio_f32=max(ratios32), grad_ratio_bf16=max(ratios16),
+               ratios_f32=ratios32, seconds=dict(f32=t32, bf16=t16, f64=t64))
+    log(f"train (b) on {card}: loss float32 {float(l32):.8f}, float64 "
+        f"{float(l64):.8f} (relative {loss_rel:.3e}, bound {LOSS_REL}), "
+        f"bf16 {float(l16):.8f}; largest |grad diff| / leaf max over "
+        f"{len(g64)} leaves: float32 {max(ratios32):.3e} (bound "
+        f"{GRAD_REL}), bf16 {max(ratios16):.3e} (a sanity reading); "
+        f"{t32:.2f} / {t16:.2f} / {t64:.2f} s")
+    if loss_rel > LOSS_REL or max(ratios32) > GRAD_REL:
+        raise AssertionError("train (b): the float32 gradients miss the "
+                             "float64 oracle")
+    return out
+
+
+def train_restart(card):
+    """(c) the reduced Yi-6B on the card for 6 steps, a checkpoint every
+    3; a fresh Trainer resumes at 6 with every parameter and AdamW state
+    leaf equal to the saved one bit for bit."""
+    import shutil
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenPipeline
+    from repro_torch.nn.model import LM
+    from repro_torch.optim import adamw
+    from repro_torch.train import Trainer
+    from repro_torch.tree import leaves
+
+    cfg = get_config("yi_6b", reduced=True)
+    ckpt_dir = OUT_DIR / "train_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+
+    def trainer():
+        return Trainer(LM(cfg), adamw(1e-3),
+                       TokenPipeline(cfg.vocab, RESTART_SEQ, 4),
+                       checkpoint_dir=str(ckpt_dir),
+                       checkpoint_every=RESTART_EVERY)
+
+    first = trainer()
+    run = first.run(torch.Generator(device=first.model.device).manual_seed(0),
+                    RESTART_STEPS, log_every=0)
+    fresh = trainer()
+    params, state, start = fresh.restore_or_init(
+        torch.Generator(device=fresh.model.device).manual_seed(9))
+    saved = leaves((run["params"], run["opt_state"]))
+    same = [torch.equal(a, b) and a.device == b.device
+            for a, b in zip(leaves((params, state)), saved)]
+    losses = [h["loss"] for h in run["history"]]
+    out = dict(steps=fresh.ckpt.list_steps(), resumed_at=start,
+               leaves=len(saved), equal=sum(same), losses=losses)
+    log(f"train (c) on {card}: reduced {cfg.name}, checkpoints at "
+        f"{out['steps']}, a fresh Trainer resumes at {start}, {sum(same)} "
+        f"of {len(saved)} leaves equal bit for bit; losses {losses}")
+    if start != RESTART_STEPS or not all(same) or \
+            out["steps"] != [RESTART_EVERY, RESTART_STEPS]:
+        raise AssertionError(f"train (c): restart failed: {out}")
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    return out
+
+
+def train_guard():
+    """(d) a kernel with no backward refuses an operand that requires
+    grad, before it launches."""
+    from repro_torch.kernels import moe_dispatch as moe_mod
+    from repro_torch.kernels import ops
+    from repro_torch.nn.model import resolve
+
+    dev = resolve("cuda")
+    x = torch.randn(64, 2048, device=dev, requires_grad=True)
+    idx = torch.arange(64, dtype=torch.int32, device=dev)
+    gates = torch.ones(64, device=dev)
+    before = moe_mod.moe_dispatch.launches
+    expect_raise(NotImplementedError, lambda: ops.moe_dispatch(x, idx, gates),
+                 "train (d): moe_dispatch with an operand requiring grad")
+    if moe_mod.moe_dispatch.launches != before:
+        raise AssertionError("train (d): the guard launched the kernel")
+    log("train (d): moe_dispatch with an operand that requires grad raised "
+        "NotImplementedError before any launch")
+    return dict(raised=True)
+
+
+def held_bytes() -> int:
+    """Device bytes still allocated once garbage is collected and cuBLAS's
+    workspaces are let go, as PyTorch's own leak check reads them: cuBLAS
+    takes a workspace from the caching allocator for each handle and
+    stream, and the autograd engine's device thread has a handle of its
+    own."""
+    gc.collect()
+    torch._C._cuda_clearCublasWorkspaces()
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_allocated()
+
+
+def train_path(counters, result):
+    """Phase 11; frees everything it allocates (fails otherwise).  Returns
+    (a)'s launches."""
+    card = result["card"]
+    held = held_bytes()
+    t0 = time.perf_counter()
+    out = {"trainer": train_trainer(counters, card)}
+    torch.cuda.empty_cache()
+    out["gradients"] = train_gradients(card)
+    torch.cuda.empty_cache()
+    out["restart"] = train_restart(card)
+    out["guard"] = train_guard()
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["wall_s"] = time.perf_counter() - t0
+    workspaces = torch.cuda.memory_allocated() - held
+    left = held_bytes() - held
+    out["memory"] = dict(allocated_before=held, cublas_workspaces=workspaces,
+                         left=left)
+    log(f"train: phase 11 in {out['wall_s']:.1f} s; {held} B allocated "
+        f"before it, {workspaces} B more after it, all of them cuBLAS "
+        f"workspaces but {left} B")
+    if left:
+        raise AssertionError(f"train: phase 11 left {left} B allocated")
+    result["train"] = out
+    return out["trainer"]["launches"]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to drive", file=sys.stderr)
@@ -3174,6 +3686,8 @@ def main() -> int:
         "onehot_embed": lambda: check_onehot(onehot_embed, data, report),
         "moe_dispatch": lambda: check_moe_dispatch(moe_dispatch, report),
         "flash_attention": lambda: check_flash(flash_attention, report),
+        "flash_attention_bwd": lambda: check_flash_bwd(flash_attention,
+                                                       report),
         "rwkv6_scan": lambda: check_rwkv6(rwkv6_scan, report)}
     kernels_only = sys.argv[1:2] == ["--kernels"]
     unknown = set(sys.argv[2:]) - set(checks)
@@ -3205,13 +3719,15 @@ def main() -> int:
                 "onehot_embed": onehot_embed.onehot_embed,
                 "moe_dispatch": moe_dispatch.moe_dispatch,
                 "flash_attention": flash_attention.flash_attention,
+                "flash_attention_bwd": flash_attention.flash_attention_bwd,
                 "rwkv6_scan": rwkv6_scan.rwkv6_scan}
     launches = main_path(counters, core, nn2sql, data_mod, result)
     profile_step(counters, core, nn2sql, data_mod, result)
     # each kernel's launches on the path that runs it: kernels 1-3 on the
     # paper's pipeline (phase 3), flash_attention on Yi-6B's serving path
     # (phase 5), rwkv6_scan on RWKV-6's (phase 6), moe_dispatch on
-    # DeepSeek-V2-Lite's (phase 7)
+    # DeepSeek-V2-Lite's (phase 7), flash_attention_bwd on Yi-6B's training
+    # path (phase 11)
     launches["flash_attention"] = serve_path(counters, result)[
         "flash_attention"]
     launches["rwkv6_scan"] = serve_rwkv(counters, result)["rwkv6_scan"]
@@ -3220,6 +3736,8 @@ def main() -> int:
     serve_zamba(counters, result)
     in_database(counters, core, nn2sql, data_mod, result)
     db_tier(counters, core, nn2sql, data_mod, result)
+    launches["flash_attention_bwd"] = train_path(counters, result)[
+        "flash_attention_bwd"]
 
     line = {"kernels": [
         {k: r[k] for k in ("name", "route", "source", "replaces")}

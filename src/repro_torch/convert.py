@@ -33,3 +33,16 @@ def to_numpy(tensors: dict) -> dict:
     return {k: to_numpy(v) if isinstance(v, dict)
             else (v.float() if v.dtype == torch.bfloat16 else v)
             .detach().cpu().numpy() for k, v in tensors.items()}
+
+
+def from_jax_opt_state(state, device="cuda"):
+    """An optimizer state of the JAX package → the port's, on ``device``:
+    ``adamw``'s {"m", "v", "t", "master"?} tree for tree (``t`` an int32
+    scalar tensor), ``sgd``'s ``()`` as it is."""
+    return () if state == () else from_jax_params(state, device)
+
+
+def to_jax_opt_state(state):
+    """The port's optimizer state → numpy arrays the JAX package's
+    ``update`` takes (``()`` stays ``()``)."""
+    return () if state == () else to_numpy(state)

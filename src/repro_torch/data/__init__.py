@@ -1,4 +1,7 @@
-"""Data pipeline: the paper's datasets (synthetic, shape-faithful)."""
-from .pipeline import make_iris, make_mnist_like, one_hot_labels, replicate
+"""Data pipeline: the paper's datasets (synthetic, shape-faithful) and
+the LM token streams."""
+from .pipeline import (TokenPipeline, make_iris, make_mnist_like,
+                       one_hot_labels, replicate, stub_frontend_batch)
 
-__all__ = ["make_iris", "make_mnist_like", "one_hot_labels", "replicate"]
+__all__ = ["TokenPipeline", "make_iris", "make_mnist_like", "one_hot_labels",
+           "replicate", "stub_frontend_batch"]

@@ -9,6 +9,9 @@ keeps three digits; a pre-pass splits K and V once into a scratch buffer
 that this wrapper allocates, then TMA streams the parts).  The sources say
 why and what bounds each.  Both replace the Pallas TPU kernel
 ``repro.kernels.flash_attention``; ``plain`` is their PyTorch twin.
+``flash_attention_bwd`` is the gradient (``csrc/flash_attention_bwd.cu``,
+float32 arithmetic for both types; plain twin ``plain_bwd``): the Pallas
+kernel has none, and the JAX package differentiates its jnp twin.
 
 q (B, Hq, S, D), k (B, Hkv, S, D) and v (B, Hkv, S, Dv), all float32 or
 all bfloat16, Hq a multiple of Hkv, (D, Dv) in ``HEAD_DIMS`` (Dv = D, or
@@ -127,3 +130,78 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 flash_attention.launches = 0
+
+plain_bwd = ref.flash_attention_bwd
+_BWD_ARGS = [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P,
+             ctypes.c_float, _I, _I, _P, _I, _P]
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        do: torch.Tensor, causal: bool = True,
+                        scale: float | None = None
+                        ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) of ``flash_attention`` at (q, k, v) for the output's
+    gradient ``do`` (B, Hq, S, Dv): the kernel of
+    ``csrc/flash_attention_bwd.cu`` (SIMT float32, three launches: the
+    pre-pass of each query row's logsumexp and Δ = Σ P·dP into a scratch
+    this wrapper allocates, then dK/dV a key tile, then dQ a query tile).
+    All four operands float32 or all bf16, on one CUDA device, with unit
+    stride in the last axis; batch, head and sequence strides are read as
+    they are.  The gradients come back contiguous in the operands' type,
+    the derivative of ``plain(..., bf16_scores=False)``; its plain twin is
+    ``plain_bwd``."""
+    ops_ = (q, k, v, do)
+    dev = q.device
+    if dev.type != "cuda" or any(t.device != dev for t in ops_):
+        raise ValueError("flash_attention_bwd kernel: q, k, v, do on one "
+                         "CUDA device, got "
+                         f"{[str(t.device) for t in ops_]}")
+    if q.dtype not in _LIBS or any(t.dtype != q.dtype for t in ops_):
+        raise TypeError("flash_attention_bwd kernel: q, k, v, do all "
+                        "float32 or all bfloat16, got "
+                        f"{[t.dtype for t in ops_]}")
+    if any(t.dim() != 4 for t in ops_) or k.shape[:3] != v.shape[:3]:
+        raise ValueError(f"flash_attention_bwd kernel: q {tuple(q.shape)}, "
+                         f"k {tuple(k.shape)}, v {tuple(v.shape)}")
+    b, hq, s, d = q.shape
+    hkv, dv = k.shape[1], v.shape[3]
+    if (k.shape[0], k.shape[2], k.shape[3]) != (b, s, d) or hkv == 0 \
+            or hq % hkv:
+        raise ValueError(f"flash_attention_bwd kernel: q {tuple(q.shape)} "
+                         f"and k/v {tuple(k.shape)} are not GQA-compatible")
+    if do.shape != (b, hq, s, dv):
+        raise ValueError(f"flash_attention_bwd kernel: do {tuple(do.shape)}"
+                         f", expected {(b, hq, s, dv)}")
+    if (d, dv) not in HEAD_DIMS:
+        raise ValueError(f"flash_attention_bwd kernel: head dims (q/k {d}, "
+                         f"v {dv}) not in {HEAD_DIMS}")
+    if any(t.stride(-1) != 1 for t in ops_):
+        raise ValueError("flash_attention_bwd kernel: unit stride in D")
+    if b * hq > 65535:
+        raise ValueError("flash_attention_bwd kernel: sizes beyond the grid")
+    dq = torch.empty(q.shape, dtype=q.dtype, device=dev)
+    dk = torch.empty(k.shape, dtype=q.dtype, device=dev)
+    dv_ = torch.empty(v.shape, dtype=q.dtype, device=dev)
+    if dq.numel() == 0:
+        return dq, dk.zero_(), dv_.zero_()
+    if scale is None:
+        scale = d ** -0.5
+    strides = (ctypes.c_longlong * 12)(*(st for t in ops_
+                                         for st in _strides(t)))
+    lib = build.library("flash_attention_bwd",
+                        {"flash_attention_bwd_launch": _BWD_ARGS})
+    device, stream = build.device_and_stream(q)
+    # the logsumexp and Delta of every query row, float32; freed after the
+    # call, which is safe on the stream that the kernels run on
+    scratch = torch.empty(2 * b * hq * s, dtype=torch.float32, device=dev)
+    build.check(lib.flash_attention_bwd_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        dq.data_ptr(), dk.data_ptr(), dv_.data_ptr(), b, hq,
+        hkv, s, d, dv, ctypes.addressof(strides), float(scale),
+        int(bool(causal)), int(q.dtype == torch.bfloat16),
+        scratch.data_ptr(), device, stream), "flash_attention_bwd")
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv_
+
+
+flash_attention_bwd.launches = 0

@@ -67,6 +67,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Dense-softmax attention. q: (B, Hq, S, D); k: (B, Hkv, S, D); v:
     (B, Hkv, S, Dv) with Hq a multiple of Hkv (GQA: K/V repeated per
     query-head group); the scale defaults to D ** -0.5 (q's head dim).
+    Scores and sums in float32 (float64 where q is, an oracle free of
+    float32 rounding).
 
     ``bf16_scores`` takes the numerics of the bf16 kernel and of the JAX
     package's ``attend_flash(..., bf16_scores=True)``: q, k, v rounded to
@@ -79,24 +81,62 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if scale is None:
         scale = d ** -0.5
     out_dtype = q.dtype
+    acc = torch.promote_types(q.dtype, torch.float32)
     if bf16_scores:
         q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
     k = k.repeat_interleave(group, dim=1)
     v = v.repeat_interleave(group, dim=1)
-    logits = torch.einsum("bhqd,bhkd->bhqk", q.to(torch.float32),
-                          k.to(torch.float32)) * scale
+    logits = torch.einsum("bhqd,bhkd->bhqk", q.to(acc), k.to(acc)) * scale
     if causal:
         mask = torch.ones((s, s), dtype=torch.bool, device=q.device).tril()
         logits = torch.where(mask, logits, -1e30)
     if bf16_scores:
         p = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
-        p = p.to(torch.bfloat16).to(torch.float32)
-        out = torch.einsum("bhqk,bhkd->bhqd", p, v.to(torch.float32))
+        p = p.to(torch.bfloat16).to(acc)
+        out = torch.einsum("bhqk,bhkd->bhqd", p, v.to(acc))
         out = out / p.sum(dim=-1, keepdim=True)
     else:
         probs = torch.softmax(logits, dim=-1)
-        out = torch.einsum("bhqk,bhkd->bhqd", probs, v.to(torch.float32))
+        out = torch.einsum("bhqk,bhkd->bhqd", probs, v.to(acc))
     return out.to(out_dtype)
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        do: torch.Tensor, causal: bool = True,
+                        scale: float | None = None
+                        ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) of ``flash_attention(q, k, v, causal, scale)`` (with
+    ``bf16_scores=False``) for the output gradient ``do``: the explicit
+    formula, in float32 (float64 where the operands are).  P the masked
+    softmax of scale q kᵀ, dV = Pᵀ dO, dP = dO vᵀ, Δ = rowsum(P ∘ dP),
+    dS = P ∘ (dP − Δ), dQ = scale dS k and dK = scale dSᵀ q; a KV head's
+    dK and dV sum over its query-head group.  Each gradient in its
+    operand's type.  (Δ from P and dP, not from the forward's output: the
+    kernel's reasons are in ``csrc/flash_attention_bwd.cu``.)"""
+    b, hq, s, d = q.shape
+    hkv = k.shape[1]
+    group = hq // hkv
+    if scale is None:
+        scale = d ** -0.5
+    acc = torch.promote_types(q.dtype, torch.float32)
+    qf, kf, vf, dof = (t.to(acc) for t in (q, k, v, do))
+    kf = kf.repeat_interleave(group, dim=1)
+    vf = vf.repeat_interleave(group, dim=1)
+    logits = torch.einsum("bhqd,bhkd->bhqk", qf, kf) * scale
+    if causal:
+        mask = torch.ones((s, s), dtype=torch.bool, device=q.device).tril()
+        logits = torch.where(mask, logits, -1e30)
+    p = torch.softmax(logits, dim=-1)
+    del logits                   # (B, Hq, S, S): keep few of them alive
+    dv_full = torch.einsum("bhqk,bhqd->bhkd", p, dof)
+    ds = torch.einsum("bhqd,bhkd->bhqk", dof, vf)              # dP
+    ds.sub_((p * ds).sum(dim=-1, keepdim=True)).mul_(p)
+    del p
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, kf) * scale
+    dk_full = torch.einsum("bhqk,bhqd->bhkd", ds, qf) * scale
+    dk = dk_full.reshape(b, hkv, group, s, d).sum(dim=2)
+    dv = dv_full.reshape(b, hkv, group, s, v.shape[-1]).sum(dim=2)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -45,15 +45,31 @@ shared block's full-sequence attention is the flash kernel at head dim
 80.  ``decode_step`` writes the step's K/V (MLA: latent and rope key), or
 the recurrent families' new states, into ``cache`` in place (the JAX
 version returns a new cache), so serving holds one cache, not two.
+
+Training: ``loss_fn(params, batch) → (loss, {"ce", "aux"})`` with
+``cfg.loss_impl`` "full", "onehot" or "chunked" (vocab-streamed), the JAX
+package's functions.  ``cfg.remat="full"`` recomputes each layer body of
+``backbone`` in the backward pass (``torch.utils.checkpoint``, as JAX
+wraps it in ``jax.checkpoint``), "none" keeps its activations.  On the
+card the dense families train through both flash kernels: the forward
+kernels, and ``flash_attention_bwd`` for the gradient.  The other kernels
+have no backward yet and raise when an operand requires grad
+(``kernels/ops.py``), so the moe family with ``impl="sort"`` and the ssm
+family train on the CPU only, through the plain versions.  Every layer
+loop unbinds the stacked leaves once (``_layers``) rather than indexing
+them layer by layer: under autograd, ``leaf[i]`` would build a zero
+gradient of the whole (L, ...) leaf for every layer.
 """
 from __future__ import annotations
 
 from typing import Any
 
 import torch
+import torch.utils.checkpoint
 
 from ..configs.base import ArchConfig
 from ..device import resolve
+from ..tree import leaves
 from . import layers as L
 from . import moe as M
 from . import ssm as S
@@ -65,6 +81,9 @@ _LATER = {
                  "item 12",
     "flash_impl": "flash_impl='scan' comes with ROADMAP.md queue 1, item 12 "
                   "(attend_flash_scan)",
+    "remat": "remat='dots' (save the matrix products, recompute the rest) "
+             "comes with ROADMAP.md queue 1, item 18, the dry-run that sets "
+             "it",
 }
 
 
@@ -77,10 +96,13 @@ def _moe_cfg(cfg: ArchConfig) -> M.MoEConfig:
         router_softmax=m.router_softmax, impl=m.impl)
 
 
-def _index(tree, i: int):
-    """One layer's parameters: leaf[i] of every leaf of a stacked tree."""
-    return {k: _index(v, i) if isinstance(v, dict) else v[i]
-            for k, v in tree.items()}
+def _layers(tree) -> list[dict]:
+    """Each layer's parameters of a stacked tree, every leaf unbound once
+    along its L axis: the same views as ``leaf[i]``, and under autograd
+    one backward that stacks the layers' gradients in one pass."""
+    unbound = _map(lambda a: a.unbind(0), tree)
+    return [_map(lambda parts: parts[i], unbound)
+            for i in range(_depth(tree))]
 
 
 def _depth(tree) -> int:
@@ -338,11 +360,25 @@ class LM:
         ``body(carry, layer_params, *per_layer_slices) → (carry, y)``;
         returns the carry and the list of ``y``."""
         ys = []
-        for i in range(_depth(stacked)):
-            carry, y = body(carry, _index(stacked, i),
-                            *(a[i] for a in per_layer))
+        for i, lp in enumerate(_layers(stacked)):
+            carry, y = body(carry, lp, *(a[i] for a in per_layer))
             ys.append(y)
         return carry, ys
+
+    def _remat(self, fn, lp, x):
+        """``fn(lp, x)``, a layer body over its parameters ``lp``, under
+        ``cfg.remat``: "full" recomputes it in the backward pass
+        (non-reentrant ``torch.utils.checkpoint``), "none" runs it plain.
+        Where autograd records nothing (serving) it runs plain either way.
+        ``lp`` goes in as an argument, never through a closure: the
+        recompute runs after the layer loop has moved on."""
+        if self.cfg.remat == "dots":
+            raise NotImplementedError(_LATER["remat"])
+        if self.cfg.remat == "none" or not torch.is_grad_enabled() or not (
+                x.requires_grad or any(t.requires_grad for t in leaves(lp))):
+            return fn(lp, x)
+        return torch.utils.checkpoint.checkpoint(fn, lp, x,
+                                                 use_reentrant=False)
 
     # ------------------------------------------------------------- forward
     def _rope_dim(self) -> int:
@@ -372,7 +408,8 @@ class LM:
 
         def body(carry, lp):
             xx, aux = carry
-            out, a, _ = self._block(lp, xx, cos, sin)
+            out, a = self._remat(
+                lambda p, h: self._block(p, h, cos, sin)[:2], lp, xx)
             return (out, aux + a), None
 
         carry = (x, torch.zeros((), dtype=torch.float32, device=x.device))
@@ -396,6 +433,7 @@ class LM:
         x0 = x
         mamba, attn = (None, None) if cache is None else cache
         period = self.cfg.shared_attn_every
+        layers = _layers(params["layers"])
         states, kvs = [], []
         for seg in range(self.cfg.n_layers // period):
             x, kv = self._shared_block(
@@ -405,9 +443,10 @@ class LM:
                 pos=pos)
             kvs.append(kv)
             for i in range(seg * period, (seg + 1) * period):
-                lp = _index(params["layers"], i)
+                lp = layers[i]
                 if cache is None:
-                    x, _, st = self._block(lp, x, cos, sin)
+                    x, _, st = self._remat(
+                        lambda p, h: self._block(p, h, cos, sin), lp, x)
                     states.append(st)
                 else:
                     conv, h = mamba[0][i], mamba[1][i]
@@ -429,6 +468,57 @@ class LM:
         h = h + attn_out
         h = h + L.swiglu(p["mlp"], L.rmsnorm(p["norm2"], h))
         return x + h, kv
+
+    # ------------------------------------------------------------- training
+    def loss_fn(self, params, batch):
+        """Mean next-token cross-entropy over ``batch["labels"]`` plus 0.01 ×
+        the MoE load-balance loss: (loss, {"ce", "aux"}).  The logits and
+        the loss are in ``layers.ACCUM_DTYPE`` (float32, as in JAX)."""
+        if self.cfg.loss_impl == "chunked":
+            return self._loss_chunked(params, batch)
+        logits, aux = self.forward(params, batch)
+        labels = batch["labels"].long()
+        logits = logits.to(L.ACCUM_DTYPE)
+        lse = torch.logsumexp(logits, dim=-1)
+        if self.cfg.loss_impl == "onehot":
+            # the gold logit by a masked sum, as the JAX package takes it
+            # (there: no gather across a vocab-sharded axis)
+            vpos = torch.arange(logits.shape[-1], device=logits.device)
+            gold = torch.sum(torch.where(vpos == labels[..., None], logits,
+                                         0.0), dim=-1)
+        else:
+            gold = torch.gather(logits, -1, labels[..., None])[..., 0]
+        ce = torch.mean(lse - gold)
+        return ce + 0.01 * aux, {"ce": ce, "aux": aux}
+
+    def _loss_chunked(self, params, batch):
+        """Vocab-streamed cross-entropy: the (B,S,V) logits are never held
+        whole — logsumexp and the gold logit accumulate over chunks of
+        ``cfg.loss_chunk`` vocabulary columns."""
+        cfg = self.cfg
+        x, aux = self.backbone(params, batch)
+        norm = L.rmsnorm if cfg.norm == "rmsnorm" else L.layernorm
+        xn = norm(params["final_norm"], x)
+        head = (params["embed"].T if cfg.tie_embeddings
+                else params["lm_head"])
+        labels = batch["labels"].long()
+        acc = L.ACCUM_DTYPE
+        run_max = torch.full(labels.shape, -1e30, dtype=acc, device=x.device)
+        run_se = torch.zeros(labels.shape, dtype=acc, device=x.device)
+        gold = torch.zeros(labels.shape, dtype=acc, device=x.device)
+        for lo in range(0, cfg.vocab, cfg.loss_chunk):
+            hi = min(cfg.vocab, lo + cfg.loss_chunk)
+            lc = (xn @ head[:, lo:hi].to(xn.dtype)).to(acc)
+            m_new = torch.maximum(run_max, lc.amax(dim=-1))
+            run_se = (run_se * torch.exp(run_max - m_new)
+                      + torch.exp(lc - m_new[..., None]).sum(dim=-1))
+            run_max = m_new
+            in_rng = (labels >= lo) & (labels < hi)
+            idx = torch.clamp(labels - lo, 0, hi - lo - 1)
+            gval = torch.gather(lc, -1, idx[..., None])[..., 0]
+            gold = gold + torch.where(in_rng, gval, 0.0)
+        ce = torch.mean(torch.log(run_se) + run_max - gold)
+        return ce + 0.01 * aux, {"ce": ce, "aux": aux}
 
     # ------------------------------------------------------------- serving
     def init_cache(self, batch_size: int, max_len: int):

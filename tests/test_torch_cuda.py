@@ -744,3 +744,119 @@ def test_zoo_rwkv6_time_mix_in_sql_equals_rwkv6_scan_kernel(cuda):
                                atol=ZOO_TOL)
     np.testing.assert_allclose(sfin[0].cpu().numpy(), sfin_sql, rtol=0,
                                atol=ZOO_TOL)
+
+
+# ---------------------------------------------------------------------------
+# flash_attention_bwd: the gradient kernel against its plain version, whose
+# oracle runs in float64 on the same inputs (the kernel sums in float32: up
+# to group x S products a dK entry, in another order).  float32 at F32;
+# bf16 operands are widened exactly and the gradients rounded once to bf16,
+# so at most one bf16 ulp (2^-7 of the rounded value) beyond F32: BF16_BWD
+# (chip_smoke.py's BF16_BWD_TOL).
+# ---------------------------------------------------------------------------
+
+BF16_BWD = dict(rtol=8.1e-3, atol=2.1e-5)
+
+
+def bwd_inputs(rng, b, hq, hkv, s, d, dv, device, dtype):
+    q = rnd(rng, b, hq, s, d, device=device, dtype=dtype)
+    k = rnd(rng, b, hkv, s, d, device=device, dtype=dtype)
+    v = rnd(rng, b, hkv, s, dv, device=device, dtype=dtype)
+    do = rnd(rng, b, hq, s, dv, device=device, dtype=dtype)
+    return q, k, v, do
+
+
+def bwd_oracle(q, k, v, do, causal):
+    return [g.to(t.dtype) for g, t in zip(flash_mod.plain_bwd(
+        *(t.double() for t in (q, k, v, do)), causal=causal), (q, k, v))]
+
+
+@pytest.mark.parametrize("d,dv", flash_mod.HEAD_DIMS)
+@pytest.mark.parametrize("s", [1, 63, 64, 65, 200])
+@pytest.mark.parametrize("group", [1, 4])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_bwd_kernel(cuda, d, dv, s, group, causal, dtype):
+    """Every head-dim pair, the 64-row tile edges and a ragged S, one and
+    four query heads a KV head, both types; one count a call."""
+    rng = np.random.RandomState(d + dv + s + group)
+    q, k, v, do = bwd_inputs(rng, 2, 2 * group, 2, s, d, dv, cuda, dtype)
+    before = flash_mod.flash_attention_bwd.launches
+    got = flash_mod.flash_attention_bwd(q, k, v, do, causal=causal)
+    assert flash_mod.flash_attention_bwd.launches == before + 1
+    tol = F32 if dtype == torch.float32 else BF16_BWD
+    for name, g, w, t in zip("qkv", got, bwd_oracle(q, k, v, do, causal),
+                             (q, k, v)):
+        assert g.dtype == dtype and g.shape == t.shape and g.is_contiguous()
+        torch.testing.assert_close(g.float(), w.float(), **tol,
+                                   msg=lambda m: f"d{name}: {m}")
+
+
+def test_flash_attention_bwd_kernel_is_deterministic(cuda):
+    """No atomics: two calls give the same bits."""
+    rng = np.random.RandomState(7)
+    q, k, v, do = bwd_inputs(rng, 2, 8, 2, 300, 128, 128, cuda,
+                             torch.float32)
+    first = flash_mod.flash_attention_bwd(q, k, v, do)
+    second = flash_mod.flash_attention_bwd(q, k, v, do)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_bwd_kernel_takes_head_split_views(cuda, dtype):
+    """(B, S, H, D) projections viewed as (B, H, S, D), and a dO of the
+    same layout, read through their strides."""
+    rng = np.random.RandomState(11)
+    q, k, v, do = (rnd(rng, 2, 100, h, 64, device=cuda, dtype=dtype
+                       ).transpose(1, 2) for h in (8, 2, 2, 8))
+    got = flash_mod.flash_attention_bwd(q, k, v, do)
+    want = bwd_oracle(q, k, v, do, True)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(
+            g.float(), w.float(),
+            **(F32 if dtype == torch.float32 else BF16_BWD))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bf16_scores", [False, True])
+def test_flash_attention_autograd_on_the_card(cuda, dtype, bf16_scores):
+    """ops.flash_attention under autograd: one forward and one backward
+    launch, the gradients those of the plain version's autograd on the
+    operands and dO the kernels were given (under ``bf16_scores`` q, k, v
+    and a float32 dO rounded to bf16; float32-P, whatever the forward
+    rounded)."""
+    rng = np.random.RandomState(5)
+    q, k, v, do = bwd_inputs(rng, 2, 8, 2, 130, 128, 128, cuda, dtype)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    fwd = flash_mod.flash_attention.launches
+    bwd = flash_mod.flash_attention_bwd.launches
+    out = ops.flash_attention(*leaves, bf16_scores=bf16_scores)
+    assert out.grad_fn is not None and out.dtype == dtype
+    got = torch.autograd.grad(out, leaves, do)
+    assert flash_mod.flash_attention.launches == fwd + 1
+    assert flash_mod.flash_attention_bwd.launches == bwd + 1
+    ops_ = [t.to(torch.bfloat16) if bf16_scores else t for t in (q, k, v)]
+    ref_leaves = [t.double().requires_grad_() for t in ops_]
+    want = torch.autograd.grad(
+        flash_mod.plain(*ref_leaves), ref_leaves,
+        do.to(ops_[0].dtype).double())
+    for g, w in zip(got, want):
+        torch.testing.assert_close(
+            g.float(), w.float(),
+            **(F32 if dtype == torch.float32 and not bf16_scores
+               else BF16_BWD))
+
+
+def test_kernels_without_a_backward_raise_on_the_card(cuda):
+    """moe_dispatch with an operand that requires grad raises before it
+    launches; under no_grad it runs."""
+    x = torch.randn(8, 64, device=cuda, requires_grad=True)
+    idx = torch.arange(8, dtype=torch.int32, device=cuda)
+    gates = torch.ones(8, device=cuda)
+    before = moe_mod.moe_dispatch.launches
+    with pytest.raises(NotImplementedError, match="MoE training"):
+        ops.moe_dispatch(x, idx, gates)
+    assert moe_mod.moe_dispatch.launches == before
+    with torch.no_grad():
+        ops.moe_dispatch(x, idx, gates)
+    assert moe_mod.moe_dispatch.launches == before + 1

@@ -56,7 +56,12 @@ def test_the_port_has_modules():
             "repro_torch/db/zoo/moe_to_sql.py",
             "repro_torch/db/zoo/rwkv_to_sql.py",
             "repro_torch/db/zoo/ssm_to_sql.py",
-            "repro_torch/serving/db_serve.py"} <= names
+            "repro_torch/serving/db_serve.py", "repro_torch/tree.py",
+            "repro_torch/optim/optimizers.py",
+            "repro_torch/optim/compression.py",
+            "repro_torch/checkpoint/checkpointer.py",
+            "repro_torch/train/trainer.py",
+            "repro_torch/launch/train.py"} <= names
 
 
 @pytest.mark.parametrize("path", PORT + [SMOKE],
