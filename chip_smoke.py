@@ -181,6 +181,7 @@ import re
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -511,18 +512,32 @@ def top_kernels(fn, n: int = 3) -> list[str]:
     return sorted(events, key=lambda k: -events[k]["ms"])[:n]
 
 
-def sass_opcodes(name: str) -> list[str]:
-    """The opcode of each instruction (``FFMA``, ``HFMA2.MMA``,
-    ``HGMMA.64x128x16.F32.BF16``, ...) in the SASS of the library built
-    from ``csrc/<name>.cu``."""
+def sass_functions(name: str) -> dict[str, list[str]]:
+    """The opcodes (``FFMA``, ``HFMA2.MMA``, ``HGMMA.64x128x16.F32.BF16``,
+    ...) of each kernel function in the SASS of the library built from
+    ``csrc/<name>.cu``, by mangled function name."""
     from repro_torch.kernels import build
     cuobjdump = Path(build._nvcc()).with_name("cuobjdump")
     sass = subprocess.run([str(cuobjdump), "--dump-sass",
                            str(build.target(name))], capture_output=True,
                           text=True, check=True, timeout=300).stdout
-    ops = (re.match(r"\s*/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?([A-Z][\w.]*)",
-                    line) for line in sass.splitlines())
-    return [m.group(1) for m in ops if m]
+    out, ops = {}, None
+    for line in sass.splitlines():
+        head = re.match(r"\s*Function : (\S+)", line)
+        if head:
+            ops = out.setdefault(head.group(1), [])
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?([A-Z][\w.]*)",
+                     line)
+        if m and ops is not None:
+            ops.append(m.group(1))
+    return out
+
+
+def sass_opcodes(name: str) -> list[str]:
+    """The opcode of each instruction in the SASS of the library built
+    from ``csrc/<name>.cu``, all its kernels together."""
+    return [op for ops in sass_functions(name).values() for op in ops]
 
 
 def check_fused(mod, data, report):
@@ -915,9 +930,16 @@ def check_flash(mod, report):
         f"{f32_library_kernels}, {out['f32_sdpa_ratio']:.2f} x SDPA")
 
 
+def short_name(name: str) -> str:
+    """A kernel's name without its return type, namespace and arguments,
+    cut to 40 characters."""
+    name = re.sub(r"^void ", "", name).replace("(anonymous namespace)::", "")
+    return re.sub(r"\(.*", "", name)[:40]
+
+
 def summary(events: dict) -> str:
     """Each device event's name (cut short) and milliseconds a call."""
-    return ", ".join(f"{name[:40]} {e['ms']:.4f} ms"
+    return ", ".join(f"{short_name(name)} {e['ms']:.4f} ms"
                      for name, e in events.items())
 
 
@@ -1076,10 +1098,57 @@ def bwd_flops(b, hq, s, d, dv, causal=True):
     return 2 * bwd_pairs(b, hq, s, causal) * (3 * d + 2 * dv)
 
 
-def bwd_design_flops(b, hq, s, d, dv, causal=True):
-    """What the kernel's design computes: S and dP in the pre-pass, S, dP,
-    dV and dK in the dK/dV kernel, S, dP and dQ in the dQ kernel."""
-    return 2 * bwd_pairs(b, hq, s, causal) * (5 * d + 4 * dv)
+def bwd_tile_pairs(b, hq, s, causal=True):
+    """Score pairs of the 64 x 64 tiles the kernel visits: whole tiles, the
+    diagonal's masked half and the ragged end of S included."""
+    n = -(-s // 64)
+    return b * hq * 64 * 64 * (n * (n + 1) // 2 if causal else n * n)
+
+
+def bwd_design_flops(b, hq, s, d, dv, dtype, causal=True):
+    """What the kernel's design computes on the tensor cores, 2 operations
+    a multiply-add over the pairs of the tiles it visits: S = q·kᵀ in both
+    walks of the dQ kernel and in the dV and the dK kernel, dP in the dQ
+    kernel's walks and the dK kernel, and dV, dK and dQ over the widths
+    their wgmmas run (whole slabs or blocks).  bf16: the three gradient
+    products twice (P and dS in two bf16 parts); float32: every product
+    three times (3xTF32), counted as TF32 operations."""
+    if dtype == torch.bfloat16:
+        def width(x):
+            slab = 64 if x >= 64 else 32
+            return -(-x // slab) * slab
+        per_pair = 4 * d + 3 * dv + 2 * (width(dv) + 2 * width(d))
+    else:
+        def width(x):
+            block = 64 if x % 64 == 0 else 32
+            return -(-x // block) * block
+        per_pair = 3 * (4 * d + 3 * dv + width(dv) + 2 * width(d))
+    return 2 * bwd_tile_pairs(b, hq, s, causal) * per_pair
+
+
+def check_bwd_sass() -> dict:
+    """Every product kernel of ``flash_attention_bwd`` (the bf16 and float32
+    dQ and dK/dV kernels of each head-dim pair) holds HGMMA instructions,
+    bf16 ones in the bf16 kernels and TF32 ones in the float32 kernels; the
+    only kernels without are the float32 split pre-pass's."""
+    funcs = sass_functions("flash_attention_bwd")
+    counts = {"bf16": 0, "tf32": 0}
+    for fn, ops in funcs.items():
+        kind = re.search(r"flash_bwd_(bf16|tf32)_(dq|dkdv)", fn)
+        kind = kind and kind.group(1)
+        if kind is None:
+            if not re.search(r"flash_bwd_split_(rows|t)", fn):
+                raise AssertionError(f"flash_attention_bwd: unexpected kernel "
+                                     f"{fn}")
+            continue
+        want = "BF16" if kind == "bf16" else "TF32"
+        n = sum(op.startswith("HGMMA") and want in op for op in ops)
+        if not n:
+            raise AssertionError(f"flash_attention_bwd: {fn} has no {want} "
+                                 "HGMMA instruction: not on the tensor cores")
+        counts[kind] += n
+    return dict(functions=len(funcs), hgmma_bf16=counts["bf16"],
+                hgmma_tf32=counts["tf32"])
 
 
 def bwd_bound(b, hq, hkv, s, d, dv, dtype, causal=True):
@@ -1175,14 +1244,24 @@ def check_flash_bwd(mod, report):
             row["bound_ms"], row["bound_by"] = bwd_bound(b, hq, hkv, s, d,
                                                          dv, dtype)
             flops = bwd_flops(b, hq, s, d, dv)
-            design = bwd_design_flops(b, hq, s, d, dv)
-            peak = BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS
+            if dtype == torch.float32:
+                # on the tensor cores: three TF32 products for each float32
+                # one (3xTF32), at the TF32 peak
+                row["tf32_bound_ms"] = 3 * flops / TF32_FLOPS * 1e3
+            design = bwd_design_flops(b, hq, s, d, dv, dtype)
+            # the design's operations run at the bf16 peak, or (float32,
+            # 3xTF32) at the TF32 one
+            peak = BF16_FLOPS if dtype == torch.bfloat16 else TF32_FLOPS
+            dev_ms = device_ms(row["device"])
             row |= dict(flops=flops, design_flops=design,
-                        design_ms=design / peak * 1e3,
-                        design_f32_ms=design / F32_FLOPS * 1e3,
+                        design_peak=peak, design_ms=design / peak * 1e3,
                         tflops=flops / row["ms"] * 1e-9,
                         design_tflops=design / row["ms"] * 1e-9,
-                        bound_share=row["bound_ms"] / row["ms"])
+                        design_share=design / peak * 1e3 / row["ms"],
+                        bound_share=row["bound_ms"] / row["ms"],
+                        sdpa_ratio=row["ms"] / row["library_ms"],
+                        device_share={k: e["ms"] / dev_ms
+                                      for k, e in row["device"].items()})
             if name == "yi_train" and dtype == torch.bfloat16:
                 # the forward's bf16 kernel rounds P before P V; the plain
                 # version (and JAX's attend_flash) keeps P in float32
@@ -1200,17 +1279,27 @@ def check_flash_bwd(mod, report):
                 f"ms: {summary(row['device'])}) = {row['tflops']:.1f} "
                 f"TFLOP/s least, {row['design_tflops']:.1f} TFLOP/s done; "
                 f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}), "
-                f"{row['bound_share']:.3f} of it; the design's "
-                f"{design / 1e12:.3f} TFLOP at the type's peak "
-                f"{row['design_ms']:.4f} ms, at float32 FFMA "
-                f"{row['design_f32_ms']:.4f} ms; plain {row['plain_ms']:.4f}"
-                f" ms; SDPA backward {row['library_ms']:.4f} ms "
-                f"{row['library_kernels']}")
+                f"{row['bound_share']:.3f} of it"
+                + (f", 3xTF32 bound {row['tf32_bound_ms']:.4f} ms"
+                   if "tf32_bound_ms" in row else "")
+                + "; the design's "
+                f"{design / 1e12:.3f} TFLOP on the tensor cores "
+                f"{row['design_ms']:.4f} ms at {peak / 1e12:.0f} TFLOP/s "
+                f"({row['design_share']:.3f} of it); plain "
+                f"{row['plain_ms']:.4f} ms; SDPA backward "
+                f"{row['library_ms']:.4f} ms {row['library_kernels']} "
+                f"({row['sdpa_ratio']:.2f} x); device shares "
+                + ", ".join(f"{short_name(k)} {v:.3f}"
+                            for k, v in row["device_share"].items()))
             del q, k, v, do
             torch.cuda.empty_cache()
     main = out["yi_train_bfloat16"]
     log(f"flash forward bf16 kernel vs the float32-P plain version at "
         f"{main['shape']}: max |err| {main['fwd_bf16_vs_f32p']:.3e}")
+    sass = check_bwd_sass()
+    log(f"SASS: flash_attention_bwd {sass['functions']} kernels, "
+        f"{sass['hgmma_bf16']} bf16 and {sass['hgmma_tf32']} TF32 HGMMA "
+        f"instructions, every product kernel on the tensor cores")
     report["flash_attention_bwd"] = dict(
         name="flash_attention_bwd", route="cuda",
         source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
@@ -1219,7 +1308,7 @@ def check_flash_bwd(mod, report):
         max_abs_err=main["max_abs_err_causal"], ms=main["ms"],
         plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
         bound_by=main["bound_by"], library_ms=main["library_ms"],
-        cases=out)
+        sass=sass, cases=out)
 
 
 RWKV_MAIN = (4, 64, 2000, 64)      # RWKV-6 7B prefill: B, H, S, N
@@ -3666,8 +3755,17 @@ def main() -> int:
     log(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
 
-    t_build = build.build()
-    log(f"build: {len(build.SOURCES)} kernels for sm_90a in {t_build:.1f} s")
+    # the backward kernel's source (the largest) in a thread of its own
+    # beside the rest, so that its own seconds are read
+    with ThreadPoolExecutor(2) as pool:
+        t_bwd = pool.submit(build.build, ["flash_attention_bwd"])
+        t_rest = pool.submit(build.build, [n for n in build.SOURCES
+                                           if n != "flash_attention_bwd"])
+        t_bwd, t_rest = t_bwd.result(), t_rest.result()
+    t_build = max(t_bwd, t_rest)
+    log(f"build: {len(build.SOURCES)} kernels for sm_90a in {t_build:.1f} s "
+        f"(flash_attention_bwd.cu {t_bwd:.1f} s, the other "
+        f"{len(build.SOURCES) - 1} {t_rest:.1f} s, in parallel)")
     for name in build.SOURCES:
         for line in build.build_log.get(name, "").splitlines():
             if "Used" in line or "spill" in line:
@@ -3707,7 +3805,8 @@ def main() -> int:
             f"{r['bound_ms']:.4f} ms ({r['bound_by']}), max |err| "
             f"{r['max_abs_err']:.3e}")
 
-    result = {"card": card, "build_s": t_build, "kernels": report}
+    result = {"card": card, "build_s": t_build, "build_bwd_s": t_bwd,
+              "kernels": report}
     if kernels_only:
         OUT_DIR.mkdir(exist_ok=True)
         (OUT_DIR / "chip_smoke_kernels.json").write_text(

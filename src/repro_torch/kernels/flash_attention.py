@@ -10,8 +10,10 @@ that this wrapper allocates, then TMA streams the parts).  The sources say
 why and what bounds each.  Both replace the Pallas TPU kernel
 ``repro.kernels.flash_attention``; ``plain`` is their PyTorch twin.
 ``flash_attention_bwd`` is the gradient (``csrc/flash_attention_bwd.cu``,
-float32 arithmetic for both types; plain twin ``plain_bwd``): the Pallas
-kernel has none, and the JAX package differentiates its jnp twin.
+also on wgmma + TMA, float32-grade in both types: bf16 splits P and dS into
+two bf16 parts, float32 runs 3xTF32 on split copies in a scratch buffer
+this wrapper allocates; plain twin ``plain_bwd``): the Pallas kernel has
+none, and the JAX package differentiates its jnp twin.
 
 q (B, Hq, S, D), k (B, Hkv, S, D) and v (B, Hkv, S, Dv), all float32 or
 all bfloat16, Hq a multiple of Hkv, (D, Dv) in ``HEAD_DIMS`` (Dv = D, or
@@ -59,6 +61,20 @@ def scratch_numel(b: int, hkv: int, s: int, d: int, dv: int) -> int:
     """Floats of the float32 kernel's scratch: K and V^T, each in TF32 hi
     and lo parts, V^T's rows padded to whole groups of 8 keys."""
     return 2 * b * hkv * (s * d + dv * (-(-s // 8) * 8))
+
+
+def bwd_scratch_numel(b: int, hq: int, hkv: int, s: int, d: int, dv: int,
+                      dtype: torch.dtype) -> int:
+    """Floats of the backward kernel's scratch: each query row's logsumexp
+    and Δ (S rounded up to whole 64-row tiles) and, for float32 operands,
+    the 3xTF32 split copies: q, k, v and dO in TF32 hi and lo rows, and qᵀ,
+    dOᵀ and kᵀ in hi and lo, transposed, S rounded up to 8."""
+    n = 2 * b * hq * (-(-s // 64) * 64)
+    if dtype == torch.float32:
+        s8 = -(-s // 8) * 8
+        n += 2 * s * (b * hq + b * hkv) * (d + dv)
+        n += 2 * s8 * (b * hq * (d + dv) + b * hkv * d)
+    return n
 
 
 def takes(t: torch.Tensor) -> bool:
@@ -141,15 +157,16 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         scale: float | None = None
                         ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dq, dk, dv) of ``flash_attention`` at (q, k, v) for the output's
-    gradient ``do`` (B, Hq, S, Dv): the kernel of
-    ``csrc/flash_attention_bwd.cu`` (SIMT float32, three launches: the
-    pre-pass of each query row's logsumexp and Δ = Σ P·dP into a scratch
-    this wrapper allocates, then dK/dV a key tile, then dQ a query tile).
-    All four operands float32 or all bf16, on one CUDA device, with unit
-    stride in the last axis; batch, head and sequence strides are read as
-    they are.  The gradients come back contiguous in the operands' type,
-    the derivative of ``plain(..., bf16_scores=False)``; its plain twin is
-    ``plain_bwd``."""
+    gradient ``do`` (B, Hq, S, Dv): the kernels of
+    ``csrc/flash_attention_bwd.cu`` on wgmma (dQ a query tile, after a
+    first walk that writes each query row's logsumexp and Δ = Σ P·dP into a
+    scratch this wrapper allocates; then dV and dK a key tile; float32
+    first splits its operands into the same scratch).  All four operands
+    float32 or all bf16, on one CUDA device, with unit stride in the last
+    axis and, in bf16, what TMA needs besides (``takes``); batch, head and
+    sequence strides are read as they are.  The gradients come back
+    contiguous in the operands' type, the derivative of ``plain(...,
+    bf16_scores=False)``; its plain twin is ``plain_bwd``."""
     ops_ = (q, k, v, do)
     dev = q.device
     if dev.type != "cuda" or any(t.device != dev for t in ops_):
@@ -177,6 +194,10 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"v {dv}) not in {HEAD_DIMS}")
     if any(t.stride(-1) != 1 for t in ops_):
         raise ValueError("flash_attention_bwd kernel: unit stride in D")
+    if not all(takes(t) for t in ops_):
+        raise ValueError("flash_attention_bwd kernel: bf16 operands need a "
+                         "16-byte-aligned base and batch, head and sequence "
+                         "strides of whole 16-byte units (TMA)")
     if b * hq > 65535:
         raise ValueError("flash_attention_bwd kernel: sizes beyond the grid")
     dq = torch.empty(q.shape, dtype=q.dtype, device=dev)
@@ -191,9 +212,11 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     lib = build.library("flash_attention_bwd",
                         {"flash_attention_bwd_launch": _BWD_ARGS})
     device, stream = build.device_and_stream(q)
-    # the logsumexp and Delta of every query row, float32; freed after the
-    # call, which is safe on the stream that the kernels run on
-    scratch = torch.empty(2 * b * hq * s, dtype=torch.float32, device=dev)
+    # the logsumexp and Delta of every query row, and float32's split
+    # copies; freed after the call, which is safe on the stream that the
+    # kernels run on
+    scratch = torch.empty(bwd_scratch_numel(b, hq, hkv, s, d, dv, q.dtype),
+                          dtype=torch.float32, device=dev)
     build.check(lib.flash_attention_bwd_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         dq.data_ptr(), dk.data_ptr(), dv_.data_ptr(), b, hq,

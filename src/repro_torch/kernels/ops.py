@@ -131,10 +131,11 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v = ctx.saved_tensors
-        if do.stride(-1) != 1:
-            do = do.contiguous()
-        dq, dk, dv = _flash_bwd_cuda(q, k, v, do.to(q.dtype),
-                                     causal=ctx.causal, scale=ctx.scale)
+        do = do.to(q.dtype)
+        if not _flash_takes(do):
+            do = do.clone(memory_format=torch.contiguous_format)
+        dq, dk, dv = _flash_bwd_cuda(q, k, v, do, causal=ctx.causal,
+                                     scale=ctx.scale)
         return dq, dk, dv, None, None
 
 

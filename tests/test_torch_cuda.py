@@ -802,6 +802,47 @@ def test_flash_attention_bwd_kernel_is_deterministic(cuda):
     assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
+def test_flash_attention_bwd_kernel_is_deterministic_in_bf16(cuda):
+    """No atomics in bf16 either: two calls give the same bits, at a GQA
+    group of 8 and many query tiles a key tile."""
+    rng = np.random.RandomState(8)
+    q, k, v, do = bwd_inputs(rng, 1, 16, 2, 700, 128, 128, cuda,
+                             torch.bfloat16)
+    first = flash_mod.flash_attention_bwd(q, k, v, do)
+    second = flash_mod.flash_attention_bwd(q, k, v, do)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.parametrize("how", ["odd stride", "unaligned base"])
+def test_flash_attention_autograd_copies_a_do_tma_cannot_read(cuda, how):
+    """A bf16 dO off TMA's 16-byte rules (a sequence stride of an odd
+    number of elements, or a base 2 bytes past a 16-byte boundary) reaches
+    the backward kernel through ops.flash_attention's autograd as a copy,
+    and the gradients are those of the plain version's autograd."""
+    rng = np.random.RandomState(13)
+    q, k, v, do = bwd_inputs(rng, 2, 8, 2, 130, 64, 64, cuda, torch.bfloat16)
+    if how == "odd stride":       # rows 65 elements apart
+        wide = torch.zeros(2, 8, 130, 65, dtype=torch.bfloat16, device=cuda)
+        wide[..., :64] = do
+        do = wide[..., :64]
+    else:                         # the flat buffer shifted by one element
+        flat = torch.zeros(do.numel() + 1, dtype=torch.bfloat16, device=cuda)
+        flat[1:] = do.reshape(-1)
+        do = flat[1:].view(do.shape)
+    assert not flash_mod.takes(do) and do.stride(-1) == 1
+    with pytest.raises(ValueError, match="TMA"):
+        flash_mod.flash_attention_bwd(q, k, v, do)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    bwd = flash_mod.flash_attention_bwd.launches
+    got = torch.autograd.grad(ops.flash_attention(*leaves), leaves, do)
+    assert flash_mod.flash_attention_bwd.launches == bwd + 1
+    ref_leaves = [t.double().requires_grad_() for t in (q, k, v)]
+    want = torch.autograd.grad(flash_mod.plain(*ref_leaves), ref_leaves,
+                               do.double())
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g.float(), w.float(), **BF16_BWD)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_bwd_kernel_takes_head_split_views(cuda, dtype):
     """(B, S, H, D) projections viewed as (B, H, S, D), and a dO of the
