@@ -25,7 +25,16 @@ Phases (any failure exits non-zero; nothing is caught and carried on past):
            b in bf16, bit for bit the result for its float32 widening, and
            DeepSeek-V2-Lite's MoE combine, 48,000 tuples into 8000 x 2048,
            with b in float32 and in bf16, beside the bf16 -> float32 copy
-           the MoE layer no longer makes; moe_dispatch: the profiler's
+           the MoE layer no longer makes, and the MoE layer's two backward
+           products at phase 12's microbatch (the combine's d ys into
+           61,440 slot rows, the dispatch's d x into 8192 token rows from
+           bf16 rows) on the transposed relations the autograd Functions
+           build; tuple_dot: a sweep of float32 and bf16 operands with
+           padding tuples and the gates' gradient of the MoE combine in
+           training (49,152 tuples, dOut 8192 x 2048 float32, the expert
+           rows 61,440 x 2048 bf16) against the plain version in float64
+           and float32, two calls equal bit for bit, timed beside
+           ``torch.sparse.sampled_addmm``; moe_dispatch: the profiler's
            device events of a call on the random slot layout and on the
            bucket-sorted one the MoE layer builds, a good call after a bad
            one, and the card's rate for writing the output alone (a
@@ -37,7 +46,9 @@ Phases (any failure exits non-zero; nothing is caught and carried on past):
            memcpy, and the C launcher's launch-and-wait alone;
            flash_attention_bwd: at Yi-6B's training microbatch as phase
            11 hands it over ((2, 32/4, 4096, 128) head-split views), at
-           its global batch (4, 32/4, 4096, 128), MLA's and Zamba2's,
+           its global batch (4, 32/4, 4096, 128), at MLA's training
+           microbatch as phase 12 hands it over ((2, 16, 4096, 192/128)),
+           MLA's prefill shape and Zamba2's,
            causal and full, float32 (F32_TOL) and bf16 (BF16_BWD_TOL: one
            bf16 ulp beyond it), against the plain backward in float64,
            two calls equal bit for bit, timed beside its bound, its
@@ -157,12 +168,29 @@ Phases (any failure exits non-zero; nothing is caught and carried on past):
            compute beside it as a reading; (c) the reduced Yi-6B on the card
            for 6 steps with a checkpoint every 3 under ``chiprun_out/``: a
            fresh Trainer resumes at 6, every parameter and AdamW leaf equal
-           bit for bit; (d) moe_dispatch refuses an operand that requires
-           grad before it launches.  The device bytes allocated after the
-           phase, cuBLAS's workspaces let go, must equal those before it.
+           bit for bit; (d) rwkv6_scan, the one card kernel on an LM path
+           with no backward, refuses an operand that requires grad before
+           it launches.  The device bytes allocated after the phase,
+           cuBLAS's workspaces let go, must equal those before it.
+12. moe-train MoE training on the full-width DeepSeek-V2-Lite cut to 5
+           layers (the dense first layer and 4 MoE layers, impl="sort";
+           2.84 B parameters, 45.4 GB of float32 weights, gradients and
+           AdamW moments), after phase 11: (a) ``Trainer`` as phase 11's
+           for 1 warm step and 3 more, the counts zeroed before and read
+           after: 20 flash_attention, 10 flash_attention_bwd, 16
+           moe_dispatch, 32 relational_matmul (16 forward, 16 backward)
+           and 8 tuple_dot launches a step; each step's wall and tokens/s,
+           the peak device memory, the dropped assignments of each layer
+           (the recompute must route as the forward did) and one profiled
+           step with each kernel's share; (b) on the dense layer and 1 MoE
+           layer at the same width, one microbatch, the loss and every
+           gradient leaf in float32 compute against float64 on the card
+           (attention through the plain versions, the MoE through ``ref``,
+           the routing pinned to the float32 run's experts), phase 11's
+           bound, bf16 beside it as a reading.  It frees all it allocates.
 
 ``python3 chip_smoke.py --kernels [name ...]`` runs phases 1 and 2 alone,
-for the named kernels (all seven without a name), and prints no result line:
+for the named kernels (all eight without a name), and prints no result line:
 two trees are compared on one card by running it in each, in turns.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
@@ -453,15 +481,193 @@ def check_relmm_combine(mod, report):
         f"the result for its float32 widening")
 
 
+# DeepSeek-V2-Lite's MoE layer in a training microbatch (phase 12): 2 x 4096
+# tokens in 4 groups of 2048, top-6: 49,152 assignments (token, slot, gate)
+# into 64 experts x 4 groups x 240 = 61,440 capacity slots of d_model 2048
+MOE_TRAIN = (8192, 6, 61440, 2048)
+
+
+def moe_train_relations(rng):
+    """The two relations ``nn/moe.py::_moe_sort`` builds at MOE_TRAIN, with
+    COMBINE_DROPPED of the assignments dropped: the combine's token-major
+    (row token, col its assignment's slot, value its gate; a dropped one
+    slot 0 with value 0) and the dispatch's (slot -> token with gate 1, or
+    token 0 with gate 0 where the slot is empty)."""
+    t, k, slots, _ = MOE_TRAIN
+    nnz = t * k
+    keep = rng.rand(nnz) >= COMBINE_DROPPED
+    cols = np.where(keep, rng.permutation(slots)[:nnz], 0)
+    rows = np.repeat(np.arange(t), k)
+    live = np.zeros(slots, bool)
+    live[cols[keep]] = True
+    src = np.zeros(slots, np.int64)
+    src[cols[keep]] = rows[keep]
+    as_i32 = lambda a: torch.tensor(a, dtype=torch.int32, device="cuda")
+    as_f32 = lambda a: torch.tensor(a, dtype=torch.float32, device="cuda")
+    return (as_i32(rows), as_i32(cols),
+            as_f32(np.where(keep, rng.rand(nnz), 0.0)), as_i32(src),
+            as_f32(live))
+
+
+def check_relmm_backward(mod, report):
+    """relational_matmul at the two products of the MoE layer's backward
+    (phase 12), on the transposed relations ``ops._transpose`` builds, as
+    the autograd Functions run them: d ys = Rᵀ · dOut of the combine (into
+    the 61,440 slot rows, dOut float32) and d x = Rᵀ · dBuf of the dispatch
+    (into the 8192 token rows, dBuf bf16).  Held against the plain version
+    in float64 at F32_TOL, b in bf16 bit for bit its float32 widening, and
+    timed beside the plain version, one ``torch.sparse.mm`` call (float32
+    b: it takes no bf16 beside float32 values) and the bound of the live
+    tuples."""
+    from repro_torch.kernels import ops
+    rng = np.random.RandomState(50)
+    t, _, slots, d = MOE_TRAIN
+    rows, cols, vals, src, live = moe_train_relations(rng)
+    arange = torch.arange(slots, dtype=torch.int32, device="cuda")
+    cases = {
+        "combine d ys": (ops._transpose(rows, cols, vals, t, slots),
+                         torch.tensor(rng.randn(t, d), dtype=torch.float32,
+                                      device="cuda"), slots),
+        "dispatch d x": (ops._transpose(arange, src, live, slots, t),
+                         torch.tensor(rng.randn(slots, d), dtype=torch.float32,
+                                      device="cuda").to(torch.bfloat16), t)}
+    out = {}
+    for what, ((r, c, v), b, m) in cases.items():
+        args = (r, c, v, b, m)
+        n_live = int((r < m).sum())
+        err = max_err(mod.relational_matmul(*args),
+                      mod.plain(r, c, v.double(), b.double(), m).float(),
+                      F32_TOL, f"relmm backward {what}")
+        same_bits(mod, r, c, v, b.float(), m, f"relmm backward {what}")
+        coo = torch.sparse_coo_tensor(
+            torch.stack([r[:n_live].long(), c[:n_live].long()]), v[:n_live],
+            (m, b.shape[0]), check_invariants=True).coalesce()
+        b32 = b.float()
+        named = int(torch.unique(c[:n_live]).numel())
+        bms, by = relmm_bound(n_live, named, m, d, b.element_size())
+        events = device_events(lambda: mod.relational_matmul(*args), 10)
+        row = dict(
+            shape=f"{r.numel()} tuples, {n_live} live, into {m}x{d} from "
+                  f"({b.shape[0]}x{d}) {str(b.dtype).removeprefix('torch.')}",
+            max_abs_err=err,
+            schedule=dataclasses.asdict(mod.schedule(m, b.shape[0], d,
+                                                     r.numel(), b.dtype)),
+            ms=time_ms(lambda: mod.relational_matmul(*args)),
+            device=events, device_ms=device_ms(events),
+            plain_ms=time_ms(lambda: mod.plain(*args), iters=5),
+            library_ms=time_ms(lambda: torch.sparse.mm(coo, b32)),
+            bound_ms=bms, bound_by=by)
+        out[what] = row
+        log(f"relational_matmul backward {what} ({row['shape']}, "
+            f"{row['schedule']['kind']}): {row['ms']:.4f} ms a call, device "
+            f"{row['device_ms']:.4f} ms in {events}, plain "
+            f"{row['plain_ms']:.4f} ms, torch.sparse.mm (float32 b) "
+            f"{row['library_ms']:.4f} ms, bound {bms:.4f} ms ({by}), max "
+            f"|err| {err:.3e}")
+    report["relational_matmul"]["backward"] = out
+
+
+def check_tuple_dot(mod, report):
+    """tuple_dot over a sweep of shapes (float32 and bf16 a and b, padding
+    tuples) and at the gates' gradient of the MoE combine in training
+    (MOE_TRAIN: 49,152 tuples, dOut 8192 x 2048 float32, the expert rows
+    61,440 x 2048 bf16), against the plain version in float64 and in
+    float32 at F32_TOL; two calls equal bit for bit.  a (dOut) is drawn
+    at d^-1/2 the scale of b, so each dot product is O(1), the scale
+    F32_TOL's atol was set for: at unit scale a sum of 2048 products is
+    about 45 in magnitude, and where it cancels near 0 float32's rounding
+    alone (the plain float32 version's as much as the kernel's) reaches
+    the atol.  Timed beside the plain
+    version, ``torch.sparse.sampled_addmm`` on the relation's distinct
+    (row, col) pairs as CSR (float32 rows: it takes no bf16) and the bytes
+    of the ids, of the distinct rows the tuples name and of the output."""
+    rng = np.random.RandomState(49)
+    dev = "cuda"
+    f32, b16 = torch.float32, torch.bfloat16
+    err = 0.0
+    for ma, mb, d, nnz in [(16, 24, 64, 100), (50, 40, 136, 300),
+                           (7, 9, 2048, 64)]:
+        rows = torch.tensor(np.r_[rng.randint(0, ma, nnz - 4), [ma] * 4],
+                            dtype=torch.int32, device=dev)
+        cols = torch.tensor(rng.randint(0, mb, nnz), dtype=torch.int32,
+                            device=dev)
+        for ta, tb in ((f32, f32), (f32, b16), (b16, f32), (b16, b16)):
+            a = torch.tensor(rng.randn(ma, d) * d ** -0.5, dtype=f32,
+                             device=dev).to(ta)
+            b = torch.tensor(rng.randn(mb, d), dtype=f32, device=dev).to(tb)
+            got = mod.tuple_dot(a, rows, b, cols)
+            err = max(err, max_err(
+                got, mod.plain(a.double(), rows, b.double(), cols).float(),
+                F32_TOL, f"tuple_dot {ma, mb, d, nnz} {ta} {tb}"))
+            if got[-4:].any():
+                raise AssertionError("tuple_dot: a padding tuple is not 0")
+    t, _, slots, d = MOE_TRAIN
+    rows, cols, _, _, _ = moe_train_relations(rng)
+    dout = torch.tensor(rng.randn(t, d) * d ** -0.5, dtype=f32, device=dev)
+    ys = torch.tensor(rng.randn(slots, d), dtype=f32, device=dev).to(b16)
+    args = (dout, rows, ys, cols)
+    got = mod.tuple_dot(*args)
+    err = max(err, max_err(
+        got, mod.plain(dout.double(), rows, ys.double(), cols).float(),
+        F32_TOL, "tuple_dot MoE gates, float64 plain"))
+    err32 = max_err(got, mod.plain(*args), F32_TOL,
+                    "tuple_dot MoE gates, float32 plain")
+    if not torch.equal(got, mod.tuple_dot(*args)):
+        raise AssertionError("tuple_dot: two calls differ")
+    pairs = torch.sparse_coo_tensor(
+        torch.stack([rows.long(), cols.long()]),
+        torch.ones(rows.numel(), dtype=f32, device=dev),
+        (t, slots), check_invariants=True).coalesce()
+    csr = pairs.to_sparse_csr()
+    ys_t = ys.float().t()
+    sddmm = lambda: torch.sparse.sampled_addmm(csr, dout, ys_t, beta=0.0)
+    ci = pairs.indices()
+    lib_err = float((sddmm().values() - mod.plain(
+        dout, ci[0].int(), ys, ci[1].int())).abs().max())
+    nnz = rows.numel()
+    named_a = int(torch.unique(rows).numel())
+    named_b = int(torch.unique(cols).numel())
+    bms, by = bound_ms(12 * nnz + 4 * d * named_a + 2 * d * named_b,
+                       2 * nnz * d)
+    events = device_events(lambda: mod.tuple_dot(*args), 10)
+    r = dict(name="tuple_dot", route="cuda",
+             source="src/repro_torch/kernels/csrc/tuple_dot.cu",
+             replaces="none: the gradient of relational_matmul "
+                      "(src/repro/kernels/relational_matmul.py:61) with "
+                      "respect to its values and of moe_dispatch "
+                      "(src/repro/kernels/moe_dispatch.py:27) with respect "
+                      "to its gates, which JAX gets from jax.grad",
+             shape=f"{nnz} tuples, dOut ({t}x{d}) float32, ys ({slots}x{d}) "
+                   "bf16",
+             max_abs_err=err, max_abs_err_f32_plain=err32,
+             ms=time_ms(lambda: mod.tuple_dot(*args)),
+             device=events, device_ms=device_ms(events),
+             plain_ms=time_ms(lambda: mod.plain(*args), iters=5),
+             library_ms=time_ms(sddmm),
+             library="torch.sparse.sampled_addmm on the "
+                     f"{ci.shape[1]} distinct pairs as CSR, float32 ys",
+             library_max_abs_diff=lib_err,
+             bound_ms=bms, bound_by=by)
+    report["tuple_dot"] = r
+    log(f"tuple_dot at the MoE gates' gradient ({r['shape']}): max |err| "
+        f"{err:.3e} (float32 plain {err32:.3e}), two calls equal bit for "
+        f"bit; {r['ms']:.4f} ms a call, device {r['device_ms']:.4f} ms in "
+        f"{events}, plain {r['plain_ms']:.4f} ms, sampled_addmm "
+        f"{r['library_ms']:.4f} ms (max |diff| {lib_err:.3e}), bound "
+        f"{bms:.4f} ms ({by})")
+
+
 def profiled(fn, calls: int = 1, sessions: int = 3) -> list:
     """The device events of ``calls`` calls of ``fn`` under torch.profiler,
-    in order.  The session runs ``fn`` once first, then three marker
-    kernels (``torch.cuda._sleep``), and keeps only the events after the
-    last marker it holds: on an H100 a session's first one or two device
-    events were at times missing from it (after an idle spell, or many
-    launches), and where ``fn`` is one kernel those can take the first
-    marker with them.  A session that holds none of its markers (seen
-    once, in the first session of a process) is run again, up to
+    in order.  The session runs ``fn`` once first, then three groups of
+    three marker kernels (``torch.cuda._sleep``), each group followed by a
+    synchronize and a 10 ms pause of the host, and keeps only the events
+    after the last marker it holds: on an H100 a session's first device
+    events were at times missing from it (one or two after an idle spell
+    or many launches; once, in all three sessions of a call, everything
+    before the calls: ``fn``'s run and a single group of markers), and
+    where ``fn`` is one kernel those can take the markers with them.  A
+    session that holds none of its markers is run again, up to
     ``sessions`` in all."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -471,8 +677,10 @@ def profiled(fn, calls: int = 1, sessions: int = 3) -> list:
             fn()
             torch.cuda.synchronize()
             for _ in range(3):
-                torch.cuda._sleep(1000)
-            torch.cuda.synchronize()
+                for _ in range(3):
+                    torch.cuda._sleep(1000)
+                torch.cuda.synchronize()
+                time.sleep(0.01)
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
@@ -1080,6 +1288,9 @@ def check_flash_zamba2(mod, sdpa):
 # forward at
 FLASH_TRAIN = (2, 32, 4, 4096, 128)
 FLASH_TRAIN_B4 = (4, 32, 4, 4096, 128)
+# DeepSeek-V2-Lite's MLA in phase 12's training microbatch: B, Hq, Hkv, S,
+# D, Dv, and no head-split views (torch.cat makes q and k contiguous there)
+FLASH_MLA_TRAIN = (2, 16, 16, 4096, 192, 128, False)
 # bf16 gradients: the kernel widens the operands exactly, sums in float32
 # (F32_TOL's error) and rounds each gradient once; the oracle is the
 # float64 answer rounded once.  So they lie at most one bf16 ulp (2^-7 of
@@ -1172,7 +1383,8 @@ def bwd_oracle(mod, q, k, v, do, causal):
 def check_flash_bwd(mod, report):
     """The gradient kernel against its plain version (float64 oracle) at
     Yi-6B's training microbatch as phase 11 hands it over (head-split
-    views), Yi-6B's global batch, MLA's and Zamba2's (head-split views),
+    views), Yi-6B's global batch, MLA's training microbatch as phase 12
+    hands it over, MLA's prefill shape and Zamba2's (head-split views),
     causal and full, float32 at F32_TOL and bf16 at BF16_BWD_TOL; two
     calls equal bit for bit; timed beside its bound, its design's count, the plain
     backward and one library call (the backward of SDPA alone, its forward
@@ -1200,6 +1412,7 @@ def check_flash_bwd(mod, report):
     # name: (B, Hq, Hkv, S, D, Dv, head-split views)
     cases = {"yi_train": FLASH_TRAIN + (128, True),
              "yi_b4": FLASH_TRAIN_B4 + (128, False),
+             "mla_train": FLASH_MLA_TRAIN,
              "mla": (4, 16, 16, 2000, 192, 128, False),
              "zamba2": (4, 32, 32, 2048, 80, 80, True)}
     out = {}
@@ -1436,7 +1649,8 @@ def main_path(counters, core, nn2sql, data_mod, result):
                 "fused_sigmoid_matmul": 2 * ITERS + 2,
                 "relational_matmul": 5 * ITERS + 2,
                 "moe_dispatch": 0, "flash_attention": 0,
-                "flash_attention_bwd": 0, "rwkv6_scan": 0}
+                "flash_attention_bwd": 0, "rwkv6_scan": 0,
+                "tuple_dot": 0}
     if launches != expected:
         raise AssertionError(f"launches {launches}, expected {expected}")
 
@@ -1488,10 +1702,13 @@ def main_path(counters, core, nn2sql, data_mod, result):
 # phase 4: where a training step's time goes
 # ---------------------------------------------------------------------------
 
-def device_profile(fn, wall_ms: float, what: str, card: str) -> dict:
+def device_profile(fn, wall_ms: float, what: str, card: str,
+                   groups: dict | None = None) -> dict:
     """One run of ``fn`` under torch.profiler (``profiled``): device time
     by kernel name, summed, over ``wall_ms`` (the same work timed without
-    the profiler) as the device's busy share."""
+    the profiler) as the device's busy share; with ``groups`` (label ->
+    regular expression on the kernel's name) also each group's device time
+    and share of the device time."""
     by_name, counts = {}, {}
     for e in profiled(fn):
         counts[e.name] = counts.get(e.name, 0) + 1
@@ -1524,10 +1741,18 @@ def device_profile(fn, wall_ms: float, what: str, card: str) -> dict:
     if n_events:
         log(f"  copies and casts: {copies_ms:.4f} ms in "
             f"{sum(counts[name] for name in copies)} events")
+    grouped = {}
+    for label, pattern in (groups or {}).items():
+        names = [n for n in by_name if re.search(pattern, n)]
+        ms = sum(by_name[n] for n in names)
+        grouped[label] = dict(ms=ms, share=ms / device if device else 0.0,
+                              events=sum(counts[n] for n in names))
+        log(f"  {label}: {ms:.4f} ms in {grouped[label]['events']} events, "
+            f"{grouped[label]['share']:.4f} of device time")
     return dict(wall_ms=wall_ms, device_ms=device,
                 busy_share=device / wall_ms, device_events=n_events,
                 top_ms=top, flash_ms=flash_ms, flash_bwd_ms=flash_bwd_ms,
-                copies_ms=copies_ms, counts=counts)
+                copies_ms=copies_ms, counts=counts, groups=grouped)
 
 
 def profile_step(counters, core, nn2sql, data_mod, result):
@@ -2911,7 +3136,7 @@ def in_database(counters, core, nn2sql, data_mod, result):
     expected = {"onehot_embed": 1, "fused_sigmoid_matmul": 2 * DB_ITERS,
                 "relational_matmul": 5 * DB_ITERS, "moe_dispatch": 0,
                 "flash_attention": 0, "flash_attention_bwd": 0,
-                "rwkv6_scan": 0}
+                "rwkv6_scan": 0, "tuple_dot": 0}
     if launches != expected:
         raise AssertionError(f"in-database (b) launches {launches}, "
                              f"expected {expected}")
@@ -3090,7 +3315,7 @@ def db_shard(counters, core, nn2sql, data_mod, card):
     expected = {"onehot_embed": 1, "fused_sigmoid_matmul": 2 * steps,
                 "relational_matmul": 5 * steps, "moe_dispatch": 0,
                 "flash_attention": 0, "flash_attention_bwd": 0,
-                "rwkv6_scan": 0}
+                "rwkv6_scan": 0, "tuple_dot": 0}
     if launches != expected:
         raise AssertionError(f"db-tier (a) launches {launches}, expected "
                              f"{expected}")
@@ -3329,7 +3554,7 @@ def db_zoo(counters, card):
     expected = {"onehot_embed": 0, "fused_sigmoid_matmul": 0,
                 "relational_matmul": 2, "moe_dispatch": 2,
                 "flash_attention": 0, "flash_attention_bwd": 0,
-                "rwkv6_scan": 1}
+                "rwkv6_scan": 1, "tuple_dot": 0}
     if launches != expected:
         raise AssertionError(f"db-tier (c) launches {launches}, expected "
                              f"{expected}")
@@ -3665,22 +3890,24 @@ def train_restart(card):
 
 
 def train_guard():
-    """(d) a kernel with no backward refuses an operand that requires
-    grad, before it launches."""
-    from repro_torch.kernels import moe_dispatch as moe_mod
+    """(d) rwkv6_scan, the one card kernel on an LM path with no backward,
+    refuses an operand that requires grad, before it launches."""
     from repro_torch.kernels import ops
+    from repro_torch.kernels import rwkv6_scan as scan_mod
     from repro_torch.nn.model import resolve
 
     dev = resolve("cuda")
-    x = torch.randn(64, 2048, device=dev, requires_grad=True)
-    idx = torch.arange(64, dtype=torch.int32, device=dev)
-    gates = torch.ones(64, device=dev)
-    before = moe_mod.moe_dispatch.launches
-    expect_raise(NotImplementedError, lambda: ops.moe_dispatch(x, idx, gates),
-                 "train (d): moe_dispatch with an operand requiring grad")
-    if moe_mod.moe_dispatch.launches != before:
+    r, k, v = (torch.randn(2, 16, 64, device=dev) for _ in range(3))
+    w = torch.rand(2, 16, 64, device=dev) * 0.5 + 0.4
+    u, s0 = torch.randn(2, 64, device=dev), torch.zeros(2, 64, 64, device=dev)
+    r.requires_grad_()
+    before = scan_mod.rwkv6_scan.launches
+    expect_raise(NotImplementedError,
+                 lambda: ops.rwkv6_scan(r, k, v, w, u, s0),
+                 "train (d): rwkv6_scan with an operand requiring grad")
+    if scan_mod.rwkv6_scan.launches != before:
         raise AssertionError("train (d): the guard launched the kernel")
-    log("train (d): moe_dispatch with an operand that requires grad raised "
+    log("train (d): rwkv6_scan with an operand that requires grad raised "
         "NotImplementedError before any launch")
     return dict(raised=True)
 
@@ -3725,6 +3952,314 @@ def train_path(counters, result):
     return out["trainer"]["launches"]
 
 
+# ---------------------------------------------------------------------------
+# phase 12: MoE training on the full-width DeepSeek-V2-Lite, cut in depth
+# ---------------------------------------------------------------------------
+
+# Every published width (d_model 2048, MLA kv_lora 512, 16 heads of 128 + 64
+# with v 128, 64 routed experts of 1408 top-6, 2 shared, capacity 1.25,
+# vocab 102400) with the relational MoE (impl="sort"), cut in depth because
+# one card forces it: float32 parameters, gradients and AdamW's m and v take
+# 16 bytes a parameter, 251.3 GB at 27 layers (DS_PARAMS) and 45.44 GB at 5,
+# the dense first layer and 4 MoE layers (2,839,831,040 parameters, counted
+# as DS_PARAMS is).  Phase 11's traffic: the train_4k sequence, a global
+# batch of 4 in 2 microbatches of 2 x 4096 tokens (each MoE layer: 4 groups
+# of 2048 tokens, 61,440 capacity slots, 49,152 assignments), AdamW 3e-4,
+# clip 1.0, remat="full", 1 warm step and 3 read.
+MOE_LAYERS = 5
+MOE_PARAMS = 2_839_831_040
+MOE_STEPS = 4
+# (b) the gradients on the dense layer and 1 MoE layer at the same width
+# (1,085,287,424 parameters), one microbatch of 2 x 4096, float32 compute
+# against float64 on the card, phase 11's bound; the routing is pinned: the
+# float64 run takes the float32 run's experts and recomputes its gates in
+# float64 there (a near-tie in top-k, and so the capacity drops, can fall
+# the other way in another precision)
+MOE_GRAD_LAYERS = 2
+#: device kernels of the MoE training step by name, for the profile
+MOE_KERNELS = {"flash_attention (forward)": r"flash(?!_bwd)",
+               "flash_attention_bwd": r"flash_bwd",
+               "moe_dispatch": r"dispatch_rows",
+               "relational_matmul": r"segment_offsets|_spmm",
+               "tuple_dot": r"tuple_dot"}
+
+
+class RoutePin:
+    """Records each routing call's chosen experts and dropped assignments
+    while active; ``replay`` instead routes every call to the recorded
+    experts of the call with the same number (the run must call in the
+    same order), the gates and the aux loss recomputed at those experts
+    in the input's type, as ``nn/moe.py::_route`` computes them
+    (``router_softmax="pre"``)."""
+
+    def __init__(self, moe, replay=None):
+        self.moe, self.replay, self.calls = moe, replay, []
+
+    def __enter__(self):
+        self.route = route = self.moe._route
+        moe = self.moe
+
+        def pinned(p, x, cfg):
+            if self.replay is None:
+                gates, idx, aux = route(p, x, cfg)
+            else:
+                if cfg.router_softmax != "pre":
+                    raise AssertionError("RoutePin replays pre-softmax "
+                                         "routing only")
+                idx = self.replay[len(self.calls)]["idx"]
+                logits = x @ p["router"].to(x.dtype)
+                probs = torch.softmax(logits, dim=-1)
+                gates = torch.gather(probs, -1, idx)
+                gates = gates / gates.sum(dim=-1, keepdim=True)
+                me = probs.mean(dim=tuple(range(probs.dim() - 1)))
+                ce = torch.nn.functional.one_hot(idx, cfg.n_experts).to(
+                    probs.dtype).sum(dim=-2).mean(
+                    dim=tuple(range(idx.dim() - 1)))
+                aux = cfg.n_experts * (me * ce).sum() / cfg.top_k
+            counts = torch.nn.functional.one_hot(
+                idx.reshape(idx.shape[0], -1), cfg.n_experts).sum(1)
+            cap = moe._capacity(x.shape[-2], cfg)
+            # kept on the device: reading it here would wait for the card
+            self.calls.append(dict(
+                idx=idx, drops=(counts - cap).clamp(min=0).sum()))
+            return gates, idx, aux
+
+        moe._route = pinned
+        return self
+
+    def __exit__(self, *exc):
+        self.moe._route = self.route
+
+    def drops(self) -> list[int]:
+        """The assignments each call dropped."""
+        return [int(c["drops"]) for c in self.calls]
+
+
+def moe_train_config(layers: int):
+    from repro_torch.configs import get_config
+    cfg = get_config("deepseek_v2_lite_16b")
+    return dataclasses.replace(cfg, n_layers=layers, moe=dataclasses.replace(
+        cfg.moe, impl="sort"))
+
+
+def moe_trainer(counters, card):
+    """(a) ``Trainer`` on the 5-layer full-width DeepSeek-V2-Lite: the
+    counts are zeroed just before ``run`` and read just after it."""
+    from repro_torch.data import TokenPipeline
+    from repro_torch.nn import moe
+    from repro_torch.nn.model import LM
+    from repro_torch.optim import adamw
+    from repro_torch.train import Trainer
+    from repro_torch.tree import leaves
+
+    cfg = moe_train_config(MOE_LAYERS)
+    m = cfg.moe
+    n_moe = cfg.n_layers - m.first_k_dense
+    lm = LM(cfg)
+    data = TokenPipeline(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                         global_batch=TRAIN_BATCH)
+    trainer = Trainer(lm, adamw(3e-4), data, grad_accum=TRAIN_ACCUM)
+    gen = torch.Generator(device=lm.device)
+    gen.manual_seed(0)
+    log(f"moe-train (a): {cfg.name} at {cfg.n_layers} layers ({m.first_k_dense}"
+        f" dense, {n_moe} MoE), d_model {cfg.d_model}, MLA kv_lora "
+        f"{cfg.mla.kv_lora}, {cfg.n_heads} heads of {cfg.mla.d_nope} + "
+        f"{cfg.mla.d_rope} / v {cfg.mla.d_v}, {m.n_experts} experts of "
+        f"{m.d_ff_expert} top-{m.top_k} + {m.n_shared} shared, capacity "
+        f"{m.capacity_factor}, impl {m.impl}, vocab {cfg.vocab}, remat "
+        f"{cfg.remat}; global batch {TRAIN_BATCH} x {TRAIN_SEQ} in "
+        f"{TRAIN_ACCUM} microbatches, AdamW 3e-4, on {card}")
+    torch.cuda.reset_peak_memory_stats()
+    with RoutePin(moe) as routes:
+        zero_launches(counters)
+        run = trainer.run(gen, MOE_STEPS, log_every=0)
+        launches = read_launches(counters)
+    peak = torch.cuda.max_memory_allocated()
+    params, opt_state, hist = run["params"], run["opt_state"], run["history"]
+    n_params = sum(t.numel() for t in leaves(params))
+    if n_params != MOE_PARAMS:
+        raise AssertionError(f"moe-train (a): {n_params} parameters, "
+                             f"expected {MOE_PARAMS}")
+    # a microbatch: each layer's forward once and once more in remat's
+    # recompute, and one backward; in a MoE layer's backward the combine's
+    # d ys and the dispatch's d x (relational_matmul on the transposed
+    # relations) and the combine's d gates (tuple_dot; the dispatch's gates
+    # are constant)
+    per_step = {"flash_attention": 2 * TRAIN_ACCUM * cfg.n_layers,
+                "flash_attention_bwd": TRAIN_ACCUM * cfg.n_layers,
+                "moe_dispatch": 2 * TRAIN_ACCUM * n_moe,
+                "relational_matmul": 2 * TRAIN_ACCUM * n_moe
+                                     + 2 * TRAIN_ACCUM * n_moe,
+                "tuple_dot": TRAIN_ACCUM * n_moe}
+    expected = {name: 0 for name in counters} | {
+        k: n * MOE_STEPS for k, n in per_step.items()}
+    if launches != expected:
+        raise AssertionError(f"moe-train (a) launches {launches}, expected "
+                             f"{expected}")
+    if not all(np.isfinite([h["loss"], h["grad_norm"]]).all() for h in hist):
+        raise AssertionError(f"moe-train (a): a loss or norm is not finite: "
+                             f"{hist}")
+    # each microbatch routes every MoE layer in order, then again in the
+    # backward's recompute (in reverse order); the recompute must route as
+    # the forward did
+    calls = routes.drops()
+    per_mb = [calls[i:i + 2 * n_moe] for i in range(0, len(calls), 2 * n_moe)]
+    if len(calls) != 2 * n_moe * TRAIN_ACCUM * MOE_STEPS or any(
+            c[:n_moe] != c[n_moe:][::-1] for c in per_mb):
+        raise AssertionError(f"moe-train (a): routing calls {calls}")
+    drops = [c[:n_moe] for c in per_mb]
+    assignments = TRAIN_BATCH // TRAIN_ACCUM * TRAIN_SEQ * m.top_k
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    step_s = [h["seconds"] for h in hist[1:]]
+    # every relational_matmul call waits once for its first pass's status
+    # flags, every moe_dispatch call once for its own (status_flag.cuh)
+    waits = per_step["relational_matmul"] + per_step["moe_dispatch"]
+    out = dict(
+        model=cfg.name, layers=cfg.n_layers, moe_layers=n_moe,
+        parameters=n_params, tokens_per_step=tokens, steps=len(hist),
+        history=hist, step_s=step_s, step_s_mean=float(np.mean(step_s)),
+        tokens_per_s=[tokens / t for t in step_s],
+        launches=launches, launches_per_step=per_step,
+        host_waits_per_step=waits, peak_bytes=peak,
+        assignments_per_layer=assignments, drops_per_layer=drops)
+    for h in hist:
+        log(f"moe-train (a) step {h['step']}: {h['seconds'] * 1e3:.4f} ms, "
+            f"{tokens / h['seconds']:.1f} tokens/s, loss {h['loss']:.6f}, "
+            f"grad norm {h['grad_norm']:.6f}")
+    log(f"moe-train (a): {MOE_STEPS} steps, launches {launches} ({per_step} "
+        f"a step; {waits} host waits on status flags a step), peak device "
+        f"memory {peak / 2**30:.2f} GiB; dropped assignments of "
+        f"{assignments} a layer, each microbatch's layers in order: {drops}")
+    batch = data.batch_at(MOE_STEPS)
+    out["profile"] = device_profile(
+        lambda: trainer.step_fn(params, opt_state, batch),
+        out["step_s_mean"] * 1e3, "MoE training step (2 x 2 x 4096 tokens)",
+        card, groups=MOE_KERNELS)
+    return out
+
+
+def moe_gradients(card):
+    """(b) loss and every gradient leaf of the 2-layer full-width
+    DeepSeek-V2-Lite (the dense layer and one MoE layer), float32 compute
+    through the kernels, against float64 on the card with attention
+    through the plain versions (``OracleAttention``) and the MoE through
+    ``ref``'s plain versions called directly, the routing pinned to the
+    float32 run's; bf16 compute beside it as a sanity reading."""
+    from repro_torch.data import TokenPipeline
+    from repro_torch.kernels import flash_attention as flash_mod
+    from repro_torch.kernels import moe_dispatch as moe_mod
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import relational_matmul as relmm_mod
+    from repro_torch.kernels import tuple_dot as dot_mod
+    from repro_torch.nn import layers, moe
+    from repro_torch.nn.model import LM
+    from repro_torch.tree import tree_map
+
+    cfg = moe_train_config(MOE_GRAD_LAYERS)
+    n_moe = cfg.n_layers - cfg.moe.first_k_dense
+    lm = LM(cfg)
+    gen = torch.Generator(device=lm.device)
+    params = lm.init(gen.manual_seed(1))
+    batch = TokenPipeline(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                          global_batch=GRAD_BATCH, seed=1).batch_at(0)
+    compute, accum = layers.COMPUTE_DTYPE, layers.ACCUM_DTYPE
+    wrappers = (flash_mod.flash_attention, flash_mod.flash_attention_bwd,
+                moe_mod.moe_dispatch, relmm_mod.relational_matmul,
+                dot_mod.tuple_dot)
+    before = [w.launches for w in wrappers]
+    layers.COMPUTE_DTYPE = torch.float32
+    try:
+        with RoutePin(moe) as routes:
+            (l32, g32), t32 = timed(lambda: value_and_grad(lm, params, batch))
+    finally:
+        layers.COMPUTE_DTYPE = compute
+    got = tuple(w.launches - b for w, b in zip(wrappers, before))
+    want = (2 * cfg.n_layers, cfg.n_layers, 2 * n_moe, 4 * n_moe, n_moe)
+    if got != want:
+        raise AssertionError(f"moe-train (b) float32: launches {got} of "
+                             f"(flash, flash_bwd, moe_dispatch, "
+                             f"relational_matmul, tuple_dot), expected {want}")
+    # the forward's routing, then the recompute's (remat="full"), equal
+    fwd, again = routes.calls[:n_moe], routes.calls[n_moe:][::-1]
+    if len(routes.calls) != 2 * n_moe or not all(
+            torch.equal(a["idx"], b["idx"]) for a, b in zip(fwd, again)):
+        raise AssertionError("moe-train (b): the recompute routed otherwise")
+    (l16, g16), t16 = timed(lambda: value_and_grad(lm, params, batch))
+    p64 = tree_map(lambda t: t.double(), params)
+    del params
+    lm64 = LM(dataclasses.replace(cfg, remat="none"))
+    saved = ops.flash_attention, ops.moe_dispatch, ops.relational_matmul
+    layers.COMPUTE_DTYPE = layers.ACCUM_DTYPE = torch.float64
+    ops.flash_attention = (lambda q, k, v, causal=True, scale=None,
+                           bf16_scores=False:
+                           OracleAttention.apply(q, k, v, causal, scale))
+    ops.moe_dispatch, ops.relational_matmul = (ref.moe_dispatch,
+                                               ref.relational_matmul)
+    try:
+        with RoutePin(moe, replay=fwd) as replayed:
+            (l64, g64), t64 = timed(lambda: value_and_grad(lm64, p64, batch))
+    finally:
+        layers.COMPUTE_DTYPE, layers.ACCUM_DTYPE = compute, accum
+        ops.flash_attention, ops.moe_dispatch, ops.relational_matmul = saved
+    fwd_drops = routes.drops()[:n_moe]
+    if replayed.drops() != fwd_drops:
+        raise AssertionError("moe-train (b): the pinned routing dropped "
+                             "otherwise")
+    del p64
+    loss_rel = abs(float(l32) - float(l64)) / abs(float(l64))
+    ratios32, ratios16 = [], []
+    for a, c, w in zip(g32, g16, g64, strict=True):
+        scale = float(w.abs().max()) or 1.0
+        ratios32.append(float((a.double() - w).abs().max()) / scale)
+        ratios16.append(float((c.double() - w).abs().max()) / scale)
+    out = dict(layers=MOE_GRAD_LAYERS, tokens=GRAD_BATCH * TRAIN_SEQ,
+               drops=fwd_drops,
+               loss_f32=float(l32), loss_bf16=float(l16),
+               loss_f64=float(l64), loss_rel=loss_rel,
+               grad_ratio_f32=max(ratios32), grad_ratio_bf16=max(ratios16),
+               ratios_f32=ratios32, ratios_bf16=ratios16,
+               seconds=dict(f32=t32, bf16=t16, f64=t64))
+    log(f"moe-train (b) on {card}: loss float32 {float(l32):.8f}, float64 "
+        f"{float(l64):.8f} (relative {loss_rel:.3e}, bound {LOSS_REL}), bf16 "
+        f"{float(l16):.8f}; largest |grad diff| / leaf max over {len(g64)} "
+        f"leaves: float32 {max(ratios32):.3e} (bound {GRAD_REL}), bf16 "
+        f"{max(ratios16):.3e} (a sanity reading, its own routing); the "
+        f"routing pinned, {out['drops']} assignments dropped; "
+        f"{t32:.2f} / {t16:.2f} / {t64:.2f} s")
+    if loss_rel > LOSS_REL or max(ratios32) > GRAD_REL:
+        raise AssertionError("moe-train (b): the float32 gradients miss the "
+                             "float64 oracle")
+    return out
+
+
+def moe_train_path(counters, result):
+    """Phase 12; frees everything it allocates (fails otherwise).  Returns
+    (a)'s launches."""
+    card = result["card"]
+    if not torch.cuda.is_available():
+        raise RuntimeError("moe-train: no CUDA device")
+    held = held_bytes()
+    t0 = time.perf_counter()
+    out = {"trainer": moe_trainer(counters, card)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["gradients"] = moe_gradients(card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["wall_s"] = time.perf_counter() - t0
+    workspaces = torch.cuda.memory_allocated() - held
+    left = held_bytes() - held
+    out["memory"] = dict(allocated_before=held, cublas_workspaces=workspaces,
+                         left=left)
+    log(f"moe-train: phase 12 in {out['wall_s']:.1f} s; {held} B allocated "
+        f"before it, {workspaces} B more after it, all of them cuBLAS "
+        f"workspaces but {left} B")
+    if left:
+        raise AssertionError(f"moe-train: phase 12 left {left} B allocated")
+    result["train_moe"] = out
+    return out["trainer"]["launches"]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to drive", file=sys.stderr)
@@ -3744,7 +4279,7 @@ def main() -> int:
     from repro_torch import data as data_mod
     from repro_torch.kernels import build, flash_attention, moe_dispatch
     from repro_torch.kernels import fused_sigmoid_matmul, onehot_embed
-    from repro_torch.kernels import relational_matmul, rwkv6_scan
+    from repro_torch.kernels import relational_matmul, rwkv6_scan, tuple_dot
 
     card = gpu_line()
     log(card)
@@ -3778,7 +4313,8 @@ def main() -> int:
     checks = {
         "relational_matmul": lambda: (
             check_relational(relational_matmul, RelTensor, data, report),
-            check_relmm_combine(relational_matmul, report)),
+            check_relmm_combine(relational_matmul, report),
+            check_relmm_backward(relational_matmul, report)),
         "fused_sigmoid_matmul": lambda: check_fused(fused_sigmoid_matmul,
                                                     data, report),
         "onehot_embed": lambda: check_onehot(onehot_embed, data, report),
@@ -3786,7 +4322,8 @@ def main() -> int:
         "flash_attention": lambda: check_flash(flash_attention, report),
         "flash_attention_bwd": lambda: check_flash_bwd(flash_attention,
                                                        report),
-        "rwkv6_scan": lambda: check_rwkv6(rwkv6_scan, report)}
+        "rwkv6_scan": lambda: check_rwkv6(rwkv6_scan, report),
+        "tuple_dot": lambda: check_tuple_dot(tuple_dot, report)}
     kernels_only = sys.argv[1:2] == ["--kernels"]
     unknown = set(sys.argv[2:]) - set(checks)
     if sys.argv[1:] and not kernels_only or unknown:
@@ -3819,14 +4356,15 @@ def main() -> int:
                 "moe_dispatch": moe_dispatch.moe_dispatch,
                 "flash_attention": flash_attention.flash_attention,
                 "flash_attention_bwd": flash_attention.flash_attention_bwd,
-                "rwkv6_scan": rwkv6_scan.rwkv6_scan}
+                "rwkv6_scan": rwkv6_scan.rwkv6_scan,
+                "tuple_dot": tuple_dot.tuple_dot}
     launches = main_path(counters, core, nn2sql, data_mod, result)
     profile_step(counters, core, nn2sql, data_mod, result)
     # each kernel's launches on the path that runs it: kernels 1-3 on the
     # paper's pipeline (phase 3), flash_attention on Yi-6B's serving path
     # (phase 5), rwkv6_scan on RWKV-6's (phase 6), moe_dispatch on
     # DeepSeek-V2-Lite's (phase 7), flash_attention_bwd on Yi-6B's training
-    # path (phase 11)
+    # path (phase 11), tuple_dot on DeepSeek-V2-Lite's (phase 12)
     launches["flash_attention"] = serve_path(counters, result)[
         "flash_attention"]
     launches["rwkv6_scan"] = serve_rwkv(counters, result)["rwkv6_scan"]
@@ -3837,6 +4375,7 @@ def main() -> int:
     db_tier(counters, core, nn2sql, data_mod, result)
     launches["flash_attention_bwd"] = train_path(counters, result)[
         "flash_attention_bwd"]
+    launches["tuple_dot"] = moe_train_path(counters, result)["tuple_dot"]
 
     line = {"kernels": [
         {k: r[k] for k in ("name", "route", "source", "replaces")}

@@ -7,11 +7,17 @@ version through here.  (The JAX package's ``ops`` chooses with
 ``use_pallas=``; here the device decides.)
 
 Gradients.  On the CPU autograd differentiates the plain versions.  On the
-card ``flash_attention`` is a ``torch.autograd.Function`` whose backward is
-the ``flash_attention_bwd`` kernel.  The other kernels have no backward
-kernel yet: with grad mode on and a CUDA operand that requires grad they
-raise ``NotImplementedError`` naming the ``ROADMAP.md`` slice that brings
-one, before any launch, rather than return a result with no ``grad_fn``
+card three entry points are ``torch.autograd.Function``s whose backward runs
+kernels: ``flash_attention`` (the ``flash_attention_bwd`` kernel),
+``relational_matmul`` and ``moe_combine`` (``_RelationalMatmul``), and
+``moe_dispatch`` (``_MoeDispatch``).  The last two follow the paper's
+Algorithm 1: the gradient of a join + group-by with respect to its dense
+operand is a join + group-by over the transposed relation (Eqs. 10/11), the
+``relational_matmul`` kernel again, and with respect to the relation's
+values one dot product a tuple, the ``tuple_dot`` kernel.  The other
+kernels have no backward kernel: with grad mode on and a CUDA operand that
+requires grad they raise ``NotImplementedError`` naming where one comes
+from, before any launch, rather than return a result with no ``grad_fn``
 (which would leave the parameters upstream without a gradient, silently).
 """
 from __future__ import annotations
@@ -27,6 +33,7 @@ from .moe_dispatch import moe_dispatch as _moe_cuda
 from .onehot_embed import onehot_embed as _embed_cuda
 from .relational_matmul import relational_matmul as _relmm_cuda
 from .rwkv6_scan import rwkv6_scan as _rwkv6_cuda
+from .tuple_dot import tuple_dot as _tuple_dot_cuda
 
 
 def _on_host(*operands: torch.Tensor) -> bool:
@@ -41,14 +48,8 @@ def _on_host(*operands: torch.Tensor) -> bool:
                      "CPU or all on CUDA")
 
 
-_MOE_SLICE = "ROADMAP.md, the slice after LM training: MoE training"
 #: kernel → where its backward comes from (the message of the guard)
 _NO_BACKWARD = {
-    "relational_matmul": f"on the MoE combine, {_MOE_SLICE}; the paper's "
-                         "engines differentiate in their own IR (Algorithm "
-                         "1) and pass no operand that requires grad",
-    "moe_dispatch": _MOE_SLICE,
-    "moe_combine": _MOE_SLICE,
     "rwkv6_scan": "ROADMAP.md, the second slice after LM training: RWKV-6 "
                   "training (a reverse-time scan kernel)",
     "fused_sigmoid_matmul": "no slice brings one: the paper's dense engine "
@@ -69,11 +70,68 @@ def _no_grad_through(kernel: str, *operands: torch.Tensor) -> None:
             "the CPU through the plain versions")
 
 
+def _transpose(rows, cols, vals, m: int, k: int):
+    """The transpose of the relation R (``rows`` in 0..m, ``cols`` in
+    0..k-1) as ``relational_matmul`` takes it: (row = col, col = row,
+    value), sorted by the new row stably on the device, so the kernel's
+    first pass finds it in order.  Padding tuples (row m) and tuples of
+    value 0 go to the transpose's padding row k with col 0: a padding
+    tuple's row lies outside the transposed product's b, and the MoE
+    layer's empty slots and dropped assignments (value 0, all on one row)
+    would otherwise give one warp a segment thousands of tuples long.
+    Leaving them out is exact, since 0 times a finite value adds
+    nothing."""
+    live = (rows < m) & (vals != 0)
+    t_rows = torch.where(live, cols, k)
+    order = torch.argsort(t_rows, stable=True)
+    return t_rows[order], torch.where(live, rows, 0)[order], vals[order]
+
+
+def _transposed_product(rows, cols, vals, dout, m: int, k: int
+                        ) -> torch.Tensor:
+    """Rᵀ · dout, (k, n) float32: ``relational_matmul`` over
+    ``_transpose``'s relation (Algorithm 1's Eqs. 10/11)."""
+    if m == 0:                   # no row for a padding tuple's col
+        return torch.zeros((k, dout.shape[1]), dtype=torch.float32,
+                           device=dout.device)
+    return _relmm_cuda(*_transpose(rows, cols, vals, m, k), dout, k)
+
+
+class _RelationalMatmul(torch.autograd.Function):
+    """relational_matmul on the card under autograd: the forward kernel as
+    it is; the backward d b = Rᵀ · dOut (``_transposed_product``, cast to
+    b's type) and d vals[t] = dOut[row_t] · b[col_t] (``tuple_dot``; a
+    padding tuple's row is dOut's row count, so it gets 0).  Each runs only
+    for an operand that requires grad; b is kept only for d vals."""
+
+    @staticmethod
+    def forward(ctx, row_ids, col_ids, vals, b, m: int):
+        ctx.m, ctx.k, ctx.b_dtype = m, b.shape[0], b.dtype
+        ctx.save_for_backward(row_ids, col_ids, vals,
+                              b if ctx.needs_input_grad[2] else None)
+        return _relmm_cuda(row_ids, col_ids, vals, b, m)
+
+    @staticmethod
+    def backward(ctx, dout):
+        row_ids, col_ids, vals, b = ctx.saved_tensors
+        dout = dout.contiguous()
+        dvals = db = None
+        if ctx.needs_input_grad[3]:
+            db = _transposed_product(row_ids, col_ids, vals, dout, ctx.m,
+                                     ctx.k).to(ctx.b_dtype)
+        if ctx.needs_input_grad[2]:
+            dvals = _tuple_dot_cuda(dout, row_ids, b, col_ids)
+        return None, None, dvals, db, None
+
+
 def relational_matmul(row_ids, col_ids, vals, b, m: int) -> torch.Tensor:
+    """out (m, n) float32 = Σ over each row's tuples of vals · b[col];
+    differentiable in vals and b on both routes (on the card through
+    ``_RelationalMatmul``; with no operand that requires grad, or under
+    ``no_grad``, the forward kernel alone, nothing recorded)."""
     if _on_host(row_ids, col_ids, vals, b):
         return ref.relational_matmul(row_ids, col_ids, vals, b, m)
-    _no_grad_through("relational_matmul", vals, b)
-    return _relmm_cuda(row_ids, col_ids, vals, b.contiguous(), m)
+    return _RelationalMatmul.apply(row_ids, col_ids, vals, b.contiguous(), m)
 
 
 def fused_sigmoid_matmul(x, w) -> torch.Tensor:
@@ -90,30 +148,64 @@ def onehot_embed(ids, table) -> torch.Tensor:
     return _embed_cuda(ids.to(torch.int32).contiguous(), table.contiguous())
 
 
+class _MoeDispatch(torch.autograd.Function):
+    """moe_dispatch on the card under autograd: the forward kernel as it
+    is; the backward, over the relation slot s → token sort_idx[s] with
+    value gates[s] rounded to x's type (the factor the forward applied):
+    d x = Rᵀ · dOut (``_transposed_product``, cast to x's type; the empty
+    slots, gate 0, go to its padding row) and d gates[s] = dOut[s] ·
+    x[sort_idx[s]] (``tuple_dot``).  Each runs only for an operand that
+    requires grad; x is kept only for d gates."""
+
+    @staticmethod
+    def forward(ctx, x, sort_idx, gates):
+        ctx.t, ctx.x_dtype = x.shape[0], x.dtype
+        ctx.save_for_backward(sort_idx, gates,
+                              x if ctx.needs_input_grad[2] else None)
+        return _moe_cuda(x, sort_idx, gates)
+
+    @staticmethod
+    def backward(ctx, dout):
+        sort_idx, gates, x = ctx.saved_tensors
+        dout = dout.contiguous()
+        slots = torch.arange(sort_idx.shape[0], dtype=torch.int32,
+                             device=dout.device)
+        dx = dgates = None
+        if ctx.needs_input_grad[0]:
+            factor = gates.to(ctx.x_dtype).to(gates.dtype)
+            dx = _transposed_product(slots, sort_idx, factor, dout,
+                                     slots.shape[0], ctx.t).to(ctx.x_dtype)
+        if ctx.needs_input_grad[2]:
+            dgates = _tuple_dot_cuda(dout, slots, x, sort_idx)
+        return dx, None, dgates
+
+
 def moe_dispatch(x, sort_idx, gates) -> torch.Tensor:
     """out[s, :] = gates[s] · x[sort_idx[s], :], the gate cast to x's type
-    first: the MoE layer's bucket fill (the join)."""
+    first: the MoE layer's bucket fill (the join).  Differentiable in x and
+    gates on both routes (on the card through ``_MoeDispatch``; with no
+    operand that requires grad, or under ``no_grad``, the forward kernel
+    alone, nothing recorded)."""
     if _on_host(x, sort_idx, gates):
         return ref.moe_dispatch(x, sort_idx, gates)
-    _no_grad_through("moe_dispatch", x, gates)
-    return _moe_cuda(x.contiguous(), sort_idx.to(torch.int32).contiguous(),
-                     gates.to(torch.float32).contiguous())
+    return _MoeDispatch.apply(x.contiguous(),
+                              sort_idx.to(torch.int32).contiguous(),
+                              gates.to(torch.float32).contiguous())
 
 
 def moe_combine(expert_out, row_ids, n_tokens: int) -> torch.Tensor:
     """Group the gated slot rows by destination token and sum, in float32,
     cast back to their type; on the card, relational_matmul's aggregation
-    with unit values, reading float32 or bf16 rows as they are (the MoE
-    layer itself folds the gates into the relation and calls
-    ``relational_matmul``)."""
+    with unit values, reading float32 or bf16 rows as they are, through
+    ``_RelationalMatmul`` (the MoE layer itself folds the gates into the
+    relation and calls ``relational_matmul``)."""
     if _on_host(expert_out, row_ids):
         return ref.moe_combine(expert_out, row_ids, n_tokens)
-    _no_grad_through("moe_combine", expert_out)
     s = expert_out.shape[0]
     cols = torch.arange(s, dtype=torch.int32, device=expert_out.device)
     ones = torch.ones(s, dtype=torch.float32, device=expert_out.device)
-    out = _relmm_cuda(row_ids.to(torch.int32).contiguous(), cols, ones,
-                      expert_out.contiguous(), n_tokens)
+    out = _RelationalMatmul.apply(row_ids.to(torch.int32).contiguous(), cols,
+                                  ones, expert_out.contiguous(), n_tokens)
     return out.to(expert_out.dtype)
 
 

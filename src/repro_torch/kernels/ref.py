@@ -29,6 +29,27 @@ def relational_matmul(row_ids: torch.Tensor, col_ids: torch.Tensor,
     return out[:m]
 
 
+def tuple_dot(a: torch.Tensor, rows: torch.Tensor, b: torch.Tensor,
+              cols: torch.Tensor) -> torch.Tensor:
+    """One dot product a tuple (an SDDMM): out[t] = Σ_j a[rows[t], j] ·
+    b[cols[t], j], summed in float32 (float64 where a and b are, an
+    oracle), a and b each read in its own type.  A tuple whose row lies
+    outside 0..a.shape[0]-1 (the padding, ``rows == a.shape[0]``) gives 0.
+
+    The gradient of ``relational_matmul`` with respect to its values
+    (a = dOut, b = b) and of ``moe_dispatch`` with respect to its gates
+    (a = dOut on the slots, b = x)."""
+    acc = torch.promote_types(torch.promote_types(a.dtype, b.dtype),
+                              torch.float32)
+    out = torch.zeros(rows.shape, dtype=acc, device=b.device)
+    live = (rows >= 0) & (rows < a.shape[0])
+    r = torch.where(live, rows, 0).long()
+    if a.shape[0]:
+        dots = (a[r].to(acc) * b[cols.long()].to(acc)).sum(dim=-1)
+        out = torch.where(live, dots, out)
+    return out
+
+
 def fused_sigmoid_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """sig(X · W) — one forward CTE of the paper's model (Eq. 4)."""
     z = torch.matmul(x.to(torch.float32), w.to(torch.float32))

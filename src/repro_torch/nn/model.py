@@ -52,10 +52,13 @@ package's functions.  ``cfg.remat="full"`` recomputes each layer body of
 ``backbone`` in the backward pass (``torch.utils.checkpoint``, as JAX
 wraps it in ``jax.checkpoint``), "none" keeps its activations.  On the
 card the dense families train through both flash kernels: the forward
-kernels, and ``flash_attention_bwd`` for the gradient.  The other kernels
-have no backward yet and raise when an operand requires grad
-(``kernels/ops.py``), so the moe family with ``impl="sort"`` and the ssm
-family train on the CPU only, through the plain versions.  Every layer
+kernels, and ``flash_attention_bwd`` for the gradient.  The moe family
+with ``impl="sort"`` trains there too: ``moe_dispatch`` and
+``relational_matmul`` forward, and in the backward ``relational_matmul``
+over the transposed relations and ``tuple_dot`` for the gates
+(``kernels/ops.py``).  Only the ssm family still raises on the card
+(``rwkv6_scan`` has no backward kernel yet) and trains on the CPU alone,
+through the plain versions.  Every layer
 loop unbinds the stacked leaves once (``_layers``) rather than indexing
 them layer by layer: under autograd, ``leaf[i]`` would build a zero
 gradient of the whole (L, ...) leaf for every layer.

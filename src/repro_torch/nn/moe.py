@@ -18,7 +18,14 @@ JAX package are here, selected by ``MoEConfig.impl``:
     kernel on the card) and combine is the *group-by token, sum* (the
     ``relational_matmul`` kernel, with the gates as the relation's values).
     The JAX package ``vmap``s the groups; here every group's slots go
-    through one launch of each kernel.
+    through one launch of each kernel.  It trains on the card as on the
+    CPU: both kernels' entry points are autograd Functions on the card
+    (``kernels/ops.py``), whose backward is the paper's Algorithm 1 — the
+    gradient of the join and of the group-by is ``relational_matmul`` over
+    the transposed relation, and the gates' gradient the ``tuple_dot``
+    kernel, one dot product an assignment.  Dropped assignments carry value
+    0 through ``torch.where``, so, as JAX's ``mode="drop"``, they take no
+    gradient.
 
 Tokens are processed in GROUPS (GShard's group dimension): capacity and
 ranks are group-local.  Both impls drop overflow beyond expert capacity
@@ -171,33 +178,41 @@ def _moe_sort(p, xg, cfg: MoEConfig, gates, idx):
     JOIN: slot (e, c) of group G takes token ``token_sorted[seg_start[e] +
     c]`` with gate 1 while c < min(counts[e], cap), else row 0 with gate 0
     — the JAX scatter-add of ``x[token_sorted]`` into a zero buffer, as
-    one ``moe_dispatch`` over all G·E·cap slots.  GROUP BY token, SUM: the
+    one ``moe_dispatch`` over all E·G·cap slots.  GROUP BY token, SUM: the
     token-major relation (row t, col = the slot of each of its k
     assignments, value = gate, or 0 where the assignment dropped) times the
     expert outputs, as one ``relational_matmul`` that reads them in their
     own type and sums in float32 (JAX casts the gathered outputs to float32
     before the gate product too; the widening is exact, so no float32 copy
-    is made)."""
+    is made).
+
+    The slots are numbered expert-major, (e, G, c): the expert products run
+    as one batched product over e on (E, G·cap, d), the layout the
+    per-group einsum reaches by permuting its operands, so the same
+    products without a copy, and the bucket buffer and the expert outputs
+    reach both kernels (and, under autograd, their Functions) as the
+    contiguous tensors the products make, not as copies."""
     n_groups, g, d = xg.shape
     e, k = cfg.n_experts, cfg.top_k
     cap = _capacity(g, cfg)
     dev = xg.device
     slot_token, slot_live, pos = _sort_relation(idx, cap, e)
     first = (torch.arange(n_groups, device=dev) * g)[:, None, None]
-    src = torch.where(slot_live, slot_token + first, 0)
+    src = torch.where(slot_live, slot_token + first, 0).transpose(0, 1)
     x = xg.reshape(n_groups * g, d)
     buf = ops.moe_dispatch(x, src.reshape(-1).to(torch.int32),
-                           slot_live.reshape(-1).to(torch.float32))
-    ys = _expert_ffn(p, buf.reshape(n_groups, e, cap, d))
+                           slot_live.transpose(0, 1).reshape(-1)
+                           .to(torch.float32))
+    ys = _expert_ffn(p, buf.reshape(e, n_groups * cap, d))
     keep = pos < cap
-    slot = ((torch.arange(n_groups, device=dev)[:, None, None] * e + idx)
+    slot = ((idx * n_groups + torch.arange(n_groups, device=dev)[:, None,
+                                                                  None])
             * cap + pos)
     rows = torch.arange(n_groups * g, dtype=torch.int32,
                         device=dev).repeat_interleave(k)
     cols = torch.where(keep, slot, 0).reshape(-1).to(torch.int32)
     vals = torch.where(keep, gates, 0.0).reshape(-1).to(torch.float32)
-    out = ops.relational_matmul(rows, cols, vals,
-                                ys.reshape(n_groups * e * cap, d),
+    out = ops.relational_matmul(rows, cols, vals, ys.reshape(-1, d),
                                 n_groups * g)
     return out.to(xg.dtype).reshape(n_groups, g, d)
 

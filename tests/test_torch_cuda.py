@@ -24,6 +24,7 @@ from repro_torch.kernels import onehot_embed as embed_mod
 from repro_torch.kernels import ops
 from repro_torch.kernels import relational_matmul as relmm_mod
 from repro_torch.kernels import rwkv6_scan as scan_mod
+from repro_torch.kernels import tuple_dot as dot_mod
 
 pytestmark = pytest.mark.cuda
 
@@ -889,15 +890,144 @@ def test_flash_attention_autograd_on_the_card(cuda, dtype, bf16_scores):
 
 
 def test_kernels_without_a_backward_raise_on_the_card(cuda):
-    """moe_dispatch with an operand that requires grad raises before it
-    launches; under no_grad it runs."""
-    x = torch.randn(8, 64, device=cuda, requires_grad=True)
-    idx = torch.arange(8, dtype=torch.int32, device=cuda)
-    gates = torch.ones(8, device=cuda)
-    before = moe_mod.moe_dispatch.launches
-    with pytest.raises(NotImplementedError, match="MoE training"):
-        ops.moe_dispatch(x, idx, gates)
-    assert moe_mod.moe_dispatch.launches == before
+    """rwkv6_scan (the one card kernel on an LM path with no backward) with
+    an operand that requires grad raises before it launches; under
+    no_grad it runs."""
+    args = list(scan_inputs(np.random.RandomState(11), (2,), 8, 64, cuda))
+    args[0].requires_grad_()
+    before = scan_mod.rwkv6_scan.launches
+    with pytest.raises(NotImplementedError, match="RWKV-6 training"):
+        ops.rwkv6_scan(*args)
+    assert scan_mod.rwkv6_scan.launches == before
     with torch.no_grad():
-        ops.moe_dispatch(x, idx, gates)
-    assert moe_mod.moe_dispatch.launches == before + 1
+        ops.rwkv6_scan(*args)
+    assert scan_mod.rwkv6_scan.launches == before + 1
+
+
+# the MoE layer's training shape at DeepSeek-V2-Lite's widths (a microbatch
+# of 2 x 4096 tokens in 4 groups: 64 experts x 4 groups x 240 slots), and
+# a small one: T tokens, top-k, E experts, slots an expert, d_model
+MOE_TRAIN = [(8192, 6, 64, 960, 2048), (256, 6, 64, 32, 256)]
+# a bf16 gradient is a float32 sum rounded once to bf16: half a bf16 ulp,
+# at most 2^-8 of the value, beyond F32
+BF16_ONCE = dict(rtol=4.1e-3, atol=2e-5)
+
+
+def moe_relations(rng, t, k, e, cap, device, drop=0.2):
+    """The relations ``nn/moe.py::_moe_sort`` builds: the combine's
+    token-major (row token, col its assignment's slot, value its gate; a
+    dropped one slot 0 with value 0) and the dispatch's (slot → token,
+    gate 1, or token 0 with gate 0 where the slot is empty)."""
+    slots = e * cap
+    nnz = t * k
+    keep = rng.rand(nnz) >= drop
+    cols = np.where(keep, rng.permutation(slots)[:nnz], 0)
+    vals = np.where(keep, rng.rand(nnz), 0.0)
+    rows = np.repeat(np.arange(t), k)
+    live = np.zeros(slots, bool)
+    live[cols[keep]] = True
+    src = np.zeros(slots, np.int64)
+    src[cols[keep]] = rows[keep]
+    as_i32 = lambda a: torch.tensor(a, dtype=torch.int32, device=device)
+    return (as_i32(rows), as_i32(cols),
+            torch.tensor(vals, dtype=torch.float32, device=device),
+            as_i32(src), torch.tensor(live, dtype=torch.float32,
+                                      device=device))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t,k,e,cap,d", MOE_TRAIN)
+def test_tuple_dot_kernel(cuda, t, k, e, cap, d, dtype):
+    """dOut (float32) against the expert rows (``dtype``), padding tuples
+    0, held against the plain version in float64 at F32; two calls equal
+    bit for bit.  dOut is drawn at d^-1/2 the scale of the rows, so each
+    dot product is O(1), the scale F32's atol was set for: at unit scale a
+    sum of 2048 products is about 45 in magnitude, and where it cancels
+    near 0 float32 rounding alone (a float32 plain version's too) passes
+    the atol (2.14e-05 at one of 49,152 tuples on an H100)."""
+    rng = np.random.RandomState(t + d)
+    rows, cols, _, _, _ = moe_relations(rng, t, k, e, cap, cuda)
+    rows[-5:] = t                                   # padding
+    gen = torch.Generator(device=cuda).manual_seed(t + d)
+    a = torch.randn(t, d, device=cuda, generator=gen) * d ** -0.5
+    b = torch.randn(e * cap, d, device=cuda, generator=gen).to(dtype)
+    before = dot_mod.tuple_dot.launches
+    got = dot_mod.tuple_dot(a, rows, b, cols)
+    assert dot_mod.tuple_dot.launches == before + 1
+    want = dot_mod.plain(a.double(), rows, b.double(), cols).float()
+    torch.testing.assert_close(got, want, **F32)
+    assert (got[-5:] == 0).all()
+    assert torch.equal(got, dot_mod.tuple_dot(a, rows, b, cols))
+
+
+def test_tuple_dot_kernel_refusals(cuda):
+    a = torch.ones(4, 12, device=cuda)
+    ids = torch.zeros(3, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        dot_mod.tuple_dot(a, ids, a, ids)
+    a = torch.ones(4, 16, device=cuda)
+    with pytest.raises(TypeError, match="int32"):
+        dot_mod.tuple_dot(a, ids.long(), a, ids)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        dot_mod.tuple_dot(a.double(), ids, a, ids)
+    bad = torch.tensor([0, 7, 4], dtype=torch.int32, device=cuda)
+    out = dot_mod.tuple_dot(a, ids, a, bad)          # col 7 and 4 of 4 rows
+    assert out[0] == 16 and out[1:].isnan().all()
+
+
+def moe_step(t, k, e, cap, d, dtype, device, seed):
+    """The combine and the dispatch of one MoE layer as ``_moe_sort`` calls
+    them, on random operands (made on the card: numpy's generator takes
+    seconds for the 10^8 values of the training shape): the leaves (x, the
+    combine's values, the expert rows), a function of them giving
+    (dispatch output, combine output), the output gradients and the
+    relations' ids."""
+    rng = np.random.RandomState(seed)
+    rows, cols, vals, src, live = moe_relations(rng, t, k, e, cap, device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x, ys, dbuf = (torch.randn(n, d, device=device, generator=gen).to(dtype)
+                   for n in (t, e * cap, e * cap))
+    # at the gradient's scale, so that d vals (2048-term dot products) is
+    # O(1), as in test_tuple_dot_kernel
+    dout = torch.randn(t, d, device=device, generator=gen) * d ** -0.5
+
+    def run(x, vals, ys):
+        buf = ops.moe_dispatch(x, src, live)
+        out = ops.relational_matmul(rows, cols, vals, ys, t)
+        return buf, out
+
+    return (x, vals, ys), run, (dbuf, dout), (rows, cols, src, live)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t,k,e,cap,d", MOE_TRAIN)
+def test_moe_functions_gradient_on_the_card(cuda, t, k, e, cap, d, dtype):
+    """d x of the dispatch, d vals and d ys of the combine through the
+    Functions (three relational_matmul launches and one tuple_dot), against
+    autograd of the plain versions in float64 (F32; bf16 d x and d ys are
+    a float32 sum rounded once, so at BF16_ONCE); two backward calls equal
+    bit for bit."""
+    leaves, run, (dbuf, dout), (rows, cols, src, live) = moe_step(
+        t, k, e, cap, d, dtype, cuda, seed=t + cap)
+
+    def grads():
+        xs = [a.detach().clone().requires_grad_() for a in leaves]
+        buf, out = run(*xs)
+        return torch.autograd.grad((buf, out), xs, (dbuf, dout))
+
+    counts = (relmm_mod.relational_matmul.launches,
+              moe_mod.moe_dispatch.launches, dot_mod.tuple_dot.launches)
+    got = grads()
+    assert (relmm_mod.relational_matmul.launches - counts[0],
+            moe_mod.moe_dispatch.launches - counts[1],
+            dot_mod.tuple_dot.launches - counts[2]) == (3, 1, 1)
+    xs = [a.detach().double().requires_grad_() for a in leaves]
+    buf = moe_mod.plain(xs[0], src, live.double())
+    out = relmm_mod.plain(rows, cols, xs[1], xs[2], t)
+    want = torch.autograd.grad((buf, out), xs, (dbuf.double(), dout.double()))
+    for name, g, w, leaf in zip(("x", "vals", "ys"), got, want, leaves):
+        assert g.dtype == leaf.dtype and g.device == leaf.device, name
+        tol = F32 if g.dtype == torch.float32 else BF16_ONCE
+        torch.testing.assert_close(g.double(), w, **tol,
+                                   msg=lambda m, n=name: f"d {n}: {m}")
+    assert all(torch.equal(a, b) for a, b in zip(got, grads()))

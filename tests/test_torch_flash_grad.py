@@ -146,28 +146,50 @@ def guarded_calls(t):
     }
 
 
-SLICES = {"relational_matmul": "MoE training", "moe_dispatch": "MoE training",
-          "moe_combine": "MoE training", "rwkv6_scan": "RWKV-6 training",
-          "fused_sigmoid_matmul": "own IR", "onehot_embed": "no gradient"}
+SLICES = {"rwkv6_scan": "RWKV-6 training", "fused_sigmoid_matmul": "own IR",
+          "onehot_embed": "no gradient"}
+#: the MoE kernels, whose card route is an autograd Function since MoE
+#: training: the kernels a call with ``t`` requiring grad launches, its
+#: forward then its backward (d t over the transposed relation; the
+#: values are constant, so no tuple_dot)
+BACKWARD_LAUNCHES = {
+    "relational_matmul": ["_relmm_cuda", "_relmm_cuda"],
+    "moe_dispatch": ["_moe_cuda", "_relmm_cuda"],
+    "moe_combine": ["_relmm_cuda", "_relmm_cuda"]}
+PLAIN = {"_relmm_cuda": ref.relational_matmul, "_moe_cuda": ref.moe_dispatch,
+         "_tuple_dot_cuda": ref.tuple_dot}
 
 
-@pytest.mark.parametrize("kernel", sorted(SLICES))
+@pytest.mark.parametrize("kernel", sorted(SLICES | BACKWARD_LAUNCHES))
 def test_kernels_without_a_backward_raise_before_they_launch(monkeypatch,
                                                              kernel):
     """With the card route taken (``_on_host`` False) and an operand that
-    requires grad, each wrapper raises NotImplementedError naming where its
-    backward comes from, and no kernel is called; without grad (or under
-    ``no_grad``) the same call reaches the kernel."""
+    requires grad, each wrapper of a kernel without a backward raises
+    NotImplementedError naming where its backward comes from, and no
+    kernel is called; without grad (or under ``no_grad``) the same call
+    reaches the kernel.  The three MoE entry points have a backward now:
+    the same call records one, its gradient is autograd's of the plain
+    version, and the backward launches kernels (``BACKWARD_LAUNCHES``)."""
     launched = []
     for name in ("_relmm_cuda", "_fsm_cuda", "_embed_cuda", "_moe_cuda",
-                 "_rwkv6_cuda"):
+                 "_rwkv6_cuda", "_tuple_dot_cuda"):
         monkeypatch.setattr(ops, name, lambda *a, _n=name, **kw: (
-            launched.append(_n), torch.zeros(()))[1])
+            launched.append(_n), PLAIN[_n](*a, **kw) if _n in PLAIN
+            else torch.zeros(()))[1])
     monkeypatch.setattr(ops, "_on_host", lambda *t: False)
     t = torch.ones(4, 4, requires_grad=True)
-    with pytest.raises(NotImplementedError, match=SLICES[kernel]):
-        guarded_calls(t)[kernel]()
-    assert launched == []
+    if kernel in BACKWARD_LAUNCHES:
+        got = torch.autograd.grad(guarded_calls(t)[kernel]().sum(), t)[0]
+        assert launched == BACKWARD_LAUNCHES[kernel]
+        monkeypatch.setattr(ops, "_on_host", lambda *t: True)
+        want = torch.autograd.grad(guarded_calls(t)[kernel]().sum(), t)[0]
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+        monkeypatch.setattr(ops, "_on_host", lambda *t: False)
+        launched.clear()
+    else:
+        with pytest.raises(NotImplementedError, match=SLICES[kernel]):
+            guarded_calls(t)[kernel]()
+        assert launched == []
     with torch.no_grad():
         guarded_calls(t)[kernel]()
     guarded_calls(t.detach())[kernel]()
