@@ -19,8 +19,13 @@ Phases (any failure exits non-zero; nothing is caught and carried on past):
            FFMA and 3xTF32 on the tensor cores, and float32 SDPA's, and the
            HGMMA instructions in the SASS of both libraries, neither of
            which may be 0; rwkv6_scan: also at the decode shape, 256 rows
-           of one step; relational_matmul: each of the MLP step's five
-           products timed with the schedule it takes, by events and by the
+           of one step, and at phase 13's training microbatch, 128 rows of
+           4096 steps; rwkv6_scan_bwd: at that microbatch as the layer hands
+           it over ((2, 64, 4096, 64) head-split views, u expanded, nonzero
+           s0 and ds_fin) against the plain backward in float64 at
+           SCAN_TOL, two calls equal bit for bit, timed as training calls
+           it beside its bound and the plain version; relational_matmul:
+           each of the MLP step's five products timed with the schedule it takes, by events and by the
            profiler, beside torch.sparse.mm, every phase-2 case also with
            b in bf16, bit for bit the result for its float32 widening, and
            DeepSeek-V2-Lite's MoE combine, 48,000 tuples into 8000 x 2048,
@@ -168,10 +173,10 @@ Phases (any failure exits non-zero; nothing is caught and carried on past):
            compute beside it as a reading; (c) the reduced Yi-6B on the card
            for 6 steps with a checkpoint every 3 under ``chiprun_out/``: a
            fresh Trainer resumes at 6, every parameter and AdamW leaf equal
-           bit for bit; (d) rwkv6_scan, the one card kernel on an LM path
-           with no backward, refuses an operand that requires grad before
-           it launches.  The device bytes allocated after the phase,
-           cuBLAS's workspaces let go, must equal those before it.
+           bit for bit; (d) fused_sigmoid_matmul, a card kernel with no
+           backward, refuses an operand that requires grad before it
+           launches.  The device bytes allocated after the phase, cuBLAS's
+           workspaces let go, must equal those before it.
 12. moe-train MoE training on the full-width DeepSeek-V2-Lite cut to 5
            layers (the dense first layer and 4 MoE layers, impl="sort";
            2.84 B parameters, 45.4 GB of float32 weights, gradients and
@@ -188,9 +193,22 @@ Phases (any failure exits non-zero; nothing is caught and carried on past):
            (attention through the plain versions, the MoE through ``ref``,
            the routing pinned to the float32 run's experts), phase 11's
            bound, bf16 beside it as a reading.  It frees all it allocates.
+13. rwkv-train RWKV-6 training on the full-width RWKV-6 7B cut to 12
+           layers (3.16 B parameters, 50.58 GB of float32 weights,
+           gradients and AdamW moments), after phase 12: (a) ``Trainer`` as
+           phase 11's for 1 warm step and 3 more, the counts zeroed before
+           and read after: 48 rwkv6_scan (the forward and remat's
+           recompute) and 24 rwkv6_scan_bwd launches a step and no other
+           kernel; each step's wall, tokens/s, loss and grad norm (finite),
+           the peak device memory (under 75 GiB) and one profiled step with
+           the scan kernels' share; (b) on 2 layers at the same width, one
+           microbatch, the loss and every gradient leaf in float32 compute
+           against float64 on the card with the recurrence through the
+           plain versions (``OracleScan``), phase 11's bound, bf16 beside
+           it as a reading.  It frees all it allocates.
 
 ``python3 chip_smoke.py --kernels [name ...]`` runs phases 1 and 2 alone,
-for the named kernels (all eight without a name), and prints no result line:
+for the named kernels (all nine without a name), and prints no result line:
 two trees are compared on one card by running it in each, in turns.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
@@ -1525,6 +1543,7 @@ def check_flash_bwd(mod, report):
 
 
 RWKV_MAIN = (4, 64, 2000, 64)      # RWKV-6 7B prefill: B, H, S, N
+RWKV_TRAIN = (2, 64, 4096, 64)     # phase 13's microbatch: B, H, S, N
 SCAN_TOL = dict(rtol=3e-4, atol=3e-4)         # tests/test_kernels.py
 
 
@@ -1538,16 +1557,40 @@ def rwkv6_bound(rows, s, n):
     return bound_ms(n_bytes, 5 * rows * s * n * n)
 
 
+def rwkv6_bwd_bound(rows, s, n, ds_fin=True, ds0=True):
+    """Bytes of r, k, v, w and do read and dr, dk, dv, dw written once, u
+    and s0 read, du written, ds_fin read and ds0 written where the call
+    has them; operations: 14 FLOPs for each (t, i, j): the four gradient
+    products (dr's S do, dk's G v, dv's G k, dw's G S: an FMA each), G's
+    update (w G + r do: a multiply and an FMA) and the state's (w S + k v:
+    the same), since S_{t-1} has to be had again on the way back."""
+    n_bytes = 4 * (9 * rows * s * n + 2 * rows * n
+                   + (1 + ds_fin + ds0) * rows * n * n)
+    return bound_ms(n_bytes, 14 * rows * s * n * n)
+
+
+def scan_inputs(rng, lead, s, n):
+    """tests/test_kernels.py's inputs: w uniform in [0.4, 0.9), s0 =
+    0.1·randn."""
+    f32 = lambda a: torch.tensor(a, dtype=torch.float32, device="cuda")
+    r, k, v = (f32(rng.randn(*lead, s, n)) for _ in range(3))
+    return (r, k, v, f32(rng.rand(*lead, s, n) * 0.5 + 0.4),
+            f32(rng.randn(*lead, n)), f32(rng.randn(*lead, n, n) * 0.1))
+
+
+def layer_scan_inputs(rng, b, h, s, n):
+    """The layer's call: (B, S, H, N) projections seen as (B, H, S, N), u
+    (H, N) expanded over the batch, s0 from the cache."""
+    f32 = lambda a: torch.tensor(a, dtype=torch.float32, device="cuda")
+    bshn = scan_inputs(rng, (b, s), h, n)[:4]
+    return (*(t.transpose(1, 2) for t in bshn),
+            f32(rng.randn(h, n)).expand(b, h, n),
+            f32(rng.randn(b, h, n, n) * 0.1))
+
+
 def check_rwkv6(mod, report):
     rng = np.random.RandomState(46)
-    f32 = lambda a: torch.tensor(a, dtype=torch.float32, device="cuda")
-
-    def inputs(lead, s, n):
-        """tests/test_kernels.py's inputs: w uniform in [0.4, 0.9), s0 =
-        0.1·randn."""
-        r, k, v = (f32(rng.randn(*lead, s, n)) for _ in range(3))
-        return (r, k, v, f32(rng.rand(*lead, s, n) * 0.5 + 0.4),
-                f32(rng.randn(*lead, n)), f32(rng.randn(*lead, n, n) * 0.1))
+    inputs = lambda lead, s, n: scan_inputs(rng, lead, s, n)
 
     def compare(args, what):
         (o, sf), (po, psf) = mod.rwkv6_scan(*args), mod.plain(*args)
@@ -1565,17 +1608,23 @@ def check_rwkv6(mod, report):
                            f"rwkv6 main {(b * h, s, n)}"))
     # the main path's call: (B, S, H, N) projections seen as (B, H, S, N),
     # u (H, N) expanded over the batch, s0 from the cache
-    bshn = inputs((b, s), h, n)[:4]
-    args = (*(t.transpose(1, 2) for t in bshn),
-            f32(rng.randn(h, n)).expand(b, h, n),
-            f32(rng.randn(b, h, n, n) * 0.1))
+    args = layer_scan_inputs(rng, b, h, s, n)
     err = max(err, compare(args, f"rwkv6 main layer views {RWKV_MAIN}"))
     # the decode shape: the same 256 rows of state, one step each, as the
     # layer's head-split views of (B, 1, H, N) projections
-    dec = (*(t.transpose(1, 2) for t in inputs((b, 1), h, n)[:4]),
-           f32(rng.randn(h, n)).expand(b, h, n),
-           f32(rng.randn(b, h, n, n) * 0.1))
+    dec = layer_scan_inputs(rng, b, h, 1, n)
     err = max(err, compare(dec, f"rwkv6 decode views {(b, h, 1, n)}"))
+    # the training microbatch of phase 13: 128 rows of 4096 steps
+    tb, th, ts, tn = RWKV_TRAIN
+    trn = layer_scan_inputs(rng, tb, th, ts, tn)
+    err = max(err, compare(trn, f"rwkv6 training views {RWKV_TRAIN}"))
+    trn_bound, trn_by = rwkv6_bound(tb * th, ts, tn)
+    train = dict(
+        shape=f"r/k/v/w (B,H,S,N)={RWKV_TRAIN} head-split views, float32",
+        ms=time_ms(lambda: mod.rwkv6_scan(*trn), iters=10),
+        device=device_events(lambda: mod.rwkv6_scan(*trn), 5),
+        bound_ms=trn_bound, bound_by=trn_by)
+    del trn
     dec_bound, dec_by = rwkv6_bound(b * h, 1, n)
     decode = dict(
         shape=f"r/k/v/w (B,H,S,N)={(b, h, 1, n)} head-split views, float32",
@@ -1598,12 +1647,71 @@ def check_rwkv6(mod, report):
         bound_ms=bms, bound_by=by,
         library_ms=None,      # no single PyTorch call runs this recurrence
         shape=f"r/k/v/w (B,H,S,N)={RWKV_MAIN} head-split views, float32",
-        decode=decode)
+        decode=decode, train=train)
     log(f"rwkv6_scan vs plain, max |err| over the sweep, S in {{1, 7, 77}}, "
-        f"the main shape and the decode shape (o and s_fin): {err:.3e} (held "
-        f"at {SCAN_TOL}); decode shape {decode['ms']:.4f} ms a call "
-        f"(events), device {device_ms(decode['device']):.5f} ms, bound "
-        f"{dec_bound:.5f} ms ({dec_by})")
+        f"the main shape, the decode shape and the training microbatch (o "
+        f"and s_fin): {err:.3e} (held at {SCAN_TOL}); decode shape "
+        f"{decode['ms']:.4f} ms a call (events), device "
+        f"{device_ms(decode['device']):.5f} ms, bound {dec_bound:.5f} ms "
+        f"({dec_by}); training microbatch {train['ms']:.4f} ms, device "
+        f"{device_ms(train['device']):.4f} ms, bound {trn_bound:.4f} ms "
+        f"({trn_by})")
+
+
+def check_rwkv6_bwd(mod, report):
+    """rwkv6_scan_bwd at phase 13's microbatch as the layer hands it over,
+    (2, 64, 4096, 64) head-split views, u expanded, nonzero s0 and ds_fin,
+    against the plain backward in float64 at SCAN_TOL, two calls equal bit
+    for bit; then its time beside its bound and the plain version's."""
+    rng = np.random.RandomState(47)
+    b, h, s, n = RWKV_TRAIN
+    args = layer_scan_inputs(rng, b, h, s, n)
+    do = torch.tensor(rng.randn(b, s, h, n), dtype=torch.float32,
+                      device="cuda").transpose(1, 2)
+    ds_fin = torch.tensor(rng.randn(b, h, n, n), dtype=torch.float32,
+                          device="cuda")
+    got = mod.rwkv6_scan_bwd(*args, do, ds_fin)
+    again = mod.rwkv6_scan_bwd(*args, do, ds_fin)
+    if not all(torch.equal(x, y) for x, y in zip(got, again)):
+        raise AssertionError("rwkv6_scan_bwd: two calls differ")
+    want = mod.plain_bwd(*(t.double() for t in (*args, do, ds_fin)))
+    names = ("dr", "dk", "dv", "dw", "du", "ds0")
+    errs = {nm: max_err(g, w.float(), SCAN_TOL, f"rwkv6_scan_bwd {nm}")
+            for nm, g, w in zip(names, got, want, strict=True)}
+    # each gradient's largest |diff| in units of SCAN_TOL at that entry
+    shares = {nm: float(((g.double() - w).abs() / (SCAN_TOL["atol"]
+                         + SCAN_TOL["rtol"] * w.abs())).max())
+              for nm, g, w in zip(names, got, want)}
+    del got, again, want
+    # training's call: no ds_fin (s_fin unused) and no ds0 (s0 is zeros)
+    train_call = lambda: mod.rwkv6_scan_bwd(*args, do, None, False)
+    bms, by = rwkv6_bwd_bound(b * h, s, n, ds_fin=False, ds0=False)
+    events = device_events(train_call, 3)
+    report["rwkv6_scan_bwd"] = dict(
+        name="rwkv6_scan_bwd", route="cuda",
+        source="src/repro_torch/kernels/csrc/rwkv6_scan_bwd.cu",
+        replaces="src/repro/kernels/rwkv6_scan.py:54",    # its gradient
+        max_abs_err=max(errs.values()), errs=errs, tol_shares=shares,
+        ms=time_ms(train_call, iters=5, warmup=1),
+        device=events, device_ms=device_ms(events),
+        plain_ms=time_ms(lambda: mod.plain_bwd(*args, do, None, False),
+                         iters=1, warmup=0),
+        bound_ms=bms, bound_by=by,
+        library_ms=None,      # no single PyTorch call runs this recurrence
+        shape=f"r/k/v/w/do (B,H,S,N)={RWKV_TRAIN} head-split views, "
+              f"u expanded, float32 (held with s0 and ds_fin nonzero; timed "
+              f"as training calls it: ds_fin None, no ds0)")
+    r = report["rwkv6_scan_bwd"]
+    log(f"rwkv6_scan_bwd vs the plain backward in float64 at "
+        f"{RWKV_TRAIN}: max |err| "
+        + ", ".join(f"{nm} {e:.3e}" for nm, e in errs.items())
+        + f"; largest share of {SCAN_TOL}: "
+        + ", ".join(f"{nm} {x:.3f}" for nm, x in shares.items())
+        + f"; two calls equal bit for bit; {r['ms']:.4f} ms a call "
+        f"(events), device {r['device_ms']:.4f} ms ("
+        + ", ".join(f"{short_name(k)} {v['ms']:.4f}"
+                    for k, v in events.items())
+        + f"), plain {r['plain_ms']:.1f} ms, bound {bms:.4f} ms ({by})")
 
 
 # ---------------------------------------------------------------------------
@@ -1645,12 +1753,9 @@ def main_path(counters, core, nn2sql, data_mod, result):
     # launches this path must make: one one-hot transform; per training
     # step 2 fused layers (dense) and 5 relational products (2 forward,
     # Eqs. 8, 10, 11); per inference 2 of each.
-    expected = {"onehot_embed": 1,
-                "fused_sigmoid_matmul": 2 * ITERS + 2,
-                "relational_matmul": 5 * ITERS + 2,
-                "moe_dispatch": 0, "flash_attention": 0,
-                "flash_attention_bwd": 0, "rwkv6_scan": 0,
-                "tuple_dot": 0}
+    expected = {name: 0 for name in counters} | {
+        "onehot_embed": 1, "fused_sigmoid_matmul": 2 * ITERS + 2,
+        "relational_matmul": 5 * ITERS + 2}
     if launches != expected:
         raise AssertionError(f"launches {launches}, expected {expected}")
 
@@ -3133,10 +3238,9 @@ def in_database(counters, core, nn2sql, data_mod, result):
         _, t = timed(lambda: nn2sql.train(graph, w0, x, y_card, DB_ITERS,
                                           eng))
         walls[f"card {kind}"] = t / DB_ITERS
-    expected = {"onehot_embed": 1, "fused_sigmoid_matmul": 2 * DB_ITERS,
-                "relational_matmul": 5 * DB_ITERS, "moe_dispatch": 0,
-                "flash_attention": 0, "flash_attention_bwd": 0,
-                "rwkv6_scan": 0, "tuple_dot": 0}
+    expected = {name: 0 for name in counters} | {
+        "onehot_embed": 1, "fused_sigmoid_matmul": 2 * DB_ITERS,
+        "relational_matmul": 5 * DB_ITERS}
     if launches != expected:
         raise AssertionError(f"in-database (b) launches {launches}, "
                              f"expected {expected}")
@@ -3312,10 +3416,9 @@ def db_shard(counters, core, nn2sql, data_mod, card):
                                                     iters, core.Engine(kind))
     launches = read_launches(counters)
     steps = sum(set(SHARD_ITERS.values()))
-    expected = {"onehot_embed": 1, "fused_sigmoid_matmul": 2 * steps,
-                "relational_matmul": 5 * steps, "moe_dispatch": 0,
-                "flash_attention": 0, "flash_attention_bwd": 0,
-                "rwkv6_scan": 0, "tuple_dot": 0}
+    expected = {name: 0 for name in counters} | {
+        "onehot_embed": 1, "fused_sigmoid_matmul": 2 * steps,
+        "relational_matmul": 5 * steps}
     if launches != expected:
         raise AssertionError(f"db-tier (a) launches {launches}, expected "
                              f"{expected}")
@@ -3551,10 +3654,8 @@ def db_zoo(counters, card):
         eng.close()
 
     launches = read_launches(counters)
-    expected = {"onehot_embed": 0, "fused_sigmoid_matmul": 0,
-                "relational_matmul": 2, "moe_dispatch": 2,
-                "flash_attention": 0, "flash_attention_bwd": 0,
-                "rwkv6_scan": 1, "tuple_dot": 0}
+    expected = {name: 0 for name in counters} | {
+        "relational_matmul": 2, "moe_dispatch": 2, "rwkv6_scan": 1}
     if launches != expected:
         raise AssertionError(f"db-tier (c) launches {launches}, expected "
                              f"{expected}")
@@ -3890,25 +3991,25 @@ def train_restart(card):
 
 
 def train_guard():
-    """(d) rwkv6_scan, the one card kernel on an LM path with no backward,
-    refuses an operand that requires grad, before it launches."""
+    """(d) fused_sigmoid_matmul, a card kernel with no backward (the
+    paper's dense engine differentiates in its own IR), refuses an operand
+    that requires grad, before it launches."""
+    from repro_torch.kernels import fused_sigmoid_matmul as fsm_mod
     from repro_torch.kernels import ops
-    from repro_torch.kernels import rwkv6_scan as scan_mod
     from repro_torch.nn.model import resolve
 
     dev = resolve("cuda")
-    r, k, v = (torch.randn(2, 16, 64, device=dev) for _ in range(3))
-    w = torch.rand(2, 16, 64, device=dev) * 0.5 + 0.4
-    u, s0 = torch.randn(2, 64, device=dev), torch.zeros(2, 64, 64, device=dev)
-    r.requires_grad_()
-    before = scan_mod.rwkv6_scan.launches
+    x = torch.randn(64, 32, device=dev, requires_grad=True)
+    w = torch.randn(32, 16, device=dev)
+    before = fsm_mod.fused_sigmoid_matmul.launches
     expect_raise(NotImplementedError,
-                 lambda: ops.rwkv6_scan(r, k, v, w, u, s0),
-                 "train (d): rwkv6_scan with an operand requiring grad")
-    if scan_mod.rwkv6_scan.launches != before:
+                 lambda: ops.fused_sigmoid_matmul(x, w),
+                 "train (d): fused_sigmoid_matmul with an operand requiring "
+                 "grad")
+    if fsm_mod.fused_sigmoid_matmul.launches != before:
         raise AssertionError("train (d): the guard launched the kernel")
-    log("train (d): rwkv6_scan with an operand that requires grad raised "
-        "NotImplementedError before any launch")
+    log("train (d): fused_sigmoid_matmul with an operand that requires grad "
+        "raised NotImplementedError before any launch")
     return dict(raised=True)
 
 
@@ -4260,6 +4361,318 @@ def moe_train_path(counters, result):
     return out["trainer"]["launches"]
 
 
+# ---------------------------------------------------------------------------
+# phase 13: RWKV-6 training on the full-width RWKV-6 7B, cut in depth
+# ---------------------------------------------------------------------------
+
+# Every published width of RWKV-6 7B (arXiv:2404.05892: d_model 4096, 64
+# heads of 64, d_ff 14336, vocab 65536), cut in depth because one card
+# forces it: float32 parameters, gradients and AdamW's m and v take 16 bytes
+# a parameter, 120.56 GB at 32 layers (7,534,944,256 parameters) and 50.58
+# GB at 12 (3,161,153,536, counted leaf by leaf from the JAX package's
+# LM.init shapes); past 75 GiB at its peak the phase fails, and the depth
+# drops to 10 (2,723,774,464 parameters, 43.58 GB).  Phase 11's traffic and
+# settings: the train_4k sequence, a global batch of 4 in 2 microbatches of
+# 2 x 4096 tokens, AdamW 3e-4, clip 1.0, remat="full", loss "full", 1 warm
+# step and 3 read.
+RWKV_TRAIN_LAYERS = 12
+RWKV_TRAIN_PARAMS = 3_161_153_536
+RWKV_PEAK_LIMIT = 75 * 2 ** 30
+#: device kernels of the RWKV-6 training step by name, for the profile
+RWKV_KERNELS = {"rwkv6_scan (forward)": r"rwkv6_fwd",
+                "rwkv6_scan_bwd": r"rwkv6_bwd"}
+
+
+class OracleScan(torch.autograd.Function):
+    """The recurrence through the plain versions, ``ref.rwkv6_scan``
+    forward and ``ref.rwkv6_scan_bwd`` backward (states recomputed from
+    checkpoints: autograd of the plain loop would keep all 4096 states, 17
+    GB a layer in float64).  An oracle only; the port never calls it."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u, s0):
+        from repro_torch.kernels import ref
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(r, k, v, w, u, s0)
+        return ref.rwkv6_scan(r, k, v, w, u, s0)
+
+    @staticmethod
+    def backward(ctx, do, ds_fin):
+        from repro_torch.kernels import ref
+        r, k, v, w, u, s0 = ctx.saved_tensors
+        if do is None:
+            do = torch.zeros_like(r)
+        return ref.rwkv6_scan_bwd(r, k, v, w, u, s0, do, ds_fin,
+                                  ctx.needs_input_grad[5])
+
+
+def leaf_names(tree, prefix: str = "") -> list[str]:
+    """The path of each leaf of ``tree``, in ``tree.leaves``' order."""
+    if isinstance(tree, dict):
+        return [n for k in sorted(tree)
+                for n in leaf_names(tree[k], f"{prefix}/{k}")]
+    if isinstance(tree, (tuple, list)):
+        return [n for i, v in enumerate(tree)
+                for n in leaf_names(v, f"{prefix}[{i}]")]
+    return [prefix]
+
+
+def scan_at_layer_inputs(cfg, params, batch) -> list[dict]:
+    """Both scan kernels on the operands each layer hands them in a float32
+    training step (remat off, so each layer's o takes its gradient once),
+    against the plain versions in float64: each output's largest |diff| in
+    units of its largest magnitude, and the operands' magnitudes."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import rwkv6_scan as scan_mod
+    from repro_torch.nn import layers
+    from repro_torch.nn.model import LM
+
+    lm = LM(dataclasses.replace(cfg, remat="none"))
+    seen, kernel = [], ops.rwkv6_scan
+
+    def capture(r, k, v, w, u, s0):
+        o, s_fin = kernel(r, k, v, w, u, s0)
+        rec = dict(args=[t.detach() for t in (r, k, v, w, u, s0)])
+        o.register_hook(lambda g: rec.update(do=g.detach()))
+        seen.append(rec)
+        return o, s_fin
+
+    compute = layers.COMPUTE_DTYPE
+    layers.COMPUTE_DTYPE, ops.rwkv6_scan = torch.float32, capture
+    try:
+        value_and_grad(lm, params, batch)
+    finally:
+        layers.COMPUTE_DTYPE, ops.rwkv6_scan = compute, kernel
+    rel = lambda a, w: float((a.double() - w).abs().max()) / float(
+        w.abs().max())
+    out = []
+    for rec in seen:
+        args, do = rec["args"], rec["do"]
+        a64 = [t.double() for t in args]
+        o64, s64 = ref.rwkv6_scan(*a64)
+        o, s_fin = scan_mod.rwkv6_scan(*args)
+        errs = dict(o=rel(o, o64), s_fin=rel(s_fin, s64))
+        del o64, s64, o, s_fin
+        grads = scan_mod.rwkv6_scan_bwd(*args, do, None, False)
+        want = ref.rwkv6_scan_bwd(*a64, do.double(), None, False)
+        errs |= {nm: rel(g, w) for nm, g, w in
+                 zip(("dr", "dk", "dv", "dw", "du"), grads, want)}
+        out.append(dict(
+            errors=errs,
+            max_abs={nm: float(t.abs().max()) for nm, t in
+                     zip(("r", "k", "v", "u", "do"),
+                         (*args[:3], args[4], do))},
+            w_range=(float(args[3].min()), float(args[3].max()))))
+        del a64, grads, want
+    return out
+
+
+def rwkv_train_config(layers: int):
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config("rwkv6_7b"), n_layers=layers)
+
+
+def rwkv_trainer(counters, card):
+    """(a) ``Trainer`` on the 12-layer full-width RWKV-6 7B: the counts are
+    zeroed just before ``run`` and read just after it."""
+    from repro_torch.data import TokenPipeline
+    from repro_torch.nn.model import LM
+    from repro_torch.optim import adamw
+    from repro_torch.train import Trainer
+    from repro_torch.tree import leaves
+
+    cfg = rwkv_train_config(RWKV_TRAIN_LAYERS)
+    lm = LM(cfg)
+    data = TokenPipeline(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                         global_batch=TRAIN_BATCH)
+    trainer = Trainer(lm, adamw(3e-4), data, grad_accum=TRAIN_ACCUM)
+    gen = torch.Generator(device=lm.device)
+    gen.manual_seed(0)
+    log(f"rwkv-train (a): {cfg.name} at {cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.n_heads} heads of {cfg.d_model // cfg.n_heads}"
+        f", d_ff {cfg.d_ff}, vocab {cfg.vocab}, remat {cfg.remat}, loss "
+        f"{cfg.loss_impl}; global batch {TRAIN_BATCH} x {TRAIN_SEQ} in "
+        f"{TRAIN_ACCUM} microbatches, AdamW 3e-4, on {card}")
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches(counters)
+    run = trainer.run(gen, TRAIN_STEPS, log_every=0)
+    launches = read_launches(counters)
+    peak = torch.cuda.max_memory_allocated()
+    params, opt_state, hist = run["params"], run["opt_state"], run["history"]
+    n_params = sum(t.numel() for t in leaves(params))
+    if n_params != RWKV_TRAIN_PARAMS:
+        raise AssertionError(f"rwkv-train (a): {n_params} parameters, "
+                             f"expected {RWKV_TRAIN_PARAMS}")
+    # a microbatch: each layer's recurrence once and once more in remat's
+    # recompute, and one backward
+    per_step = {"rwkv6_scan": 2 * TRAIN_ACCUM * cfg.n_layers,
+                "rwkv6_scan_bwd": TRAIN_ACCUM * cfg.n_layers}
+    expected = {name: 0 for name in counters} | {
+        k: n * TRAIN_STEPS for k, n in per_step.items()}
+    if launches != expected:
+        raise AssertionError(f"rwkv-train (a) launches {launches}, expected "
+                             f"{expected}")
+    if not all(np.isfinite([h["loss"], h["grad_norm"]]).all() for h in hist):
+        raise AssertionError(f"rwkv-train (a): a loss or norm is not "
+                             f"finite: {hist}")
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    step_s = [h["seconds"] for h in hist[1:]]
+    out = dict(
+        model=cfg.name, layers=cfg.n_layers, parameters=n_params,
+        tokens_per_step=tokens, steps=len(hist), history=hist,
+        step_s=step_s, step_s_mean=float(np.mean(step_s)),
+        tokens_per_s=[tokens / t for t in step_s],
+        launches=launches, launches_per_step=per_step, peak_bytes=peak)
+    for h in hist:
+        log(f"rwkv-train (a) step {h['step']}: {h['seconds'] * 1e3:.4f} ms, "
+            f"{tokens / h['seconds']:.1f} tokens/s, loss {h['loss']:.6f}, "
+            f"grad norm {h['grad_norm']:.6f}")
+    log(f"rwkv-train (a): {TRAIN_STEPS} steps, launches {launches} "
+        f"({per_step} a step), peak device memory {peak / 2**30:.2f} GiB")
+    if peak > RWKV_PEAK_LIMIT:
+        raise AssertionError(f"rwkv-train (a): peak {peak / 2**30:.2f} GiB "
+                             "past 75 GiB: drop to 10 layers")
+    batch = data.batch_at(TRAIN_STEPS)
+    out["profile"] = device_profile(
+        lambda: trainer.step_fn(params, opt_state, batch),
+        out["step_s_mean"] * 1e3, "RWKV-6 training step (2 x 2 x 4096 "
+        "tokens)", card, groups=RWKV_KERNELS)
+    return out
+
+
+def rwkv_gradients(card):
+    """(b) loss and every gradient leaf of the 2-layer full-width RWKV-6
+    7B, float32 compute through both scan kernels, against float64 on the
+    card with the recurrence through the plain versions (``OracleScan``);
+    bf16 compute beside it as a sanity reading."""
+    from repro_torch.data import TokenPipeline
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import rwkv6_scan as scan_mod
+    from repro_torch.nn import layers
+    from repro_torch.nn.model import LM
+    from repro_torch.tree import tree_map
+
+    cfg = rwkv_train_config(GRAD_LAYERS)
+    lm = LM(cfg)
+    gen = torch.Generator(device=lm.device)
+    params = lm.init(gen.manual_seed(1))
+    batch = TokenPipeline(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                          global_batch=GRAD_BATCH, seed=1).batch_at(0)
+    compute, accum = layers.COMPUTE_DTYPE, layers.ACCUM_DTYPE
+    wrappers = (scan_mod.rwkv6_scan, scan_mod.rwkv6_scan_bwd)
+    before = [w.launches for w in wrappers]
+    layers.COMPUTE_DTYPE = torch.float32
+    try:
+        (l32, g32), t32 = timed(lambda: value_and_grad(lm, params, batch))
+    finally:
+        layers.COMPUTE_DTYPE = compute
+    got = tuple(w.launches - b for w, b in zip(wrappers, before))
+    if got != (2 * GRAD_LAYERS, GRAD_LAYERS):
+        raise AssertionError(f"rwkv-train (b) float32: scan launches {got}, "
+                             f"expected {(2 * GRAD_LAYERS, GRAD_LAYERS)}")
+    (l16, g16), t16 = timed(lambda: value_and_grad(lm, params, batch))
+    # a reading beside it: float32 with the recurrence through the plain
+    # versions, which no kernel's rounding reaches
+    plain = ops.rwkv6_scan
+    layers.COMPUTE_DTYPE, ops.rwkv6_scan = torch.float32, OracleScan.apply
+    try:
+        (lp, gp), tp = timed(lambda: value_and_grad(lm, params, batch))
+    finally:
+        layers.COMPUTE_DTYPE, ops.rwkv6_scan = compute, plain
+    at_inputs = scan_at_layer_inputs(cfg, params, batch)
+    names = leaf_names(params)
+    p64 = tree_map(lambda t: t.double(), params)
+    del params
+    layers.COMPUTE_DTYPE = layers.ACCUM_DTYPE = torch.float64
+    ops.rwkv6_scan = OracleScan.apply
+    try:
+        (l64, g64), t64 = timed(lambda: value_and_grad(lm, p64, batch))
+        # a reading: the model in float64 with only the recurrence through
+        # the float32 kernels, which bounds what they add to the gradients
+        ops.rwkv6_scan = lambda *a: tuple(
+            t.double() for t in plain(*(x.float() for x in a)))
+        (lk, gk), tk = timed(lambda: value_and_grad(lm, p64, batch))
+    finally:
+        layers.COMPUTE_DTYPE, layers.ACCUM_DTYPE = compute, accum
+        ops.rwkv6_scan = plain
+    del p64
+    loss_rel = abs(float(l32) - float(l64)) / abs(float(l64))
+    ratios32, ratios16, ratiosp, ratiosk = [], [], [], []
+    for a, c, q, x, w in zip(g32, g16, gp, gk, g64, strict=True):
+        scale = float(w.abs().max()) or 1.0
+        ratios32.append(float((a.double() - w).abs().max()) / scale)
+        ratios16.append(float((c.double() - w).abs().max()) / scale)
+        ratiosp.append(float((q.double() - w).abs().max()) / scale)
+        ratiosk.append(float((x - w).abs().max()) / scale)
+    worst = sorted(range(len(names)), key=lambda i: -ratios32[i])[:4]
+    out = dict(layers=GRAD_LAYERS, tokens=GRAD_BATCH * TRAIN_SEQ,
+               loss_f32=float(l32), loss_bf16=float(l16),
+               loss_f32_plain=float(lp), loss_f64=float(l64),
+               loss_rel=loss_rel, grad_ratio_f32=max(ratios32),
+               grad_ratio_bf16=max(ratios16),
+               grad_ratio_f32_plain=max(ratiosp),
+               grad_ratio_f64_kernels=max(ratiosk),
+               loss_f64_kernels=float(lk),
+               ratios_f32=dict(zip(names, ratios32)),
+               ratios_f32_plain=dict(zip(names, ratiosp)),
+               ratios_bf16=dict(zip(names, ratios16)),
+               scan_at_layer_inputs=at_inputs,
+               seconds=dict(f32=t32, bf16=t16, f32_plain=tp, f64=t64,
+                            f64_kernels=tk))
+    log(f"rwkv-train (b) on {card}: loss float32 {float(l32):.8f}, float64 "
+        f"{float(l64):.8f} (relative {loss_rel:.3e}, bound {LOSS_REL}), "
+        f"bf16 {float(l16):.8f}; largest |grad diff| / leaf max over "
+        f"{len(g64)} leaves: float32 {max(ratios32):.3e} (bound "
+        f"{GRAD_REL}), bf16 {max(ratios16):.3e} (a sanity reading), float32 "
+        f"with the recurrence through the plain versions {max(ratiosp):.3e} "
+        f"(a reading), float64 with the recurrence alone through the "
+        f"float32 kernels {max(ratiosk):.3e} (a reading); {t32:.2f} / "
+        f"{t16:.2f} / {tp:.2f} / {t64:.2f} / {tk:.2f} s")
+    log("rwkv-train (b): the largest float32 leaves (kernels / plain "
+        "versions): " + ", ".join(
+            f"{names[i]} {ratios32[i]:.3e} / {ratiosp[i]:.3e}"
+            for i in worst))
+    for i, rec in enumerate(at_inputs):
+        log(f"rwkv-train (b): layer {i}'s scan operands (max |r| "
+            f"{rec['max_abs']['r']:.3f}, |k| {rec['max_abs']['k']:.3f}, |v| "
+            f"{rec['max_abs']['v']:.3f}, w in [{rec['w_range'][0]:.4f}, "
+            f"{rec['w_range'][1]:.4f}], |do| {rec['max_abs']['do']:.3e}): "
+            "the kernels against float64, |diff| / max: " + ", ".join(
+                f"{nm} {e:.3e}" for nm, e in rec["errors"].items()))
+    if loss_rel > LOSS_REL or max(ratios32) > GRAD_REL:
+        raise AssertionError("rwkv-train (b): the float32 gradients miss the "
+                             "float64 oracle")
+    return out
+
+
+def rwkv_train_path(counters, result):
+    """Phase 13; frees everything it allocates (fails otherwise).  Returns
+    (a)'s launches."""
+    card = result["card"]
+    if not torch.cuda.is_available():
+        raise RuntimeError("rwkv-train: no CUDA device")
+    held = held_bytes()
+    t0 = time.perf_counter()
+    out = {"trainer": rwkv_trainer(counters, card)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["gradients"] = rwkv_gradients(card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["wall_s"] = time.perf_counter() - t0
+    workspaces = torch.cuda.memory_allocated() - held
+    left = held_bytes() - held
+    out["memory"] = dict(allocated_before=held, cublas_workspaces=workspaces,
+                         left=left)
+    log(f"rwkv-train: phase 13 in {out['wall_s']:.1f} s; {held} B allocated "
+        f"before it, {workspaces} B more after it, all of them cuBLAS "
+        f"workspaces but {left} B")
+    if left:
+        raise AssertionError(f"rwkv-train: phase 13 left {left} B allocated")
+    result["train_rwkv"] = out
+    return out["trainer"]["launches"]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to drive", file=sys.stderr)
@@ -4323,6 +4736,7 @@ def main() -> int:
         "flash_attention_bwd": lambda: check_flash_bwd(flash_attention,
                                                        report),
         "rwkv6_scan": lambda: check_rwkv6(rwkv6_scan, report),
+        "rwkv6_scan_bwd": lambda: check_rwkv6_bwd(rwkv6_scan, report),
         "tuple_dot": lambda: check_tuple_dot(tuple_dot, report)}
     kernels_only = sys.argv[1:2] == ["--kernels"]
     unknown = set(sys.argv[2:]) - set(checks)
@@ -4357,6 +4771,7 @@ def main() -> int:
                 "flash_attention": flash_attention.flash_attention,
                 "flash_attention_bwd": flash_attention.flash_attention_bwd,
                 "rwkv6_scan": rwkv6_scan.rwkv6_scan,
+                "rwkv6_scan_bwd": rwkv6_scan.rwkv6_scan_bwd,
                 "tuple_dot": tuple_dot.tuple_dot}
     launches = main_path(counters, core, nn2sql, data_mod, result)
     profile_step(counters, core, nn2sql, data_mod, result)
@@ -4364,7 +4779,8 @@ def main() -> int:
     # paper's pipeline (phase 3), flash_attention on Yi-6B's serving path
     # (phase 5), rwkv6_scan on RWKV-6's (phase 6), moe_dispatch on
     # DeepSeek-V2-Lite's (phase 7), flash_attention_bwd on Yi-6B's training
-    # path (phase 11), tuple_dot on DeepSeek-V2-Lite's (phase 12)
+    # path (phase 11), tuple_dot on DeepSeek-V2-Lite's (phase 12),
+    # rwkv6_scan_bwd on RWKV-6's (phase 13)
     launches["flash_attention"] = serve_path(counters, result)[
         "flash_attention"]
     launches["rwkv6_scan"] = serve_rwkv(counters, result)["rwkv6_scan"]
@@ -4376,6 +4792,8 @@ def main() -> int:
     launches["flash_attention_bwd"] = train_path(counters, result)[
         "flash_attention_bwd"]
     launches["tuple_dot"] = moe_train_path(counters, result)["tuple_dot"]
+    launches["rwkv6_scan_bwd"] = rwkv_train_path(counters, result)[
+        "rwkv6_scan_bwd"]
 
     line = {"kernels": [
         {k: r[k] for k in ("name", "route", "source", "replaces")}

@@ -25,7 +25,7 @@ CSRC = Path(__file__).with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 SOURCES = ("relational_matmul", "fused_sigmoid_matmul", "onehot_embed",
            "moe_dispatch", "flash_attention", "flash_attention_tc",
-           "flash_attention_bwd", "rwkv6_scan", "tuple_dot")
+           "flash_attention_bwd", "rwkv6_scan", "rwkv6_scan_bwd", "tuple_dot")
 #: sm_90a (not sm_90) keeps wgmma/setmaxnreg available to later kernels;
 #: no --use_fast_math: the sigmoid and the softmax keep full-precision expf.
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

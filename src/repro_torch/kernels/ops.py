@@ -7,18 +7,20 @@ version through here.  (The JAX package's ``ops`` chooses with
 ``use_pallas=``; here the device decides.)
 
 Gradients.  On the CPU autograd differentiates the plain versions.  On the
-card three entry points are ``torch.autograd.Function``s whose backward runs
-kernels: ``flash_attention`` (the ``flash_attention_bwd`` kernel),
-``relational_matmul`` and ``moe_combine`` (``_RelationalMatmul``), and
-``moe_dispatch`` (``_MoeDispatch``).  The last two follow the paper's
-Algorithm 1: the gradient of a join + group-by with respect to its dense
-operand is a join + group-by over the transposed relation (Eqs. 10/11), the
-``relational_matmul`` kernel again, and with respect to the relation's
-values one dot product a tuple, the ``tuple_dot`` kernel.  The other
-kernels have no backward kernel: with grad mode on and a CUDA operand that
-requires grad they raise ``NotImplementedError`` naming where one comes
-from, before any launch, rather than return a result with no ``grad_fn``
-(which would leave the parameters upstream without a gradient, silently).
+card four kinds of entry point are ``torch.autograd.Function``s whose
+backward runs kernels: ``flash_attention`` (the ``flash_attention_bwd``
+kernel), ``relational_matmul`` and ``moe_combine`` (``_RelationalMatmul``),
+``moe_dispatch`` (``_MoeDispatch``) and ``rwkv6_scan`` (``_Rwkv6Scan``, the
+``rwkv6_scan_bwd`` kernel: the recurrence walked back in time).  The MoE
+ones follow the paper's Algorithm 1: the gradient of a join + group-by with
+respect to its dense operand is a join + group-by over the transposed
+relation (Eqs. 10/11), the ``relational_matmul`` kernel again, and with
+respect to the relation's values one dot product a tuple, the ``tuple_dot``
+kernel.  The two other kernels, the paper engines' ``fused_sigmoid_matmul``
+and ``onehot_embed``, have no backward kernel: with grad mode on and a CUDA
+operand that requires grad they raise ``NotImplementedError`` naming why,
+before any launch, rather than return a result with no ``grad_fn`` (which
+would leave the parameters upstream without a gradient, silently).
 """
 from __future__ import annotations
 
@@ -33,6 +35,7 @@ from .moe_dispatch import moe_dispatch as _moe_cuda
 from .onehot_embed import onehot_embed as _embed_cuda
 from .relational_matmul import relational_matmul as _relmm_cuda
 from .rwkv6_scan import rwkv6_scan as _rwkv6_cuda
+from .rwkv6_scan import rwkv6_scan_bwd as _rwkv6_bwd_cuda
 from .tuple_dot import tuple_dot as _tuple_dot_cuda
 
 
@@ -48,10 +51,8 @@ def _on_host(*operands: torch.Tensor) -> bool:
                      "CPU or all on CUDA")
 
 
-#: kernel → where its backward comes from (the message of the guard)
+#: kernel with no backward kernel → why (the message of the guard)
 _NO_BACKWARD = {
-    "rwkv6_scan": "ROADMAP.md, the second slice after LM training: RWKV-6 "
-                  "training (a reverse-time scan kernel)",
     "fused_sigmoid_matmul": "no slice brings one: the paper's dense engine "
                             "differentiates in its own IR (Algorithm 1)",
     "onehot_embed": "no slice brings one: the one-hot label transform takes "
@@ -255,12 +256,41 @@ def flash_attention(q, k, v, causal: bool = True, scale=None,
     return _FlashAttention.apply(q, k, v, causal, scale).to(out_dtype)
 
 
+class _Rwkv6Scan(torch.autograd.Function):
+    """rwkv6_scan on the card under autograd: the forward kernel as it is,
+    r, k, v, w, u and s0 saved; the backward the ``rwkv6_scan_bwd`` kernel
+    (which recomputes the states, so o and s_fin are not kept).  An unused
+    output's gradient arrives as None (materialize off): s_fin's in
+    training, where ds_fin is then 0; ds0 is written only where s0
+    requires grad.  du comes per row of state, in u's shape: where u is
+    the layer's (H, N) expanded over the batch, autograd sums it."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u, s0):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(r, k, v, w, u, s0)
+        return _rwkv6_cuda(r, k, v, w, u, s0)
+
+    @staticmethod
+    def backward(ctx, do, ds_fin):
+        r, k, v, w, u, s0 = ctx.saved_tensors
+        if do is None:
+            do = torch.zeros_like(r)
+        elif do.stride(-1) != 1:
+            do = do.contiguous()
+        grads = _rwkv6_bwd_cuda(r, k, v, w, u, s0, do, ds_fin,
+                                ctx.needs_input_grad[5])
+        return tuple(g if need else None
+                     for g, need in zip(grads, ctx.needs_input_grad))
+
+
 def rwkv6_scan(r, k, v, w, u, s0):
     """(o, s_fin) of the RWKV-6 recurrence; see ``rwkv6_scan.py`` for the
-    shapes ((BH, S, N) or (B, H, S, N))."""
+    shapes ((BH, S, N) or (B, H, S, N)).  Differentiable on both routes: on
+    the card through ``_Rwkv6Scan`` (with no operand that requires grad, or
+    under ``no_grad``, the forward kernel alone, nothing recorded)."""
     if _on_host(r, k, v, w, u, s0):
         return ref.rwkv6_scan(r, k, v, w, u, s0)
-    _no_grad_through("rwkv6_scan", r, k, v, w, u, s0)
     r, k, v, w, u = (t if t.stride(-1) == 1 else t.contiguous()
                      for t in (r, k, v, w, u))
-    return _rwkv6_cuda(r, k, v, w, u, s0.contiguous())
+    return _Rwkv6Scan.apply(r, k, v, w, u, s0.contiguous())

@@ -180,3 +180,67 @@ def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                  state + u[..., :, None] * kv))
         state = w[..., t, :, None] * state + kv
     return torch.stack(outs, dim=-2), state
+
+
+def rwkv6_scan_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   w: torch.Tensor, u: torch.Tensor, s0: torch.Tensor,
+                   do: torch.Tensor, ds_fin: torch.Tensor | None = None,
+                   want_ds0: bool = True):
+    """(dr, dk, dv, dw, du, ds0) of ``rwkv6_scan(r, k, v, w, u, s0)`` for
+    the output gradient ``do`` and the final state's ``ds_fin`` (None: 0):
+    an explicit reverse-time loop, not autograd.  With G_t = dL/dS_t,
+    G_T = ds_fin, going back from t = T:
+
+        dr_t = S_{t-1} do_t + u ∘ k_t (v_t·do_t)
+        dk_t = G_t v_t + u ∘ r_t (v_t·do_t)
+        dv_t = G_tᵀ k_t + (Σ_i u_i r_t[i] k_t[i]) do_t
+        dw_t = rowsum(G_t ∘ S_{t-1});   du += r_t ∘ k_t (v_t·do_t)
+        G_{t-1} = diag(w_t) G_t + r_t do_tᵀ;   ds0 = G_0
+
+    S_{t-1} is never recovered by dividing by w_t (which may underflow):
+    the forward keeps S every 64 steps, and each chunk's states are
+    recomputed from its checkpoint on the way back, so no more than
+    S / 64 + 64 states are alive at once (autograd of ``rwkv6_scan`` keeps
+    all S: 17 GB a layer in float64 at RWKV-6 7B's training microbatch).
+    Shapes as ``rwkv6_scan``'s, (BH, S, N) or (B, H, S, N); du in u's
+    leading shape (per row of state: autograd sums it over an expand), ds0
+    in s0's (None unless ``want_ds0``).  In float32, float64 where s0 or do
+    is (the card's oracle)."""
+    acc = torch.promote_types(torch.promote_types(s0.dtype, do.dtype),
+                              torch.float32)
+    r, k, v, w, u, s, do = (t.to(acc) for t in (r, k, v, w, u, s0, do))
+    lead = torch.broadcast_shapes(r.shape[:-2], u.shape[:-1],
+                                  s.shape[:-2])
+    seq, chunk = r.shape[-2], 64
+    ckpts = []
+    for t in range(seq):
+        if t % chunk == 0:
+            ckpts.append(s)
+        s = w[..., t, :, None] * s + k[..., t, :, None] * v[..., t, None, :]
+    g = (torch.zeros_like(s) if ds_fin is None
+         else ds_fin.to(acc).expand_as(s).clone())
+    dr, dk, dv, dw = (torch.empty((*lead, seq, r.shape[-1]), dtype=acc,
+                                  device=r.device) for _ in range(4))
+    du = torch.zeros((*lead, r.shape[-1]), dtype=acc, device=r.device)
+    c = (v * do).sum(-1)                                  # v_t·do_t
+    for ci in reversed(range(len(ckpts))):
+        t0, t1 = ci * chunk, min(seq, (ci + 1) * chunk)
+        s, hist = ckpts[ci], []
+        for t in range(t0, t1):                # S_{t-1} for t in the chunk
+            hist.append(s)
+            s = w[..., t, :, None] * s \
+                + k[..., t, :, None] * v[..., t, None, :]
+        for t in reversed(range(t0, t1)):
+            sp, ct = hist[t - t0], c[..., t, None]
+            r_t, k_t, v_t, w_t, do_t = (x[..., t, :] for x in (r, k, v, w,
+                                                                do))
+            dr[..., t, :] = torch.einsum("...ij,...j->...i", sp, do_t) \
+                + u * k_t * ct
+            dk[..., t, :] = torch.einsum("...ij,...j->...i", g, v_t) \
+                + u * r_t * ct
+            dv[..., t, :] = torch.einsum("...ij,...i->...j", g, k_t) \
+                + (u * r_t * k_t).sum(-1, keepdim=True) * do_t
+            dw[..., t, :] = (g * sp).sum(-1)
+            du = du + r_t * k_t * ct
+            g = w_t[..., :, None] * g + r_t[..., :, None] * do_t[..., None, :]
+    return dr, dk, dv, dw, du, g if want_ds0 else None

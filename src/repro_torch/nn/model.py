@@ -56,9 +56,9 @@ kernels, and ``flash_attention_bwd`` for the gradient.  The moe family
 with ``impl="sort"`` trains there too: ``moe_dispatch`` and
 ``relational_matmul`` forward, and in the backward ``relational_matmul``
 over the transposed relations and ``tuple_dot`` for the gates
-(``kernels/ops.py``).  Only the ssm family still raises on the card
-(``rwkv6_scan`` has no backward kernel yet) and trains on the CPU alone,
-through the plain versions.  Every layer
+(``kernels/ops.py``).  The ssm family trains there through
+``rwkv6_scan`` forward and ``rwkv6_scan_bwd``, the recurrence walked back
+in time.  Every layer
 loop unbinds the stacked leaves once (``_layers``) rather than indexing
 them layer by layer: under autograd, ``leaf[i]`` would build a zero
 gradient of the whole (L, ...) leaf for every layer.

@@ -7,9 +7,11 @@ data-dependent *vector* decay w_t,
     o_t = r_t · (S_{t-1} + diag(u) k_t v_tᵀ)
     S_t = diag(w_t) S_{t-1} + k_t v_tᵀ
 
-The JAX layer runs the recurrence as a ``lax.scan`` over time; here it goes
-through ``ops.rwkv6_scan``: the ``rwkv6_scan`` kernel on the card, its plain
-version (the same loop over time) on the CPU.  r, k and v go to float32
+The JAX layer runs the recurrence as a ``lax.scan`` over time (and trains
+through ``jax.grad`` of it); here it goes through ``ops.rwkv6_scan``: the
+``rwkv6_scan`` kernel on the card, with the ``rwkv6_scan_bwd`` kernel as its
+gradient, and its plain version (the same loop over time, differentiated by
+autograd) on the CPU.  r, k and v go to float32
 before the recurrence, and the decay, the per-head group norm and the
 carried states are float32, as in the JAX layer (``layers.ACCUM_DTYPE``).
 

@@ -673,6 +673,134 @@ def test_rwkv6_scan_kernel_time_edges(cuda, n, s, layout):
 
 
 # ---------------------------------------------------------------------------
+# rwkv6_scan_bwd: the recurrence's gradient against the plain backward in
+# float64 on the card
+# ---------------------------------------------------------------------------
+
+BWD_NAMES = ("dr", "dk", "dv", "dw", "du", "ds0")
+
+
+def scan_bwd_oracle(args, do, ds_fin):
+    return scan_mod.plain_bwd(*(t.double() for t in args), do.double(),
+                              None if ds_fin is None else ds_fin.double())
+
+
+def check_scan_bwd(got, want):
+    for name, g, w in zip(BWD_NAMES, got, want, strict=True):
+        assert g.dtype == torch.float32 and g.shape == w.shape, name
+        torch.testing.assert_close(g, w.float(), msg=name, **SCAN)
+
+
+@pytest.mark.parametrize("bh,s,n", [(2, 32, 16), (4, 64, 32), (1, 128, 64),
+                                    (3, 1, 64), (3, 7, 32), (5, 77, 64)])
+@pytest.mark.parametrize("with_ds_fin", [False, True])
+def test_rwkv6_scan_bwd_kernel(cuda, bh, s, n, with_ds_fin):
+    """The forward's shape list as the JAX kernel takes it, (BH, S, N),
+    with a zero (None) and a nonzero ds_fin."""
+    rng = np.random.RandomState(7 * s + n)
+    args = scan_inputs(rng, (bh,), s, n, cuda)
+    do = rnd(rng, bh, s, n, device=cuda)
+    ds_fin = rnd(rng, bh, n, n, device=cuda) if with_ds_fin else None
+    before = scan_mod.rwkv6_scan_bwd.launches
+    got = scan_mod.rwkv6_scan_bwd(*args, do, ds_fin)
+    assert scan_mod.rwkv6_scan_bwd.launches == before + 1
+    check_scan_bwd(got, scan_bwd_oracle(args, do, ds_fin))
+
+
+def layer_views(rng, b, h, s, n, device, layout):
+    """r, k, v, w and do as the layer hands them over: dense (B, H, S, N),
+    head-split views of (B, S, H, N) (16-byte copies), or such views whose
+    bases sit 4 bytes off 16 (4-byte copies); u (H, N) expanded over the
+    batch; s0."""
+    seq = list(scan_inputs(rng, (b, s), h, n, device)[:4])
+    seq.append(rnd(rng, b, s, h, n, device=device))
+    if layout == "dense":
+        seq = [t.transpose(1, 2).contiguous() for t in seq]
+    else:
+        if layout == "misaligned":
+            seq = [torch.cat([t.new_zeros(1), t.reshape(-1)])[1:]
+                   .view(t.shape) for t in seq]
+            assert all(t.data_ptr() % 16 == 4 for t in seq)
+        seq = [t.transpose(1, 2) for t in seq]
+    u = rnd(rng, h, n, device=device).expand(b, h, n)
+    s0 = rnd(rng, b, h, n, n, device=device) * 0.1
+    return (*seq[:4], u, s0), seq[4]
+
+
+@pytest.mark.parametrize("n", scan_mod.HEAD_DIMS)
+@pytest.mark.parametrize("s", [1, 7, 8, 9, 17, 2000])
+@pytest.mark.parametrize("layout", ["dense", "views", "misaligned"])
+def test_rwkv6_scan_bwd_kernel_time_edges(cuda, n, s, layout):
+    """Every head dim over the edges of the checkpoints (every 8 steps; the
+    dv kernel's chunks are 16) and a long S, in the layer's layouts, a
+    nonzero ds_fin; dr, dk, dv and dw come in
+    their operand's memory layout where it is dense, du per row of state,
+    and no operand is written."""
+    rng = np.random.RandomState(s + 3 * n)
+    b, h = 2, 3
+    args, do = layer_views(rng, b, h, s, n, cuda, layout)
+    ds_fin = rnd(rng, b, h, n, n, device=cuda)
+    kept = [t.clone() for t in (*args, do, ds_fin)]
+    got = scan_mod.rwkv6_scan_bwd(*args, do, ds_fin)
+    check_scan_bwd(got, scan_bwd_oracle(args, do, ds_fin))
+    if layout == "views":
+        assert all(g.stride() == a.stride() for g, a in zip(got, args[:4]))
+    assert got[4].shape == (b, h, n)
+    assert all(torch.equal(a, c) for a, c in zip((*args, do, ds_fin), kept))
+
+
+def test_rwkv6_scan_bwd_kernel_at_the_training_microbatch(cuda):
+    """RWKV-6 7B's training microbatch as the layer hands it over, (2, 64,
+    4096, 64) head-split views, u expanded, nonzero s0 and ds_fin; two
+    calls equal bit for bit."""
+    rng = np.random.RandomState(25)
+    args, do = layer_views(rng, 2, 64, 4096, 64, cuda, "views")
+    ds_fin = rnd(rng, 2, 64, 64, 64, device=cuda)
+    got = scan_mod.rwkv6_scan_bwd(*args, do, ds_fin)
+    again = scan_mod.rwkv6_scan_bwd(*args, do, ds_fin)
+    assert all(torch.equal(a, c) for a, c in zip(got, again))
+    check_scan_bwd(got, scan_bwd_oracle(args, do, ds_fin))
+
+
+def test_rwkv6_scan_autograd_on_the_card(cuda):
+    """ops.rwkv6_scan records ``_Rwkv6Scan`` on operands that require grad:
+    one forward and one backward launch, and the gradient is the kernel's
+    (s_fin unused: ds_fin None; s0 needs none: no ds0), u's summed over
+    its expand."""
+    rng = np.random.RandomState(26)
+    b, h, s, n = 2, 4, 100, 64
+    (r, k, v, w, u, s0), do = layer_views(rng, b, h, s, n, cuda, "views")
+    u_param = u[0].clone().requires_grad_()
+    leaves = [t.detach().requires_grad_() for t in (r, k, v, w)]
+    f0 = scan_mod.rwkv6_scan.launches
+    b0 = scan_mod.rwkv6_scan_bwd.launches
+    o, _ = ops.rwkv6_scan(*leaves, u_param.expand(b, h, n), s0)
+    got = torch.autograd.grad(o, leaves + [u_param], do)
+    assert (scan_mod.rwkv6_scan.launches - f0,
+            scan_mod.rwkv6_scan_bwd.launches - b0) == (1, 1)
+    want = scan_mod.rwkv6_scan_bwd(r, k, v, w, u, s0, do, None, False)
+    assert want[5] is None
+    for g, c in zip(got[:4], want[:4]):
+        assert torch.equal(g, c)
+    assert torch.equal(got[4], want[4].sum(0))
+
+
+def test_rwkv6_scan_bwd_kernel_refusals(cuda):
+    r, k, v, w, u, s0 = scan_inputs(np.random.RandomState(27), (2,), 8, 32,
+                                    cuda)
+    do = torch.ones_like(r)
+    with pytest.raises(TypeError, match="float32"):
+        scan_mod.rwkv6_scan_bwd(r, k, v, w, u, s0, do.to(torch.bfloat16))
+    with pytest.raises(ValueError, match="of one shape"):
+        scan_mod.rwkv6_scan_bwd(r, k, v, w, u, s0, do[:, :4])
+    with pytest.raises(ValueError, match="ds_fin"):
+        scan_mod.rwkv6_scan_bwd(r, k, v, w, u, s0, do, s0[:1])
+    with pytest.raises(ValueError, match="unit stride"):
+        scan_mod.rwkv6_scan_bwd(r, k, v, w, u, s0, do.transpose(1, 2)
+                                .contiguous().transpose(1, 2))
+
+
+# ---------------------------------------------------------------------------
 # the DAG zoo in SQL against the kernels (chip_smoke.py phase 10 (c))
 # ---------------------------------------------------------------------------
 
@@ -890,18 +1018,19 @@ def test_flash_attention_autograd_on_the_card(cuda, dtype, bf16_scores):
 
 
 def test_kernels_without_a_backward_raise_on_the_card(cuda):
-    """rwkv6_scan (the one card kernel on an LM path with no backward) with
-    an operand that requires grad raises before it launches; under
-    no_grad it runs."""
-    args = list(scan_inputs(np.random.RandomState(11), (2,), 8, 64, cuda))
-    args[0].requires_grad_()
-    before = scan_mod.rwkv6_scan.launches
-    with pytest.raises(NotImplementedError, match="RWKV-6 training"):
-        ops.rwkv6_scan(*args)
-    assert scan_mod.rwkv6_scan.launches == before
+    """fused_sigmoid_matmul (a card kernel with no backward: the paper's
+    dense engine differentiates in its own IR) with an operand that
+    requires grad raises before it launches; under no_grad it runs."""
+    rng = np.random.RandomState(11)
+    x, w = rnd(rng, 64, 32, device=cuda), rnd(rng, 32, 16, device=cuda)
+    x.requires_grad_()
+    before = fsm_mod.fused_sigmoid_matmul.launches
+    with pytest.raises(NotImplementedError, match="own IR"):
+        ops.fused_sigmoid_matmul(x, w)
+    assert fsm_mod.fused_sigmoid_matmul.launches == before
     with torch.no_grad():
-        ops.rwkv6_scan(*args)
-    assert scan_mod.rwkv6_scan.launches == before + 1
+        ops.fused_sigmoid_matmul(x, w)
+    assert fsm_mod.fused_sigmoid_matmul.launches == before + 1
 
 
 # the MoE layer's training shape at DeepSeek-V2-Lite's widths (a microbatch

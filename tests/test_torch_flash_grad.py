@@ -142,22 +142,24 @@ def guarded_calls(t):
         "moe_combine": lambda: ops.moe_combine(t, i32(4), 4),
         "rwkv6_scan": lambda: ops.rwkv6_scan(
             t[None, None], t[None, None], t[None, None], t[None, None],
-            t[0][None], t[None]),
+            t[:1][None], t[None, None])[0],
     }
 
 
-SLICES = {"rwkv6_scan": "RWKV-6 training", "fused_sigmoid_matmul": "own IR",
-          "onehot_embed": "no gradient"}
-#: the MoE kernels, whose card route is an autograd Function since MoE
-#: training: the kernels a call with ``t`` requiring grad launches, its
-#: forward then its backward (d t over the transposed relation; the
-#: values are constant, so no tuple_dot)
+SLICES = {"fused_sigmoid_matmul": "own IR", "onehot_embed": "no gradient"}
+#: the kernels whose card route is an autograd Function (the MoE ones since
+#: MoE training, rwkv6_scan since RWKV-6 training): the kernels a call with
+#: ``t`` requiring grad launches, its forward then its backward (for the
+#: MoE ones d t over the transposed relation; the values are constant, so
+#: no tuple_dot)
 BACKWARD_LAUNCHES = {
     "relational_matmul": ["_relmm_cuda", "_relmm_cuda"],
     "moe_dispatch": ["_moe_cuda", "_relmm_cuda"],
-    "moe_combine": ["_relmm_cuda", "_relmm_cuda"]}
+    "moe_combine": ["_relmm_cuda", "_relmm_cuda"],
+    "rwkv6_scan": ["_rwkv6_cuda", "_rwkv6_bwd_cuda"]}
 PLAIN = {"_relmm_cuda": ref.relational_matmul, "_moe_cuda": ref.moe_dispatch,
-         "_tuple_dot_cuda": ref.tuple_dot}
+         "_tuple_dot_cuda": ref.tuple_dot, "_rwkv6_cuda": ref.rwkv6_scan,
+         "_rwkv6_bwd_cuda": ref.rwkv6_scan_bwd}
 
 
 @pytest.mark.parametrize("kernel", sorted(SLICES | BACKWARD_LAUNCHES))
@@ -167,12 +169,13 @@ def test_kernels_without_a_backward_raise_before_they_launch(monkeypatch,
     requires grad, each wrapper of a kernel without a backward raises
     NotImplementedError naming where its backward comes from, and no
     kernel is called; without grad (or under ``no_grad``) the same call
-    reaches the kernel.  The three MoE entry points have a backward now:
-    the same call records one, its gradient is autograd's of the plain
-    version, and the backward launches kernels (``BACKWARD_LAUNCHES``)."""
+    reaches the kernel.  The three MoE entry points and rwkv6_scan have a
+    backward now: the same call records one, its gradient is autograd's of
+    the plain version, and the backward launches kernels
+    (``BACKWARD_LAUNCHES``)."""
     launched = []
     for name in ("_relmm_cuda", "_fsm_cuda", "_embed_cuda", "_moe_cuda",
-                 "_rwkv6_cuda", "_tuple_dot_cuda"):
+                 "_rwkv6_cuda", "_rwkv6_bwd_cuda", "_tuple_dot_cuda"):
         monkeypatch.setattr(ops, name, lambda *a, _n=name, **kw: (
             launched.append(_n), PLAIN[_n](*a, **kw) if _n in PLAIN
             else torch.zeros(()))[1])
