@@ -22,9 +22,15 @@ Phases (any failure exits non-zero; nothing is caught and carried on past):
            of one step, and at phase 13's training microbatch, 128 rows of
            4096 steps; rwkv6_scan_bwd: at that microbatch as the layer hands
            it over ((2, 64, 4096, 64) head-split views, u expanded, nonzero
-           s0 and ds_fin) against the plain backward in float64 at
-           SCAN_TOL, two calls equal bit for bit, timed as training calls
-           it beside its bound and the plain version; relational_matmul:
+           s0 and ds_fin), on tests/test_kernels.py's decays and on wide
+           ones (exp(-exp(x)), x in [-6, 5): exact zeros), against the
+           plain backward in float64 at SCAN_TOL, every output finite, two
+           calls equal bit for bit, timed as training calls it (each
+           launch's device time) beside its bound, the chunked design's own
+           FLOP and byte count, the plain version and the first design's
+           time (a walk back from checkpoints of the state), with
+           its scratch bytes and the tensor-core MMA instructions in its
+           SASS, which may not be 0; relational_matmul:
            each of the MLP step's five products timed with the schedule it takes, by events and by the
            profiler, beside torch.sparse.mm, every phase-2 case also with
            b in bf16, bit for bit the result for its float32 widening, and
@@ -210,6 +216,12 @@ Phases (any failure exits non-zero; nothing is caught and carried on past):
 ``python3 chip_smoke.py --kernels [name ...]`` runs phases 1 and 2 alone,
 for the named kernels (all nine without a name), and prints no result line:
 two trees are compared on one card by running it in each, in turns.
+
+``python3 chip_smoke.py --rwkv-margin`` runs phase 1 and phase 13 (b)
+alone, with where (b)'s float32 margin comes from: the float64 model with
+one op group at a time in float32 (the group norm, the token-shift mixes,
+the layers' products, the scan kernels); it prints no result line and
+writes ``chiprun_out/chip_smoke_margin.json``.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
 line before it lists the kernels as JSON.  Details also go to
@@ -675,6 +687,10 @@ def check_tuple_dot(mod, report):
         f"{bms:.4f} ms ({by})")
 
 
+#: the profiler sessions ``profiled`` ran again, in this run
+PROFILER_RETRIES: list[dict] = []
+
+
 def profiled(fn, calls: int = 1, sessions: int = 3) -> list:
     """The device events of ``calls`` calls of ``fn`` under torch.profiler,
     in order.  The session runs ``fn`` once first, then three groups of
@@ -684,9 +700,12 @@ def profiled(fn, calls: int = 1, sessions: int = 3) -> list:
     events were at times missing from it (one or two after an idle spell
     or many launches; once, in all three sessions of a call, everything
     before the calls: ``fn``'s run and a single group of markers), and
-    where ``fn`` is one kernel those can take the markers with them.  A
-    session that holds none of its markers is run again, up to
-    ``sessions`` in all."""
+    where ``fn`` is one kernel those can take the markers with them; once,
+    a session held its markers and none of the calls' events after them).
+    A session that holds none of its markers, or nothing after the last,
+    is run again, up to ``sessions`` in all, and logged in
+    ``PROFILER_RETRIES`` with the kernels it held before its markers
+    (``fn``'s first run)."""
     from torch.profiler import ProfilerActivity, profile
 
     for session in range(1, sessions + 1):
@@ -706,11 +725,19 @@ def profiled(fn, calls: int = 1, sessions: int = 3) -> list:
                          if e.device_type == torch.autograd.DeviceType.CUDA),
                         key=lambda e: e.time_range.start)
         marks = [i for i, e in enumerate(events) if "spin_kernel" in e.name]
-        if marks:
+        if marks and marks[-1] + 1 < len(events):
             return events[marks[-1] + 1:]
-        log(f"profiler session {session} of {sessions} held none of its "
-            f"marker kernels ({len(events)} device events)")
-    raise AssertionError("the profiler's events lack the marker kernel")
+        before = sorted({short_name(e.name)
+                         for e in events[:marks[0] if marks else None]})
+        PROFILER_RETRIES.append(dict(session=session, events=len(events),
+                                     markers=len(marks), before=before))
+        log(f"profiler session {session} of {sessions} held "
+            + ("no event after its last marker kernel" if marks else
+               "none of its marker kernels")
+            + f" ({len(events)} device events; before the markers: "
+            + (", ".join(before) or "none") + ")")
+    raise AssertionError("no profiler session held the calls' events after "
+                         "its marker kernels")
 
 
 def device_events(fn, calls: int = 20) -> dict:
@@ -1563,10 +1590,15 @@ def rwkv6_bwd_bound(rows, s, n, ds_fin=True, ds0=True):
     has them; operations: 14 FLOPs for each (t, i, j): the four gradient
     products (dr's S do, dk's G v, dv's G k, dw's G S: an FMA each), G's
     update (w G + r do: a multiply and an FMA) and the state's (w S + k v:
-    the same), since S_{t-1} has to be had again on the way back."""
+    the same), since S_{t-1} has to be had again on the way back.  They
+    run where the kernel runs them, on the tensor cores in 3xTF32: three
+    TF32 products for each float32 one, at the TF32 peak (as
+    ``flash_bound_tf32``).  Also the float32 pipes' time for them."""
     n_bytes = 4 * (9 * rows * s * n + 2 * rows * n
                    + (1 + ds_fin + ds0) * rows * n * n)
-    return bound_ms(n_bytes, 14 * rows * s * n * n)
+    flops = 14 * rows * s * n * n
+    return (*bound_ms(n_bytes, 3 * flops, TF32_FLOPS),
+            flops / F32_FLOPS * 1e3)
 
 
 def scan_inputs(rng, lead, s, n):
@@ -1658,60 +1690,156 @@ def check_rwkv6(mod, report):
         f"({trn_by})")
 
 
+#: rwkv6_scan_bwd at the training microbatch in its first design, a walk back
+#: from checkpoints of the state (PERF.md §6; NVIDIA H100 80GB HBM3,
+#: 700.00 W), printed for reference
+RWKV_BWD_FIRST_DESIGN_MS = 4.8617
+
+
+def rwkv6_bwd_design(rows, s, n, ds_fin=True, ds0=True, chunk=64, sub=16):
+    """The work of the chunked design (``csrc/rwkv6_scan_bwd.cu``'s note):
+    (product FLOPs, TF32 MMA FLOPs = 3 x them, float32-pipe FLOPs, bytes).
+    Products: the walk over the chunks, an (n x chunk)(chunk x n) product a
+    chunk each way (the forward skips its last); in each chunk G's and P's
+    updates between its sub-chunks and, for every sub-chunk, Y, Z and U
+    (sub x n x n) and M (sub x sub x n).  float32 pipes, a row of a
+    sub-chunk: 11 FLOPs a step pair for dr, dk, dw (the three sums, Q's
+    update, the decay), 4 for Bm, 2 for dv.  Bytes: r, k, v, w, do read by
+    both launches (w twice by the first), dr, dk, dv, dw written, the state
+    before and G after every chunk written and read, du's chunk sums, s0
+    (ds_fin) read, ds0 and du written."""
+    nc, ns = -(-s // chunk), chunk // sub
+    walk = 2 * n * n * chunk * (2 * nc - 1)
+    per_chunk = (2 * (ns - 1) * 2 * n * n * sub
+                 + ns * (3 * 2 * sub * n * n + 2 * sub * sub * n))
+    products = rows * (walk + nc * per_chunk)
+    pairs = sub * (sub - 1) // 2
+    fp32 = rows * nc * ns * n * (11 * pairs + 4 * pairs + 2 * (pairs + sub))
+    x = 4 * rows * s * n
+    n_bytes = (6 * x + 5 * x + 4 * x + 2 * 2 * 4 * rows * nc * n * n
+               + 2 * 4 * rows * nc * n + 4 * rows * n
+               + (1 + ds_fin + ds0) * 4 * rows * n * n)
+    return products, 3 * products, fp32, n_bytes
+
+
+def mma_count(name: str) -> int:
+    """Tensor-core MMA instructions (HMMA: mma.sync; HGMMA: wgmma) in the
+    SASS of the library built from ``csrc/<name>.cu``."""
+    return sum(op.startswith(("HMMA", "HGMMA")) for op in sass_opcodes(name))
+
+
+def wide_decay_inputs(rng, b, h, s, n):
+    """The layer's call (``layer_scan_inputs``) with the decay a trained
+    RWKV-6 spreads: w = exp(-exp(x)), x uniform in [-6, 5), exact float32
+    zeros and values within 0.003 of 1."""
+    r, k, v, _, u, s0 = layer_scan_inputs(rng, b, h, s, n)
+    w = torch.tensor(np.exp(-np.exp(rng.uniform(-6, 5, size=(b, s, h, n)))),
+                     dtype=torch.float32, device="cuda").transpose(1, 2)
+    return r, k, v, w, u, s0
+
+
 def check_rwkv6_bwd(mod, report):
     """rwkv6_scan_bwd at phase 13's microbatch as the layer hands it over,
     (2, 64, 4096, 64) head-split views, u expanded, nonzero s0 and ds_fin,
-    against the plain backward in float64 at SCAN_TOL, two calls equal bit
-    for bit; then its time beside its bound and the plain version's."""
+    on tests/test_kernels.py's decays and on the wide decays, against the
+    plain backward in float64 at SCAN_TOL, every output finite, two calls
+    equal bit for bit; then its time (events, and each launch's device
+    time) beside its bound, the design's own count, the plain version's
+    and the first design's; the scratch it takes; the MMA instructions in
+    its SASS."""
     rng = np.random.RandomState(47)
     b, h, s, n = RWKV_TRAIN
-    args = layer_scan_inputs(rng, b, h, s, n)
+    names = ("dr", "dk", "dv", "dw", "du", "ds0")
+    cases = {}
+    for what, make in (("narrow", layer_scan_inputs),
+                       ("wide", wide_decay_inputs)):
+        args = make(rng, b, h, s, n)
+        do = torch.tensor(rng.randn(b, s, h, n), dtype=torch.float32,
+                          device="cuda").transpose(1, 2)
+        ds_fin = torch.tensor(rng.randn(b, h, n, n), dtype=torch.float32,
+                              device="cuda")
+        got = mod.rwkv6_scan_bwd(*args, do, ds_fin)
+        again = mod.rwkv6_scan_bwd(*args, do, ds_fin)
+        if not all(torch.equal(x, y) for x, y in zip(got, again)):
+            raise AssertionError(f"rwkv6_scan_bwd {what}: two calls differ")
+        if not all(bool(torch.isfinite(g).all()) for g in got):
+            raise AssertionError(f"rwkv6_scan_bwd {what}: an output is not "
+                                 "finite")
+        want = mod.plain_bwd(*(t.double() for t in (*args, do, ds_fin)))
+        errs = {nm: max_err(g, w.float(), SCAN_TOL,
+                            f"rwkv6_scan_bwd {what} {nm}")
+                for nm, g, w in zip(names, got, want, strict=True)}
+        # each gradient's largest |diff| in units of SCAN_TOL at that entry
+        shares = {nm: float(((g.double() - w).abs() / (SCAN_TOL["atol"]
+                             + SCAN_TOL["rtol"] * w.abs())).max())
+                  for nm, g, w in zip(names, got, want)}
+        cases[what] = dict(errs=errs, tol_shares=shares,
+                           zeros_in_w=int((args[3] == 0).sum()))
+        del got, again, want
+    # training's call (narrow inputs): no ds_fin (s_fin unused), no ds0
+    args = layer_scan_inputs(np.random.RandomState(48), b, h, s, n)
     do = torch.tensor(rng.randn(b, s, h, n), dtype=torch.float32,
                       device="cuda").transpose(1, 2)
-    ds_fin = torch.tensor(rng.randn(b, h, n, n), dtype=torch.float32,
-                          device="cuda")
-    got = mod.rwkv6_scan_bwd(*args, do, ds_fin)
-    again = mod.rwkv6_scan_bwd(*args, do, ds_fin)
-    if not all(torch.equal(x, y) for x, y in zip(got, again)):
-        raise AssertionError("rwkv6_scan_bwd: two calls differ")
-    want = mod.plain_bwd(*(t.double() for t in (*args, do, ds_fin)))
-    names = ("dr", "dk", "dv", "dw", "du", "ds0")
-    errs = {nm: max_err(g, w.float(), SCAN_TOL, f"rwkv6_scan_bwd {nm}")
-            for nm, g, w in zip(names, got, want, strict=True)}
-    # each gradient's largest |diff| in units of SCAN_TOL at that entry
-    shares = {nm: float(((g.double() - w).abs() / (SCAN_TOL["atol"]
-                         + SCAN_TOL["rtol"] * w.abs())).max())
-              for nm, g, w in zip(names, got, want)}
-    del got, again, want
-    # training's call: no ds_fin (s_fin unused) and no ds0 (s0 is zeros)
     train_call = lambda: mod.rwkv6_scan_bwd(*args, do, None, False)
-    bms, by = rwkv6_bwd_bound(b * h, s, n, ds_fin=False, ds0=False)
+    bms, by, f32_pipe_ms = rwkv6_bwd_bound(b * h, s, n, ds_fin=False,
+                                           ds0=False)
+    products, mma_flops, fp32_flops, design_bytes = rwkv6_bwd_design(
+        b * h, s, n, ds_fin=False, ds0=False)
+    design = dict(product_flops=products, tf32_mma_flops=mma_flops,
+                  fp32_flops=fp32_flops, bytes=design_bytes,
+                  tf32_ms=mma_flops / TF32_FLOPS * 1e3,
+                  fp32_ms=fp32_flops / F32_FLOPS * 1e3,
+                  bytes_ms=design_bytes / HBM_BYTES_PER_S * 1e3)
+    from repro_torch.kernels import build
+    lib = build.library("rwkv6_scan_bwd", mod._BWD_SIGNATURES)
+    scratch = lib.rwkv6_scan_bwd_scratch(b * h, s, n)
+    mmas = mma_count("rwkv6_scan_bwd")
+    if not mmas:
+        raise AssertionError("rwkv6_scan_bwd: no tensor-core MMA instruction "
+                             "in its SASS")
     events = device_events(train_call, 3)
     report["rwkv6_scan_bwd"] = dict(
         name="rwkv6_scan_bwd", route="cuda",
         source="src/repro_torch/kernels/csrc/rwkv6_scan_bwd.cu",
         replaces="src/repro/kernels/rwkv6_scan.py:54",    # its gradient
-        max_abs_err=max(errs.values()), errs=errs, tol_shares=shares,
-        ms=time_ms(train_call, iters=5, warmup=1),
+        max_abs_err=max(max(c["errs"].values()) for c in cases.values()),
+        cases=cases,
+        ms=time_ms(train_call, iters=10, warmup=2),
         device=events, device_ms=device_ms(events),
         plain_ms=time_ms(lambda: mod.plain_bwd(*args, do, None, False),
                          iters=1, warmup=0),
-        bound_ms=bms, bound_by=by,
+        bound_ms=bms, bound_by=by, f32_pipe_bound_ms=f32_pipe_ms,
+        design=design, scratch_bytes=scratch,
+        mma_instructions=mmas, first_design_ms=RWKV_BWD_FIRST_DESIGN_MS,
         library_ms=None,      # no single PyTorch call runs this recurrence
         shape=f"r/k/v/w/do (B,H,S,N)={RWKV_TRAIN} head-split views, "
-              f"u expanded, float32 (held with s0 and ds_fin nonzero; timed "
-              f"as training calls it: ds_fin None, no ds0)")
+              f"u expanded, float32 (held with s0 and ds_fin nonzero, on "
+              f"narrow and wide decays; timed as training calls it: ds_fin "
+              f"None, no ds0)")
     r = report["rwkv6_scan_bwd"]
-    log(f"rwkv6_scan_bwd vs the plain backward in float64 at "
-        f"{RWKV_TRAIN}: max |err| "
-        + ", ".join(f"{nm} {e:.3e}" for nm, e in errs.items())
-        + f"; largest share of {SCAN_TOL}: "
-        + ", ".join(f"{nm} {x:.3f}" for nm, x in shares.items())
-        + f"; two calls equal bit for bit; {r['ms']:.4f} ms a call "
-        f"(events), device {r['device_ms']:.4f} ms ("
+    for what, c in cases.items():
+        log(f"rwkv6_scan_bwd vs the plain backward in float64 at "
+            f"{RWKV_TRAIN}, {what} decays ({c['zeros_in_w']} exact zeros in "
+            f"w): max |err| "
+            + ", ".join(f"{nm} {e:.3e}" for nm, e in c["errs"].items())
+            + f"; largest share of {SCAN_TOL}: "
+            + ", ".join(f"{nm} {x:.3f}" for nm, x in c["tol_shares"].items())
+            + "; every output finite; two calls equal bit for bit")
+    log(f"rwkv6_scan_bwd: {r['ms']:.4f} ms a call (events; the first "
+        f"design's {RWKV_BWD_FIRST_DESIGN_MS} ms), device "
+        f"{r['device_ms']:.4f} ms ("
         + ", ".join(f"{short_name(k)} {v['ms']:.4f}"
                     for k, v in events.items())
-        + f"), plain {r['plain_ms']:.1f} ms, bound {bms:.4f} ms ({by})")
+        + f"), plain {r['plain_ms']:.1f} ms, bound {bms:.4f} ms ({by}; the "
+        f"function's operations in 3xTF32 at 495 TFLOP/s, on the float32 "
+        f"pipes {f32_pipe_ms:.4f} ms); the "
+        f"design's own count: {products / 1e9:.2f} GFLOP of products, "
+        f"{mma_flops / 1e9:.2f} GFLOP of TF32 MMAs ({design['tf32_ms']:.4f} "
+        f"ms at 495 TFLOP/s), {fp32_flops / 1e9:.2f} GFLOP on the float32 "
+        f"pipes ({design['fp32_ms']:.4f} ms), {design_bytes / 1e9:.3f} GB "
+        f"({design['bytes_ms']:.4f} ms at 3.35 TB/s); scratch "
+        f"{scratch / 1e6:.1f} MB; {mmas} MMA instructions (HMMA/HGMMA) in "
+        f"its SASS")
 
 
 # ---------------------------------------------------------------------------
@@ -4406,6 +4534,79 @@ class OracleScan(torch.autograd.Function):
                                   ctx.needs_input_grad[5])
 
 
+#: the op groups of an RWKV-6 layer that phase 13 (b) rounds to float32 one
+#: at a time in the float64 model ("none": the layers as written, which must
+#: give the float64 gradients again); the scan kernels' reading is the run
+#: with the recurrence alone through them
+RWKV_OP_GROUPS = ("none", "group norm", "token-shift mixes",
+                  "float32 products")
+
+
+def rounded_rwkv_layers(group: str):
+    """``nn/ssm.py``'s ``rwkv6_time_mix`` and ``rwkv6_channel_mix`` as the
+    float64 training step runs them (no state; the recurrence through
+    ``ops.rwkv6_scan``), with one op group in float32, forward and
+    backward: the per-head group norm, the token-shift mixes x + (x_{t-1}
+    - x) mu, or the layers' products (the projections, the decay's LoRA,
+    the output and the channel mix, float32 on the card without TF32).  A
+    reading for phase 13 (b); the port never calls it."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops
+    from repro_torch.nn import ssm as S
+
+    def mm(a, b):
+        if group == "float32 products":
+            return (a.float() @ b.float()).double()
+        return a @ b
+
+    def mix(x, xs, mu):
+        if group == "token-shift mixes":
+            x, xs, mu = x.float(), xs.float(), mu.float()
+        return (x + (xs - x) * mu).double()
+
+    def time_mix(p, x, n_heads, state=None):
+        assert state is None
+        b, s, d = x.shape
+        n = d // n_heads
+        xs = S._token_shift(x, torch.zeros_like(x[:, :1]))
+        m = {nm: mix(x, xs, p["mu"][nm]) for nm in S._MIX}
+        r, k, v = (mm(m[nm], p[f"w{nm}"]) for nm in "rkv")
+        g = F.silu(mm(m["g"], p["wg"]))
+        lora = mm(torch.tanh(mm(m["w"], p["w_lora_a"])), p["w_lora_b"])
+        w = torch.exp(-torch.exp(p["w0"] + lora))
+        heads = lambda t: t.reshape(b, s, n_heads, n).transpose(1, 2)
+        o, s_fin = ops.rwkv6_scan(
+            heads(r), heads(k), heads(v), heads(w),
+            p["u"].expand(b, n_heads, n),
+            x.new_zeros((b, n_heads, n, n)))
+        o = o.transpose(1, 2)
+        if group == "group norm":
+            o = o.float()
+        mu = o.mean(-1, keepdim=True)
+        var = o.var(-1, keepdim=True, unbiased=False)
+        o = ((o - mu) * torch.rsqrt(var + 1e-5)).reshape(b, s, d)
+        o = o * p["ln_x"]["w"].to(o.dtype) + p["ln_x"]["b"].to(o.dtype)
+        return mm(o.double() * g, p["wo"]), (x[:, -1:], s_fin)
+
+    def channel_mix(p, x, state=None):
+        assert state is None
+        xs = S._token_shift(x, torch.zeros_like(x[:, :1]))
+        xk, xr = mix(x, xs, p["mu_k"]), mix(x, xs, p["mu_r"])
+        h = torch.square(torch.relu(mm(xk, p["wk"])))
+        return torch.sigmoid(mm(xr, p["wr"])) * mm(h, p["wv"]), x[:, -1:]
+
+    return time_mix, channel_mix
+
+
+def grad_ratio(grads, want) -> tuple[float, int]:
+    """The largest |grad diff| / leaf max over the leaves, and its leaf."""
+    ratios = [float((g.double() - w).abs().max()) / (float(w.abs().max())
+                                                     or 1.0)
+              for g, w in zip(grads, want, strict=True)]
+    worst = max(range(len(ratios)), key=ratios.__getitem__)
+    return ratios[worst], worst
+
+
 def leaf_names(tree, prefix: str = "") -> list[str]:
     """The path of each leaf of ``tree``, in ``tree.leaves``' order."""
     if isinstance(tree, dict):
@@ -4540,11 +4741,41 @@ def rwkv_trainer(counters, card):
     return out
 
 
-def rwkv_gradients(card):
+def rwkv_margin_split(lm, p64, batch, g64, l64, names) -> dict:
+    """Where phase 13 (b)'s float32 margin comes from: the float64 model
+    (the caller's settings: float64 compute, the recurrence through
+    ``OracleScan``) with one op group of ``RWKV_OP_GROUPS`` at a time in
+    float32.  Fails unless the layers' twin with nothing in float32 gives
+    the float64 gradients again."""
+    from repro_torch.nn import ssm as S
+
+    layer_fns = S.rwkv6_time_mix, S.rwkv6_channel_mix
+    split = {}
+    try:
+        for group in RWKV_OP_GROUPS:
+            S.rwkv6_time_mix, S.rwkv6_channel_mix = rounded_rwkv_layers(
+                group)
+            (lg, gg), tg = timed(lambda: value_and_grad(lm, p64, batch))
+            ratio, worst = grad_ratio(gg, g64)
+            split[group] = dict(grad_ratio=ratio, worst_leaf=names[worst],
+                                loss_rel=abs(float(lg) - float(l64))
+                                / abs(float(l64)), seconds=tg)
+            del gg
+    finally:
+        S.rwkv6_time_mix, S.rwkv6_channel_mix = layer_fns
+    if split["none"]["grad_ratio"] > 1e-10:
+        raise AssertionError("rwkv-train (b): the op-group twin of the "
+                             "layers misses the float64 model: "
+                             f"{split['none']}")
+    return split
+
+
+def rwkv_gradients(card, margin_split=False):
     """(b) loss and every gradient leaf of the 2-layer full-width RWKV-6
     7B, float32 compute through both scan kernels, against float64 on the
     card with the recurrence through the plain versions (``OracleScan``);
-    bf16 compute beside it as a sanity reading."""
+    bf16 compute beside it as a sanity reading; with ``margin_split``,
+    ``rwkv_margin_split`` too, and the scan kernels' share beside it."""
     from repro_torch.data import TokenPipeline
     from repro_torch.kernels import ops
     from repro_torch.kernels import rwkv6_scan as scan_mod
@@ -4592,18 +4823,29 @@ def rwkv_gradients(card):
         ops.rwkv6_scan = lambda *a: tuple(
             t.double() for t in plain(*(x.float() for x in a)))
         (lk, gk), tk = timed(lambda: value_and_grad(lm, p64, batch))
+        ratiosk = [float((x - w).abs().max()) / (float(w.abs().max()) or 1.0)
+                   for x, w in zip(gk, g64, strict=True)]
+        del gk
+        split = {}
+        if margin_split:
+            ops.rwkv6_scan = OracleScan.apply
+            split = rwkv_margin_split(lm, p64, batch, g64, l64, names)
+            worst = max(range(len(ratiosk)), key=ratiosk.__getitem__)
+            split["scan kernels"] = dict(
+                grad_ratio=ratiosk[worst], worst_leaf=names[worst],
+                loss_rel=abs(float(lk) - float(l64)) / abs(float(l64)),
+                seconds=tk)
     finally:
         layers.COMPUTE_DTYPE, layers.ACCUM_DTYPE = compute, accum
         ops.rwkv6_scan = plain
     del p64
     loss_rel = abs(float(l32) - float(l64)) / abs(float(l64))
-    ratios32, ratios16, ratiosp, ratiosk = [], [], [], []
-    for a, c, q, x, w in zip(g32, g16, gp, gk, g64, strict=True):
+    ratios32, ratios16, ratiosp = [], [], []
+    for a, c, q, w in zip(g32, g16, gp, g64, strict=True):
         scale = float(w.abs().max()) or 1.0
         ratios32.append(float((a.double() - w).abs().max()) / scale)
         ratios16.append(float((c.double() - w).abs().max()) / scale)
         ratiosp.append(float((q.double() - w).abs().max()) / scale)
-        ratiosk.append(float((x - w).abs().max()) / scale)
     worst = sorted(range(len(names)), key=lambda i: -ratios32[i])[:4]
     out = dict(layers=GRAD_LAYERS, tokens=GRAD_BATCH * TRAIN_SEQ,
                loss_f32=float(l32), loss_bf16=float(l16),
@@ -4632,6 +4874,14 @@ def rwkv_gradients(card):
         "versions): " + ", ".join(
             f"{names[i]} {ratios32[i]:.3e} / {ratiosp[i]:.3e}"
             for i in worst))
+    if split:
+        out["op_groups_in_f32"] = split
+        log("rwkv-train (b): where the float32 margin comes from, the "
+            "float64 model with one op group in float32 (largest |grad "
+            "diff| / leaf max, its leaf, the loss's relative difference): "
+            + "; ".join(f"{grp} {x['grad_ratio']:.3e} ({x['worst_leaf']}, "
+                        f"loss {x['loss_rel']:.2e})"
+                        for grp, x in split.items()))
     for i, rec in enumerate(at_inputs):
         log(f"rwkv-train (b): layer {i}'s scan operands (max |r| "
             f"{rec['max_abs']['r']:.3f}, |k| {rec['max_abs']['k']:.3f}, |v| "
@@ -4719,6 +4969,12 @@ def main() -> int:
             if "Used" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
 
+    if sys.argv[1:] == ["--rwkv-margin"]:
+        out = rwkv_gradients(card, margin_split=True)
+        OUT_DIR.mkdir(exist_ok=True)
+        (OUT_DIR / "chip_smoke_margin.json").write_text(
+            json.dumps(out, indent=1))
+        return 0
     x, y = data_mod.make_mnist_like(N_ROWS)
     w = nn2sql.init_weights(nn2sql.MLPSpec(N_ROWS, N_FEAT, N_HID, N_CLS))
     data = dict(img=x, labels=y, **w)
@@ -4741,7 +4997,8 @@ def main() -> int:
     kernels_only = sys.argv[1:2] == ["--kernels"]
     unknown = set(sys.argv[2:]) - set(checks)
     if sys.argv[1:] and not kernels_only or unknown:
-        print(f"chip_smoke: usage: chip_smoke.py [--kernels [name ...]], "
+        print(f"chip_smoke: usage: chip_smoke.py [--kernels [name ...] | "
+              f"--rwkv-margin], "
               f"names from {sorted(checks)}", file=sys.stderr)
         return 2
     for name, check in checks.items():
@@ -4757,7 +5014,7 @@ def main() -> int:
             f"{r['max_abs_err']:.3e}")
 
     result = {"card": card, "build_s": t_build, "build_bwd_s": t_bwd,
-              "kernels": report}
+              "kernels": report, "profiler_retries": PROFILER_RETRIES}
     if kernels_only:
         OUT_DIR.mkdir(exist_ok=True)
         (OUT_DIR / "chip_smoke_kernels.json").write_text(

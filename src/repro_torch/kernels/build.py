@@ -88,14 +88,17 @@ def build(names=SOURCES) -> float:
 
 def library(name: str, signatures: dict[str, list]) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built first if needed,
-    with ``argtypes`` set from ``signatures`` (C function → argument types;
-    every function returns its ``cudaGetLastError()`` as an int)."""
+    with ``argtypes`` set from ``signatures`` (C function → argument types,
+    or (argument types, result type); a launcher returns its
+    ``cudaGetLastError()`` as an int, the default result type)."""
     if name not in _libs:
         build([name])
         lib = ctypes.CDLL(str(target(name)))
         for fn, argtypes in signatures.items():
+            argtypes, restype = (argtypes if isinstance(argtypes, tuple)
+                                 else (argtypes, ctypes.c_int))
             getattr(lib, fn).argtypes = argtypes
-            getattr(lib, fn).restype = ctypes.c_int
+            getattr(lib, fn).restype = restype
         _libs[name] = lib
     return _libs[name]
 

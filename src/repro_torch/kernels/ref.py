@@ -244,3 +244,160 @@ def rwkv6_scan_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             du = du + r_t * k_t * ct
             g = w_t[..., :, None] * g + r_t[..., :, None] * do_t[..., None, :]
     return dr, dk, dv, dw, du, g if want_ds0 else None
+
+
+def _excl_prefix(w: torch.Tensor) -> torch.Tensor:
+    """Π_{m<t} w_m along the step axis (-2), exclusive, by running
+    products: never a quotient and never a logarithm (w may be 0)."""
+    out, run = torch.empty_like(w), torch.ones_like(w[..., 0, :])
+    for t in range(w.shape[-2]):
+        out[..., t, :] = run
+        run = run * w[..., t, :]
+    return out
+
+
+def _excl_suffix(w: torch.Tensor) -> torch.Tensor:
+    """Π_{m>t} w_m along the step axis (-2), exclusive, by running
+    products."""
+    out, run = torch.empty_like(w), torch.ones_like(w[..., 0, :])
+    for t in reversed(range(w.shape[-2])):
+        out[..., t, :] = run
+        run = run * w[..., t, :]
+    return out
+
+
+def rwkv6_scan_bwd_chunked(r: torch.Tensor, k: torch.Tensor,
+                           v: torch.Tensor, w: torch.Tensor, u: torch.Tensor,
+                           s0: torch.Tensor, do: torch.Tensor,
+                           ds_fin: torch.Tensor | None = None,
+                           want_ds0: bool = True, chunk: int = 64):
+    """``rwkv6_scan_bwd`` computed the way the ``rwkv6_scan_bwd`` kernel
+    computes it: the plain twin of its algebra, for the tests (the CPU route
+    of ``ops`` keeps the sequential ``rwkv6_scan_bwd``).  Same arguments
+    and results; ``chunk`` a multiple of 16 (the kernel's is 64).
+
+    1. Chunk boundaries (the kernel's first launch).  The state S before
+       each chunk of ``chunk`` steps, from s0, and G after it, from ds_fin:
+       S ← diag(Π w) S + K̃ᵀ V with K̃_s = k_s Π_{m>s} w_m, and G ← diag(Π w)
+       G + R̃ᵀ dO with R̃_s = r_s Π_{m<s} w_m (products inside the chunk).
+       ds0 is G before chunk 0.  Past S the steps are padding: r, k, v and
+       do 0, w 1, which leaves S and G as they are.
+    2. Each chunk alone (the second launch), in sub-chunks of 16 steps.  G at each sub-chunk's end by the same update from the
+       chunk's end, then, forward, P (the state before each sub-chunk) and
+       with the sub-chunk's P and G the boundary products Y = dO Pᵀ, Z = V
+       Gᵀ, U = K̂ G (K̂_t = k_t Π_{t<m} w_m inside the sub-chunk), M = V
+       dOᵀ and bb = rowsum(P ∘ G).  Inside the sub-chunk, with D(s, t) =
+       Π_{s<m<t} w_m (a running product, 1 for t = s + 1), pre_t = Π_{m<t}
+       w_m and suf_t = Π_{m>t} w_m:
+
+         dr_t = pre_t Y_t + Σ_{s<t} D(s,t) k_s M[s,t] + u k_t M[t,t]
+         dk_t = suf_t Z_t + Σ_{s>t} D(t,s) r_s M[t,s] + u r_t M[t,t]
+         dv_t = U_t + Σ_{s>t} Bm[s,t] do_s + (Σ_i u r_t k_t) do_t,
+                Bm[s,t] = Σ_i D(t,s) r_s k_t
+         dw_t = pre_t suf_t bb + pre_t Σ_{s>t} D(t,s) r_s Y_s
+                + suf_t Σ_{s<t} D(s,t) k_s Z_s
+                + Σ_{s<t<s'} D(s,t) D(t,s') k_s r_s' M[s,s']
+
+       dw_t = rowsum(G_t ∘ S_{t-1}) split into {boundary, in-sub-chunk}
+       parts of both factors: none of the four holds w_t, so no decay is
+       ever divided out (w = exp(-exp(x)) is exactly 0 in float32 for x ≳
+       4.6).  The last sum runs as Q_t[s'] = Σ_{s<t} D(s,t) k_s M[s,s'],
+       Q_{t+1} = w_t Q_t + k_t M[t], whose diagonal Q_t[t] is dr's sum.
+    3. du = Σ_t r_t k_t M[t,t], summed a chunk at a time.
+    """
+    acc = torch.promote_types(torch.promote_types(s0.dtype, do.dtype),
+                              torch.float32)
+    r, k, v, w, u, s0, do = (t.to(acc) for t in (r, k, v, w, u, s0, do))
+    lead = torch.broadcast_shapes(r.shape[:-2], u.shape[:-1],
+                                  s0.shape[:-2])
+    seq, n = r.shape[-2:]
+    r, k, v, w, do = (t.expand(*lead, seq, n) for t in (r, k, v, w, do))
+    u = u.expand(*lead, n)
+    sub = 16
+    nc, ns = -(-seq // chunk), chunk // sub
+    pad = nc * chunk - seq
+
+    def chunks(t, fill):
+        t = torch.cat([t, t.new_full((*lead, pad, n), fill)], dim=-2)
+        return t.reshape(*lead, nc, chunk, n)
+
+    r, k, v, do = (chunks(t, 0.0) for t in (r, k, v, do))
+    w = chunks(w, 1.0)
+    mt = lambda x: x.transpose(-1, -2)
+
+    # 1. the state before each chunk, G after it
+    decay = torch.prod(w, dim=-2)                       # (..., nc, n)
+    k_til = k * _excl_suffix(w)
+    r_til = r * _excl_prefix(w)
+    s, starts = s0.expand(*lead, n, n), []
+    for c in range(nc):
+        starts.append(s)
+        s = decay[..., c, :, None] * s + mt(k_til[..., c, :, :]) \
+            @ v[..., c, :, :]
+    g = (torch.zeros((*lead, n, n), dtype=acc, device=r.device)
+         if ds_fin is None else ds_fin.to(acc).expand(*lead, n, n))
+    ends = [None] * nc
+    for c in reversed(range(nc)):
+        ends[c] = g
+        g = decay[..., c, :, None] * g + mt(r_til[..., c, :, :]) \
+            @ do[..., c, :, :]
+    ds0 = g if want_ds0 else None
+
+    # 2. every chunk at once, in sub-chunks: (..., nc, ns, sub, n)
+    sc = lambda t: t.reshape(*lead, nc, ns, sub, n)
+    r, k, v, w, do = (sc(t) for t in (r, k, v, w, do))
+    pre, suf = _excl_prefix(w), _excl_suffix(w)
+    dec = torch.prod(w, dim=-2)                          # (..., nc, ns, n)
+    r_hat, k_hat = r * pre, k * suf
+    gs = [None] * ns
+    gs[-1] = torch.stack(ends, dim=-3)                   # (..., nc, n, n)
+    for q in reversed(range(1, ns)):
+        gs[q - 1] = dec[..., q, :, None] * gs[q] \
+            + mt(r_hat[..., q, :, :]) @ do[..., q, :, :]
+    p = torch.stack(starts, dim=-3)
+    ys, zs, us, bbs = [], [], [], []
+    for q in range(ns):
+        ys.append(do[..., q, :, :] @ mt(p))
+        zs.append(v[..., q, :, :] @ mt(gs[q]))
+        us.append(k_hat[..., q, :, :] @ gs[q])
+        bbs.append((p * gs[q]).sum(-1))
+        p = dec[..., q, :, None] * p + mt(k_hat[..., q, :, :]) \
+            @ v[..., q, :, :]
+    y, z, uu = (torch.stack(x, dim=-3) for x in (ys, zs, us))
+    bb = torch.stack(bbs, dim=-2)                        # (..., nc, ns, n)
+    m = v @ mt(do)                                       # M[s, t]
+    ub = u[..., None, None, :]
+    dr, dk, dw = (torch.empty_like(r) for _ in range(3))
+    q_run = torch.zeros((*r.shape[:-2], n, sub), dtype=acc, device=r.device)
+    b_run = torch.zeros_like(r[..., 0, :])
+    at = lambda x, t: x[..., t, :]
+    for t in range(sub):
+        mtt = m[..., t, t, None]
+        omega = torch.ones_like(b_run)
+        c_t, d_t, e_t = (torch.zeros_like(b_run) for _ in range(3))
+        for s2 in range(t + 1, sub):
+            yy = omega * at(r, s2)
+            c_t = c_t + yy * m[..., t, s2, None]
+            d_t = d_t + yy * at(y, s2)
+            e_t = e_t + yy * q_run[..., s2]
+            omega = omega * at(w, s2)
+        dr[..., t, :] = at(pre, t) * at(y, t) + q_run[..., t] \
+            + ub * at(k, t) * mtt
+        dk[..., t, :] = at(suf, t) * at(z, t) + c_t + ub * at(r, t) * mtt
+        dw[..., t, :] = at(pre, t) * at(suf, t) * bb + at(pre, t) * d_t \
+            + at(suf, t) * b_run + e_t
+        q_run = at(w, t)[..., None] * q_run \
+            + at(k, t)[..., None] * m[..., t, None, :]
+        b_run = at(w, t) * b_run + at(k, t) * at(z, t)
+    bm = torch.zeros_like(m)                             # Bm[s, t]
+    for t in range(sub):
+        omega = torch.ones_like(b_run)
+        bm[..., t, t] = (ub * at(r, t) * at(k, t)).sum(-1)
+        for s2 in range(t + 1, sub):
+            bm[..., s2, t] = (omega * at(r, s2) * at(k, t)).sum(-1)
+            omega = omega * at(w, s2)
+    dv = uu + mt(torch.tril(bm)) @ do
+    du = (r * k * torch.diagonal(m, dim1=-2, dim2=-1)[..., None]).sum(
+        dim=(-4, -3, -2))
+    flat = lambda x: x.reshape(*lead, nc * chunk, n)[..., :seq, :]
+    return (flat(dr), flat(dk), flat(dv), flat(dw), du, ds0)

@@ -4,10 +4,14 @@ it, r/k/v/w through a cp.async ring in shared memory, the u term factored
 into one O(N) sum a step so a cell costs three FP instructions, IEEE
 float32 FMAs; the source says why and what bounds it).  It replaces the
 Pallas TPU kernel ``repro.kernels.rwkv6_scan``; ``plain`` is its PyTorch
-twin.  And of its gradient, ``csrc/rwkv6_scan_bwd.cu`` (a forward pass that
-keeps the state every few steps, then the chunks walked back with the
-states recomputed into shared memory; ``plain_bwd`` is its twin), which
-the JAX package gets from ``jax.grad`` of a ``lax.scan``.
+twin.  And of its gradient, ``csrc/rwkv6_scan_bwd.cu``, which the JAX
+package gets from ``jax.grad`` of a ``lax.scan``: chunked and division-free,
+its products on the tensor cores in 3xTF32 (a first launch walks the
+chunks of 64 steps once for the state before each and G after it, into a
+scratch this wrapper allocates; a second takes every chunk alone, in
+sub-chunks of 16; a third sums du over the chunks).  ``plain_bwd`` is its
+oracle, the sequential reverse loop; ``ref.rwkv6_scan_bwd_chunked`` is the
+twin of its algebra.
 
     o_t = r_t·(S + diag(u) k_t v_tᵀ);   S ← diag(w_t) S + k_t v_tᵀ
 
@@ -32,7 +36,8 @@ plain_bwd = ref.rwkv6_scan_bwd
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {"rwkv6_scan_launch": [_P] * 8 + [_I] * 4 + [_P, _I, _P]}
 _BWD_SIGNATURES = {"rwkv6_scan_bwd_launch": [_P] * 15 + [_I] * 4
-                   + [_P, _I, _P], "rwkv6_scan_bwd_chunk": []}
+                   + [_P, _I, _P],
+                   "rwkv6_scan_bwd_scratch": ([_I] * 3, ctypes.c_longlong)}
 HEAD_DIMS = (16, 32, 64)
 
 
@@ -114,7 +119,7 @@ def rwkv6_scan_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     model's (B, S, H, N) memory: the transposes' backward copies nothing);
     du per row of state, u's shape (contiguous: autograd sums it over u's
     expand); ds0 contiguous in s0's shape, or None unless ``want_ds0``.
-    Two kernel launches a call, no atomics: two calls give equal bits."""
+    Three kernel launches a call, no atomics: two calls give equal bits."""
     _check("rwkv6_scan_bwd", (r, k, v, w, u, s0, do),
            "r, k, v, w, u, s0, do")
     *lead, s, n = r.shape
@@ -125,9 +130,6 @@ def rwkv6_scan_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              f"device in s0's shape {tuple(s0.shape)}, got "
                              f"{ds_fin.dtype}{tuple(ds_fin.shape)}")
         ds_fin = ds_fin.contiguous()
-    # the rows kernel reads the state 16 bytes at a time
-    s0, ds_fin = (t if t is None or t.data_ptr() % 16 == 0 else t.clone()
-                  for t in (s0, ds_fin))
     dr, dk, dv, dw = (torch.empty_like(t) for t in (r, k, v, w))
     du = torch.empty((*lead, n), dtype=torch.float32, device=r.device)
     ds0 = torch.empty_like(s0) if want_ds0 else None
@@ -135,9 +137,9 @@ def rwkv6_scan_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if rows == 0:
         return dr, dk, dv, dw, du, ds0
     lib = build.library("rwkv6_scan_bwd", _BWD_SIGNATURES)
-    # the state every rwkv6_scan_bwd_chunk() steps
-    scratch = torch.empty(rows * n * n * -(-s // lib.rwkv6_scan_bwd_chunk()),
-                          dtype=torch.float32, device=r.device)
+    # the state before and G after every chunk, and du's sum in each
+    scratch = torch.empty(lib.rwkv6_scan_bwd_scratch(rows, s, n),
+                          dtype=torch.uint8, device=r.device)
     as4 = (lambda t: t) if r.dim() == 4 else (lambda t: t.unsqueeze(0))
     seqs = [as4(t) for t in (r, k, v, w, do, dr, dk, dv, dw)]
     batch, heads = seqs[0].shape[:2]

@@ -21,7 +21,7 @@ from repro_torch.kernels import flash_attention as flash_mod
 from repro_torch.kernels import fused_sigmoid_matmul as fsm_mod
 from repro_torch.kernels import moe_dispatch as moe_mod
 from repro_torch.kernels import onehot_embed as embed_mod
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, ref
 from repro_torch.kernels import relational_matmul as relmm_mod
 from repro_torch.kernels import rwkv6_scan as scan_mod
 from repro_torch.kernels import tuple_dot as dot_mod
@@ -731,9 +731,9 @@ def layer_views(rng, b, h, s, n, device, layout):
 @pytest.mark.parametrize("s", [1, 7, 8, 9, 17, 2000])
 @pytest.mark.parametrize("layout", ["dense", "views", "misaligned"])
 def test_rwkv6_scan_bwd_kernel_time_edges(cuda, n, s, layout):
-    """Every head dim over the edges of the checkpoints (every 8 steps; the
-    dv kernel's chunks are 16) and a long S, in the layer's layouts, a
-    nonzero ds_fin; dr, dk, dv and dw come in
+    """Every head dim over the edges of the 16-step sub-chunks (S 1 and 7
+    inside one, 17 past it; 2000 walks 32 chunks of 64 and ends in a ragged
+    one) in the layer's layouts, a nonzero ds_fin; dr, dk, dv and dw come in
     their operand's memory layout where it is dense, du per row of state,
     and no operand is written."""
     rng = np.random.RandomState(s + 3 * n)
@@ -783,6 +783,77 @@ def test_rwkv6_scan_autograd_on_the_card(cuda):
     for g, c in zip(got[:4], want[:4]):
         assert torch.equal(g, c)
     assert torch.equal(got[4], want[4].sum(0))
+
+
+def wide_views(rng, b, h, s, n, device):
+    """``layer_views`` with the decay a trained RWKV-6 spreads: w =
+    exp(-exp(x)), x uniform in [-6, 5) (exact float32 zeros, values within
+    0.003 of 1)."""
+    (r, k, v, _, u, s0), do = layer_views(rng, b, h, s, n, device, "views")
+    w = torch.tensor(np.exp(-np.exp(rng.uniform(-6, 5, size=(b, s, h, n)))),
+                     dtype=torch.float32, device=device).transpose(1, 2)
+    return (r, k, v, w, u, s0), do
+
+
+@pytest.mark.parametrize("n", scan_mod.HEAD_DIMS)
+@pytest.mark.parametrize("s", [1, 7, 77])
+def test_rwkv6_scan_bwd_kernel_with_wide_decays(cuda, n, s):
+    """The wide decay against the plain backward in float64 at SCAN_TOL,
+    every gradient finite."""
+    rng = np.random.RandomState(11 * s + n)
+    args, do = wide_views(rng, 2, 3, s, n, cuda)
+    ds_fin = rnd(rng, 2, 3, n, n, device=cuda)
+    got = scan_mod.rwkv6_scan_bwd(*args, do, ds_fin)
+    assert all(bool(torch.isfinite(g).all()) for g in got)
+    check_scan_bwd(got, scan_bwd_oracle(args, do, ds_fin))
+
+
+def test_rwkv6_scan_bwd_kernel_with_wide_decays_at_the_microbatch(cuda):
+    """(2, 64, 4096, 64) head-split views with the wide decay (thousands of
+    exact zeros in w), nonzero s0 and ds_fin: within SCAN_TOL of float64,
+    every gradient finite, two calls equal bit for bit."""
+    rng = np.random.RandomState(28)
+    args, do = wide_views(rng, 2, 64, 4096, 64, cuda)
+    assert int((args[3] == 0).sum()) > 1000
+    ds_fin = rnd(rng, 2, 64, 64, 64, device=cuda)
+    got = scan_mod.rwkv6_scan_bwd(*args, do, ds_fin)
+    again = scan_mod.rwkv6_scan_bwd(*args, do, ds_fin)
+    assert all(torch.equal(a, c) for a, c in zip(got, again))
+    assert all(bool(torch.isfinite(g).all()) for g in got)
+    check_scan_bwd(got, scan_bwd_oracle(args, do, ds_fin))
+
+
+@pytest.mark.parametrize("n", scan_mod.HEAD_DIMS)
+@pytest.mark.parametrize("wide", [False, True])
+def test_rwkv6_scan_bwd_kernel_is_its_chunked_twin(cuda, n, wide):
+    """The kernel against ``ref.rwkv6_scan_bwd_chunked`` (its algebra in
+    plain PyTorch) on the same float32 inputs on the card, at SCAN_TOL:
+    S 77 walks two chunks and ends in a ragged one."""
+    rng = np.random.RandomState(n + wide)
+    if wide:
+        args, do = wide_views(rng, 2, 3, 77, n, cuda)
+    else:
+        args, do = layer_views(rng, 2, 3, 77, n, cuda, "views")
+    ds_fin = rnd(rng, 2, 3, n, n, device=cuda)
+    got = scan_mod.rwkv6_scan_bwd(*args, do, ds_fin)
+    want = ref.rwkv6_scan_bwd_chunked(*args, do, ds_fin)
+    for name, g, w in zip(BWD_NAMES, got, want, strict=True):
+        assert w.dtype == torch.float32
+        torch.testing.assert_close(g, w, msg=name, **SCAN)
+
+
+def test_rwkv6_scan_bwd_kernel_counts_one_launch_a_call(cuda):
+    """``rwkv6_scan_bwd.launches`` adds one a call, whatever the call (its
+    three kernels are one launch of the wrapper), and none for a refusal."""
+    rng = np.random.RandomState(29)
+    args, do = layer_views(rng, 1, 2, 9, 16, cuda, "views")
+    before = scan_mod.rwkv6_scan_bwd.launches
+    scan_mod.rwkv6_scan_bwd(*args, do)
+    scan_mod.rwkv6_scan_bwd(*args, do, None, False)
+    assert scan_mod.rwkv6_scan_bwd.launches == before + 2
+    with pytest.raises(TypeError):
+        scan_mod.rwkv6_scan_bwd(*args, do.double())
+    assert scan_mod.rwkv6_scan_bwd.launches == before + 2
 
 
 def test_rwkv6_scan_bwd_kernel_refusals(cuda):
