@@ -9,9 +9,10 @@ Phases (any failure exits non-zero; nothing is caught and carried on past):
            sm_90a (one nvcc per source, in parallel) and print ptxas's report;
 2. kernels each kernel against its plain PyTorch version on the card, over
            the ``tests/test_kernels.py`` sweeps and the main paths' shapes
-           (flash at Yi-6B's, at MLA's and at Zamba2's (4, 32, 2048, 80) as
-           head-split views, bf16 also against the bf16-scores plain
-           version), with the reference's tolerances;
+           (flash at Yi-6B's, at MLA's and at Zamba2's (4, 32, 2048, 80)
+           and its training microbatch's (2, 32, 4096, 80) as head-split
+           views, bf16 also against the bf16-scores plain version), with
+           the reference's tolerances;
            then its time beside the plain version's, one PyTorch library
            call's (a yardstick only) and the card's bound for the same work
            (flash: also its achieved TFLOP/s, share of the bound, ratio to
@@ -59,7 +60,8 @@ Phases (any failure exits non-zero; nothing is caught and carried on past):
            11 hands it over ((2, 32/4, 4096, 128) head-split views), at
            its global batch (4, 32/4, 4096, 128), at MLA's training
            microbatch as phase 12 hands it over ((2, 16, 4096, 192/128)),
-           MLA's prefill shape and Zamba2's,
+           MLA's prefill shape and Zamba2's prefill and training
+           microbatch ((2, 32, 4096, 80) head-split views, phase 14's),
            causal and full, float32 (F32_TOL) and bf16 (BF16_BWD_TOL: one
            bf16 ulp beyond it), against the plain backward in float64,
            two calls equal bit for bit, timed beside its bound, its
@@ -83,7 +85,13 @@ Phases (any failure exits non-zero; nothing is caught and carried on past):
            ``prefill`` (the kernel) and through 8 ``decode_step``s (plain
            attention over the cache), in bf16 and float32 compute, for
            weight seeds 0, 1 and 2, held together; then a profile of one
-           prefill and one decode step;
+           prefill and one decode step; (d) (a)'s prompts prefilled in
+           float32 under the flash path, attn_impl "dense", "chunked"
+           (chunks of 1000) and flash_impl="scan", and in float64: "dense"
+           and "chunked" within (c)'s float32 atol of float64, "scan" the
+           flash path bit for bit, the flash path's distance from float64
+           and a one-ulp nudge's read beside them; flash launched 32
+           times under "scan" and never under the other two;
 6. rwkv    the same serving path on the full-width RWKV-6 7B (32 layers,
            d_model 4096, 64 heads of 64, 30.1 GB of float32 weights), after
            phase 5 has freed Yi-6B's: (a) ``LM.prefill`` of 4 prompts × 2000
@@ -179,7 +187,12 @@ Phases (any failure exits non-zero; nothing is caught and carried on past):
            compute beside it as a reading; (c) the reduced Yi-6B on the card
            for 6 steps with a checkpoint every 3 under ``chiprun_out/``: a
            fresh Trainer resumes at 6, every parameter and AdamW leaf equal
-           bit for bit; (d) fused_sigmoid_matmul, a card kernel with no
+           bit for bit; (d) remat="dots" at (a)'s depth and width: one
+           microbatch's loss and gradients equal to remat="full"'s, 6
+           products kept a layer (the JAX policy's count), then
+           ``Trainer`` for 1 warm step and 2 more (48 flash_attention and
+           24 flash_attention_bwd launches a step), wall, tokens/s and
+           peak; (e) fused_sigmoid_matmul, a card kernel with no
            backward, refuses an operand that requires grad before it
            launches.  The device bytes allocated after the phase, cuBLAS's
            workspaces let go, must equal those before it.
@@ -212,6 +225,21 @@ Phases (any failure exits non-zero; nothing is caught and carried on past):
            against float64 on the card with the recurrence through the
            plain versions (``OracleScan``), phase 11's bound, bf16 beside
            it as a reading.  It frees all it allocates.
+14. hybrid-train Zamba2-2.7B trained at its full width and depth (54
+           Mamba-2 layers, the shared block 9 times; 2.44 B parameters,
+           38.97 GB of float32 weights, gradients and AdamW moments), after
+           phase 13: (a) ``Trainer`` as phase 11's for 1 warm step and 3
+           more, the counts zeroed before and read after: 18
+           flash_attention and 18 flash_attention_bwd launches a step (the
+           shared block is not under remat) and no other kernel; each
+           step's wall, tokens/s, loss and grad norm (finite), the peak
+           device memory (under 75 GiB) and one profiled step with the
+           flash kernels' share; (b) on the shared block and 2 Mamba-2
+           layers at the same width, one microbatch, the loss and every
+           gradient leaf in float32 compute against float64 on the card
+           (the SSD raised to float64 through layers.ACCUM_DTYPE, attention
+           through the plain versions), phase 11's bound, bf16 beside it as
+           a reading.  It frees all it allocates.
 
 ``python3 chip_smoke.py --kernels [name ...]`` runs phases 1 and 2 alone,
 for the named kernels (all nine without a name), and prints no result line:
@@ -691,7 +719,8 @@ def check_tuple_dot(mod, report):
 PROFILER_RETRIES: list[dict] = []
 
 
-def profiled(fn, calls: int = 1, sessions: int = 3) -> list:
+def profiled(fn, calls: int = 1, sessions: int = 3, cpu: bool = True
+             ) -> list:
     """The device events of ``calls`` calls of ``fn`` under torch.profiler,
     in order.  The session runs ``fn`` once first, then three groups of
     three marker kernels (``torch.cuda._sleep``), each group followed by a
@@ -705,12 +734,15 @@ def profiled(fn, calls: int = 1, sessions: int = 3) -> list:
     A session that holds none of its markers, or nothing after the last,
     is run again, up to ``sessions`` in all, and logged in
     ``PROFILER_RETRIES`` with the kernels it held before its markers
-    (``fn``'s first run)."""
+    (``fn``'s first run).  ``cpu=False`` records the device's activity
+    alone: the host's ops of a step of 94,000 launches took the profiler
+    about two minutes to read."""
     from torch.profiler import ProfilerActivity, profile
 
+    activities = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU]
+                                            if cpu else [])
     for session in range(1, sessions + 1):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with profile(activities=activities) as prof:
             fn()
             torch.cuda.synchronize()
             for _ in range(3):
@@ -1027,8 +1059,10 @@ FLASH_MAIN = (4, 32, 4, 2000, 128)      # Yi-6B prefill: B, Hq, Hkv, S, D
 # DeepSeek-V2-Lite's MLA prefill: B, H, S, Dqk (128 + 64), Dv
 FLASH_MLA = (4, 16, 2000, 192, 128)
 # Zamba2-2.7B's shared attention in its prefill (phase 8): B, H (= Hkv),
-# S, D = Dv = 80, which both kernels pad on chip to whole slabs
+# S, D = Dv = 80, which both kernels pad on chip to whole slabs; and in a
+# training microbatch (phase 14), 18 launches a step
 FLASH_ZAMBA2 = (4, 32, 2048, 80)
+FLASH_ZAMBA2_TRAIN = (2, 32, 4096, 80)
 # bf16 at the main shape: the kernel rounds P to bf16 before P V (and sums
 # the rounded P), the plain version keeps P in float32, and both round the
 # output to bf16, so they differ by P's rounding (2^-9 of each weight, which
@@ -1140,6 +1174,7 @@ def check_flash(mod, report):
     bms, by = flash_bound(*FLASH_MAIN, torch.bfloat16)
     mla = check_flash_mla(mod, inputs, sdpa)
     zamba2 = check_flash_zamba2(mod, sdpa)
+    zamba2_train = check_flash_zamba2(mod, sdpa, FLASH_ZAMBA2_TRAIN)
     hgmma = hgmma_count("flash_attention_tc")
     hgmma_f32 = hgmma_count("flash_attention")
     log(f"SASS: flash_attention_tc {hgmma}, flash_attention (float32, "
@@ -1164,7 +1199,8 @@ def check_flash(mod, report):
         f32_bound_by=f32_by, f32_tf32_bound_ms=f32_tf32_bound,
         f32_library_ms=f32_library_ms, f32_library_kernels=f32_library_kernels,
         f32_source="src/repro_torch/kernels/csrc/flash_attention.cu",
-        hgmma=hgmma, hgmma_f32=hgmma_f32, mla=mla, zamba2=zamba2)
+        hgmma=hgmma, hgmma_f32=hgmma_f32, mla=mla, zamba2=zamba2,
+        zamba2_train=zamba2_train)
     out |= flash_rates(out, flash_flops(b, hq, s, d, d))
     out |= f32_rates(f32_ms, flash_flops(b, hq, s, d, d), f32_bound,
                      f32_tf32_bound, f32_library_ms)
@@ -1262,13 +1298,14 @@ def check_flash_mla(mod, inputs, sdpa):
     return out
 
 
-def check_flash_zamba2(mod, sdpa):
-    """Zamba2's shared attention, (D, Dv) = (80, 80), at its prefill shape
-    as the model hands it over (head-split views of (B, S, 2560)
-    projections, read in place): float32 at the tests' tolerance, bf16 at
-    the Yi shape's and against the bf16-scores plain version; each timed
-    beside the plain version, SDPA and the bound."""
-    b, h, s, d = FLASH_ZAMBA2
+def check_flash_zamba2(mod, sdpa, shape=FLASH_ZAMBA2):
+    """Zamba2's shared attention, (D, Dv) = (80, 80), at ``shape`` (its
+    prefill's, or its training microbatch's) as the model hands it over
+    (head-split views of (B, S, 2560) projections, read in place): float32
+    at the tests' tolerance, bf16 at the Yi shape's and against the
+    bf16-scores plain version; each timed beside the plain version, SDPA
+    and the bound."""
+    b, h, s, d = shape
     rng = np.random.RandomState(80)
     q, k, v = (torch.tensor(rng.randn(b, s, h, d), dtype=torch.float32,
                             device="cuda").transpose(1, 2) for _ in range(3))
@@ -1276,7 +1313,7 @@ def check_flash_zamba2(mod, sdpa):
         raise AssertionError("flash Zamba2: the head-split views need a copy")
     causal_sdpa = lambda q, k, v: sdpa(q, k, v, is_causal=True)
     err32 = max_err(mod.flash_attention(q, k, v), mod.plain(q, k, v),
-                    F32_TOL, f"flash Zamba2 {FLASH_ZAMBA2} float32 causal")
+                    F32_TOL, f"flash Zamba2 {shape} float32 causal")
     f32_ms = time_ms(lambda: mod.flash_attention(q, k, v), iters=10)
     f32_device = device_events(lambda: mod.flash_attention(q, k, v), 5)
     f32_plain_ms = time_ms(lambda: mod.plain(q, k, v), iters=5)
@@ -1286,12 +1323,11 @@ def check_flash_zamba2(mod, sdpa):
     f32_library_kernels = top_kernels(lambda: causal_sdpa(q, k, v))
     q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
     err = max_err(mod.flash_attention(q, k, v), mod.plain(q, k, v),
-                  FLASH_MAIN_BF16_TOL, f"flash Zamba2 {FLASH_ZAMBA2} bf16 "
-                  "causal")
+                  FLASH_MAIN_BF16_TOL, f"flash Zamba2 {shape} bf16 causal")
     err_scores = max_err(mod.flash_attention(q, k, v),
                          mod.plain(q, k, v, bf16_scores=True),
                          FLASH_MAIN_BF16_TOL,
-                         f"flash Zamba2 {FLASH_ZAMBA2} bf16 vs bf16 scores")
+                         f"flash Zamba2 {shape} bf16 vs bf16 scores")
     bms, by = flash_bound(b, h, h, s, d, torch.bfloat16)
     out = dict(
         shape=f"q, k, v ({b},{h},{s},{d}) head-split views, causal",
@@ -1310,7 +1346,7 @@ def check_flash_zamba2(mod, sdpa):
     out |= flash_rates(out, flash_flops(b, h, s, d, d))
     out |= f32_rates(f32_ms, flash_flops(b, h, s, d, d), f32_bound,
                      f32_tf32_bound, f32_library_ms)
-    log(f"flash Zamba2 {FLASH_ZAMBA2} vs plain, max |err|: float32 "
+    log(f"flash Zamba2 {shape} vs plain, max |err|: float32 "
         f"{err32:.3e}, bf16 {err:.3e}, bf16 vs bf16-scores plain "
         f"{err_scores:.3e}; bf16 {out['ms']:.4f} ms (device "
         f"{device_ms(out['device']):.4f} ms) = {out['tflops']:.1f} TFLOP/s, "
@@ -1459,7 +1495,8 @@ def check_flash_bwd(mod, report):
              "yi_b4": FLASH_TRAIN_B4 + (128, False),
              "mla_train": FLASH_MLA_TRAIN,
              "mla": (4, 16, 16, 2000, 192, 128, False),
-             "zamba2": (4, 32, 32, 2048, 80, 80, True)}
+             "zamba2": (4, 32, 32, 2048, 80, 80, True),
+             "zamba2_train": (2, 32, 32, 4096, 80, 80, True)}
     out = {}
     for name, (b, hq, hkv, s, d, dv, views) in cases.items():
         for dtype, tol in ((torch.float32, F32_TOL),
@@ -1936,14 +1973,14 @@ def main_path(counters, core, nn2sql, data_mod, result):
 # ---------------------------------------------------------------------------
 
 def device_profile(fn, wall_ms: float, what: str, card: str,
-                   groups: dict | None = None) -> dict:
+                   groups: dict | None = None, cpu: bool = True) -> dict:
     """One run of ``fn`` under torch.profiler (``profiled``): device time
     by kernel name, summed, over ``wall_ms`` (the same work timed without
     the profiler) as the device's busy share; with ``groups`` (label ->
     regular expression on the kernel's name) also each group's device time
-    and share of the device time."""
+    and share of the device time; ``cpu`` as ``profiled`` takes it."""
     by_name, counts = {}, {}
-    for e in profiled(fn):
+    for e in profiled(fn, cpu=cpu):
         counts[e.name] = counts.get(e.name, 0) + 1
         by_name[e.name] = (by_name.get(e.name, 0.0)
                            + e.time_range.elapsed_us() / 1e3)
@@ -2164,8 +2201,105 @@ def serve_path(counters, result):
         params = lm.init(gen.manual_seed(seed))
         readings += prefill_vs_decode(lm, params, seed, layers)
     out["prefill_vs_decode"] = hold_agreement(readings)
+    out["attention_impls"] = attention_impls(cfg, params, tokens, flash, card)
     result["serve"] = out
     return launches
+
+
+# (d) the full-sequence attention options of item 12 on the same prompts
+# (the last weight seed's model), in float32: the dense path materialises
+# a (4, 4, 8, 2000, 2000) float32 score tensor a layer, 2.05 GB; "chunked"
+# takes chunks of 1000, since 2000 is no multiple of auto's 1024 and
+# attend_chunked asserts that the chunk divides S.  The flash kernel must
+# run once a layer under flash_impl="scan" and never under the other two.
+# Each run's last-token logits are read against the model in float64
+# (dense attention: no kernel takes float64) and against the flash path's,
+# beside a one-ulp nudge of the flash path's embeddings.  Held: "dense" and
+# "chunked" within (c)'s float32 atol of float64, "scan" equal to the flash
+# path bit for bit (the same kernel on the same operands).  The flash
+# path's own distance from float64 is a reading: the float32 kernel
+# (3xTF32) read 1.260e-4 at this depth and length where the dense float32
+# path reads 2.203e-5 and a one-ulp nudge 1.669e-5 (PERF.md; NVIDIA H100
+# 80GB HBM3, 700.00 W), past the 1e-4 the two paths would need to agree
+# within.
+ATTN_IMPLS = {"dense": dict(attn_impl="dense"),
+              "chunked": dict(attn_impl="chunked", attn_chunk=1000),
+              "scan": dict(flash_impl="scan")}
+
+
+def attention_impls(cfg, params, tokens, flash, card) -> dict:
+    """(d) ``LM.prefill`` in float32 under the flash path and each of
+    ATTN_IMPLS, then in float64: the last-token logits of each against the
+    flash path's and the float64 ones, the flash launches, the wall of one
+    call and the peak memory.  Consumes ``params``: its leaves are raised
+    to float64 in place for the reference."""
+    from repro_torch.nn import layers
+    from repro_torch.nn.model import LM
+
+    runs = {"flash": {}} | ATTN_IMPLS
+    compute, accum = layers.COMPUTE_DTYPE, layers.ACCUM_DTYPE
+    got = {}
+
+    def prefill(name, change, batch):
+        lm = LM(dataclasses.replace(cfg, **change))
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        before = flash.launches
+        (logits, _), wall = timed(lambda: lm.prefill(params, batch))
+        got[name] = dict(logits=logits[:, 0].double(), wall_s=wall,
+                         launches=flash.launches - before,
+                         peak_bytes=torch.cuda.max_memory_allocated())
+
+    layers.COMPUTE_DTYPE = torch.float32
+    try:
+        for name, change in runs.items():
+            prefill(name, change, {"tokens": tokens})
+        x = LM(cfg).embed_inputs(params, {"tokens": tokens})
+        sign = torch.randint(0, 2, x.shape, device=x.device,
+                             generator=torch.Generator(
+                                 device=x.device).manual_seed(0))
+        x = x * (1.0 + torch.finfo(x.dtype).eps * (2.0 * sign - 1.0))
+        prefill("flash, nudged", {}, {"embeds": x})
+        del x, sign
+        stack = [params]
+        while stack:
+            tree = stack.pop()
+            for k, v in tree.items():
+                if isinstance(v, dict):
+                    stack.append(v)
+                else:
+                    tree[k] = v.double()
+        layers.COMPUTE_DTYPE = layers.ACCUM_DTYPE = torch.float64
+        prefill("float64", dict(attn_impl="dense"), {"tokens": tokens})
+    finally:
+        layers.COMPUTE_DTYPE, layers.ACCUM_DTYPE = compute, accum
+    want, exact = got["flash"]["logits"], got["float64"]["logits"]
+    expected = {"flash": cfg.n_layers, "scan": cfg.n_layers, "dense": 0,
+                "chunked": 0, "flash, nudged": cfg.n_layers, "float64": 0}
+    out = {}
+    for name, rec in got.items():
+        logits = rec.pop("logits")
+        rec["to_flash"] = float((logits - want).abs().max())
+        rec["to_float64"] = float((logits - exact).abs().max())
+        out[name] = rec
+        log(f"serve (d) prefill {PREFILL_BATCH} x {PREFILL_LEN} under "
+            f"{name} {runs.get(name, '')} on {card}: {rec['wall_s']:.4f} s, "
+            f"peak {rec['peak_bytes'] / 2**30:.2f} GiB, {rec['launches']} "
+            f"flash launches; last-token logits {rec['to_flash']:.3e} from "
+            f"the flash path's, {rec['to_float64']:.3e} from float64's")
+        if not torch.isfinite(logits).all() or \
+                rec["launches"] != expected[name]:
+            raise AssertionError(f"serve (d) {name}: {rec['launches']} flash "
+                                 f"launches (expected {expected[name]}) or "
+                                 "logits not finite")
+        if name in ("dense", "chunked"):
+            torch.testing.assert_close(
+                logits, exact, **LOGIT_TOL["float32"],
+                msg=lambda m: f"serve (d) {name} against float64: {m}")
+        if name == "scan" and rec["to_flash"]:
+            raise AssertionError("serve (d) scan: not the flash path's "
+                                 "logits bit for bit")
+    return out
 
 
 def prefill_vs_decode(lm, params, seed: int, layers, logit_tol=LOGIT_TOL,
@@ -3898,6 +4032,16 @@ TRAIN_PARAMS = 2_600_570_880
 GRAD_LAYERS, GRAD_BATCH, GRAD_REL, LOSS_REL = 2, 2, 1e-3, 1e-5
 # (c) restart on the reduced Yi-6B: 6 steps, a checkpoint every 3
 RESTART_STEPS, RESTART_EVERY, RESTART_SEQ = 6, 3, 64
+# (d) remat="dots" at (a)'s depth and width: one microbatch's loss and
+# gradients against remat="full"'s (the same kernels on the same operands,
+# so equal bit for bit; else each leaf within DOTS_REL of its largest
+# magnitude, with the reason), the products kept a layer against the JAX
+# policy's count for the same block (jax.ad_checkpoint's saved residuals
+# of a Yi-6B block: q, k, v, the output projection, gate and up; the down
+# projection's output, which only the residual add reads, is no residual;
+# tests/test_torch_remat_dots.py holds the port to that list on the CPU),
+# then Trainer for 1 warm step and DOTS_STEPS - 1 read steps
+DOTS_REL, DOTS_KEPT, DOTS_STEPS = 1e-6, 6, 3
 
 
 class OracleAttention(torch.autograd.Function):
@@ -4118,8 +4262,113 @@ def train_restart(card):
     return out
 
 
+def train_dots(counters, card):
+    """(d) remat="dots" on (a)'s 12-layer Yi-6B: one microbatch's loss and
+    gradients against remat="full"'s, the products each layer keeps, and
+    ``Trainer`` for DOTS_STEPS steps, the counts zeroed just before its
+    ``run`` and read just after."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenPipeline
+    from repro_torch.nn import model as model_mod
+    from repro_torch.optim import adamw
+    from repro_torch.train import Trainer
+    from repro_torch.tree import leaves
+
+    full = dataclasses.replace(get_config("yi_6b"), n_layers=TRAIN_LAYERS)
+    cfg = dataclasses.replace(full, remat="dots")
+    lm, lm_full = model_mod.LM(cfg), model_mod.LM(full)
+    gen = torch.Generator(device=lm.device)
+    params = lm.init(gen.manual_seed(0))
+    data = TokenPipeline(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                         global_batch=TRAIN_BATCH)
+    micro = {k: v[:TRAIN_BATCH // TRAIN_ACCUM]
+             for k, v in data.batch_at(0).items()}
+    kept = []
+
+    class Counted(model_mod._Dots):
+        def prune(self):
+            super().prune()
+            kept.append([tuple(t.shape) for t in self.kept[:self.read]])
+
+    flash = counters["flash_attention"], counters["flash_attention_bwd"]
+    (l_full, g_full), t_full = timed(
+        lambda: value_and_grad(lm_full, params, micro))
+    before = [f.launches for f in flash]
+    plain, model_mod._Dots = model_mod._Dots, Counted
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        (l_dots, g_dots), t_dots = timed(
+            lambda: value_and_grad(lm, params, micro))
+    finally:
+        model_mod._Dots = plain
+    grad_peak = torch.cuda.max_memory_allocated()
+    got = tuple(f.launches - b for f, b in zip(flash, before))
+    exact = bool(torch.equal(l_full, l_dots)) and all(
+        torch.equal(a, b) for a, b in zip(g_full, g_dots, strict=True))
+    ratio = max(float((a.double() - b.double()).abs().max())
+                / (float(b.abs().max()) or 1.0)
+                for a, b in zip(g_dots, g_full))
+    del g_full, g_dots, params
+    torch.cuda.empty_cache()
+    log(f"train (d) remat=\"dots\" on {card}: one microbatch of "
+        f"{TRAIN_BATCH // TRAIN_ACCUM} x {TRAIN_SEQ}, loss "
+        f"{float(l_dots):.8f} against \"full\"'s {float(l_full):.8f}, "
+        f"gradients {'equal bit for bit' if exact else 'not bit for bit'}"
+        f" (largest |diff| / leaf max {ratio:.3e}); {t_dots:.3f} s against "
+        f"{t_full:.3f} s; flash launches {got}; products kept a layer "
+        f"{[len(k) for k in kept]}, the first layer's {kept[0]}; peak "
+        f"{grad_peak / 2**30:.2f} GiB")
+    if got != (2 * cfg.n_layers, cfg.n_layers):
+        raise AssertionError(f"train (d): flash launches {got}, expected "
+                             f"{(2 * cfg.n_layers, cfg.n_layers)}")
+    if len(kept) != cfg.n_layers or any(len(k) != DOTS_KEPT for k in kept):
+        raise AssertionError(f"train (d): products kept a layer "
+                             f"{[len(k) for k in kept]}, expected "
+                             f"{DOTS_KEPT} (the JAX policy's) in each of "
+                             f"{cfg.n_layers}")
+    if not exact and ratio > DOTS_REL:
+        raise AssertionError(f"train (d): \"dots\" is {ratio:.3e} from "
+                             f"\"full\", past {DOTS_REL}")
+    trainer = Trainer(lm, adamw(3e-4), data, grad_accum=TRAIN_ACCUM)
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches(counters)
+    run = trainer.run(gen.manual_seed(0), DOTS_STEPS, log_every=0)
+    launches = read_launches(counters)
+    peak = torch.cuda.max_memory_allocated()
+    hist = run["history"]
+    n_params = sum(t.numel() for t in leaves(run["params"]))
+    del run, trainer
+    per_step = {"flash_attention": 2 * TRAIN_ACCUM * cfg.n_layers,
+                "flash_attention_bwd": TRAIN_ACCUM * cfg.n_layers}
+    expected = {name: 0 for name in counters} | {
+        k: n * DOTS_STEPS for k, n in per_step.items()}
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    step_s = [h["seconds"] for h in hist[1:]]
+    out = dict(exact=exact, grad_ratio=ratio, loss_full=float(l_full),
+               loss_dots=float(l_dots), seconds=dict(full=t_full,
+                                                     dots=t_dots),
+               kept=kept, grad_peak_bytes=grad_peak, parameters=n_params,
+               history=hist, step_s=step_s,
+               step_s_mean=float(np.mean(step_s)),
+               tokens_per_s=[tokens / t for t in step_s], launches=launches,
+               launches_per_step=per_step, peak_bytes=peak)
+    for h in hist:
+        log(f"train (d) step {h['step']}: {h['seconds'] * 1e3:.4f} ms, "
+            f"{tokens / h['seconds']:.1f} tokens/s, loss {h['loss']:.6f}, "
+            f"grad norm {h['grad_norm']:.6f}")
+    log(f"train (d): {DOTS_STEPS} steps under remat=\"dots\", launches "
+        f"{launches} ({per_step} a step), peak device memory "
+        f"{peak / 2**30:.2f} GiB")
+    if launches != expected or n_params != TRAIN_PARAMS or not all(
+            np.isfinite([h["loss"], h["grad_norm"]]).all() for h in hist):
+        raise AssertionError(f"train (d): launches {launches} (expected "
+                             f"{expected}), {n_params} parameters, or a "
+                             f"loss or norm not finite: {hist}")
+    return out
+
+
 def train_guard():
-    """(d) fused_sigmoid_matmul, a card kernel with no backward (the
+    """(e) fused_sigmoid_matmul, a card kernel with no backward (the
     paper's dense engine differentiates in its own IR), refuses an operand
     that requires grad, before it launches."""
     from repro_torch.kernels import fused_sigmoid_matmul as fsm_mod
@@ -4132,11 +4381,11 @@ def train_guard():
     before = fsm_mod.fused_sigmoid_matmul.launches
     expect_raise(NotImplementedError,
                  lambda: ops.fused_sigmoid_matmul(x, w),
-                 "train (d): fused_sigmoid_matmul with an operand requiring "
+                 "train (e): fused_sigmoid_matmul with an operand requiring "
                  "grad")
     if fsm_mod.fused_sigmoid_matmul.launches != before:
-        raise AssertionError("train (d): the guard launched the kernel")
-    log("train (d): fused_sigmoid_matmul with an operand that requires grad "
+        raise AssertionError("train (e): the guard launched the kernel")
+    log("train (e): fused_sigmoid_matmul with an operand that requires grad "
         "raised NotImplementedError before any launch")
     return dict(raised=True)
 
@@ -4164,6 +4413,8 @@ def train_path(counters, result):
     out["gradients"] = train_gradients(card)
     torch.cuda.empty_cache()
     out["restart"] = train_restart(card)
+    torch.cuda.empty_cache()
+    out["dots"] = train_dots(counters, card)
     out["guard"] = train_guard()
     gc.collect()
     torch.cuda.empty_cache()
@@ -4923,6 +5174,214 @@ def rwkv_train_path(counters, result):
     return out["trainer"]["launches"]
 
 
+# ---------------------------------------------------------------------------
+# phase 14: hybrid training on the full-width Zamba2-2.7B
+# ---------------------------------------------------------------------------
+
+# Every published width of Zamba2-2.7B (arXiv:2411.15242: 54 Mamba-2 layers
+# of d_model 2560, 80 heads of 64, d_state 64, chunk 64; a shared attention
+# + SwiGLU block of 32 heads of 80 and d_ff 10240 before every 6; vocab
+# 32000) at its full depth: float32 parameters, gradients and AdamW's m and
+# v take 16 bytes a parameter, 38.97 GB for ZAMBA_PARAMS.  Past
+# ZAMBA_PEAK_LIMIT at its peak the phase fails, and the depth drops by a
+# whole segment of 6 (48 layers: 2,196,196,096 parameters, 35.14 GB), since
+# n_layers // shared_attn_every segments run.  Phase 11's traffic: the
+# train_4k sequence (4096, a whole number of the SSD's 64-token chunks), a
+# global batch of 4 in 2 microbatches of 2 x 4096 tokens, AdamW 3e-4, clip
+# 1.0, remat="full" (the Mamba layers; the shared block runs plain, as in
+# JAX), loss "full", 1 warm step and 3 read.
+ZAMBA_TRAIN_LAYERS = 54
+ZAMBA_TRAIN_PARAMS = ZAMBA_PARAMS
+ZAMBA_PEAK_LIMIT = 75 * 2 ** 30
+#: device kernels of the hybrid training step by name, for the profile
+ZAMBA_KERNELS = {"flash_attention (forward)": r"flash(?!_bwd)",
+                 "flash_attention_bwd": r"flash_bwd"}
+# (b) the gradients on the shared block and 2 Mamba-2 layers at the same
+# width (a shared block every min(6, depth) layers, as phase 8 cuts it),
+# one microbatch of 2 x 4096, float32 compute against float64 on the card
+# (the SSD raised with layers.ACCUM_DTYPE, attention through the plain
+# versions), phase 11's bound, bf16 beside it as a reading
+ZAMBA_GRAD_LAYERS = 2
+
+
+def zamba_train_config(layers: int):
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config("zamba2_2_7b"), n_layers=layers,
+                               shared_attn_every=min(ZAMBA_SEGMENT, layers))
+
+
+def zamba_trainer(counters, card):
+    """(a) ``Trainer`` on the full-width Zamba2-2.7B: the counts are zeroed
+    just before ``run`` and read just after it."""
+    from repro_torch.data import TokenPipeline
+    from repro_torch.nn.model import LM
+    from repro_torch.optim import adamw
+    from repro_torch.train import Trainer
+    from repro_torch.tree import leaves
+
+    cfg = zamba_train_config(ZAMBA_TRAIN_LAYERS)
+    lm = LM(cfg)
+    data = TokenPipeline(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                         global_batch=TRAIN_BATCH)
+    trainer = Trainer(lm, adamw(3e-4), data, grad_accum=TRAIN_ACCUM)
+    gen = torch.Generator(device=lm.device)
+    gen.manual_seed(0)
+    uses = cfg.n_layers // cfg.shared_attn_every
+    log(f"hybrid-train (a): {cfg.name} at {cfg.n_layers} Mamba-2 layers, "
+        f"d_model {cfg.d_model}, {cfg.d_model * cfg.ssm.expand // cfg.ssm.head_dim}"
+        f" heads of {cfg.ssm.head_dim}, d_state {cfg.ssm.d_state}, chunk "
+        f"{cfg.ssm.chunk}; the shared block ({cfg.n_heads} heads of "
+        f"{cfg.d_head}, d_ff {cfg.d_ff}) {uses} times; vocab {cfg.vocab}, "
+        f"remat {cfg.remat}, loss {cfg.loss_impl}; global batch "
+        f"{TRAIN_BATCH} x {TRAIN_SEQ} in {TRAIN_ACCUM} microbatches, AdamW "
+        f"3e-4, on {card}")
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches(counters)
+    run = trainer.run(gen, TRAIN_STEPS, log_every=0)
+    launches = read_launches(counters)
+    peak = torch.cuda.max_memory_allocated()
+    params, opt_state, hist = run["params"], run["opt_state"], run["history"]
+    n_params = sum(t.numel() for t in leaves(params))
+    if n_params != ZAMBA_TRAIN_PARAMS:
+        raise AssertionError(f"hybrid-train (a): {n_params} parameters, "
+                             f"expected {ZAMBA_TRAIN_PARAMS}")
+    # a microbatch: each use of the shared block once (it is not under
+    # remat, so nothing recomputes its attention), and one backward each
+    per_step = {"flash_attention": TRAIN_ACCUM * uses,
+                "flash_attention_bwd": TRAIN_ACCUM * uses}
+    expected = {name: 0 for name in counters} | {
+        k: n * TRAIN_STEPS for k, n in per_step.items()}
+    if launches != expected:
+        raise AssertionError(f"hybrid-train (a) launches {launches}, "
+                             f"expected {expected}")
+    if not all(np.isfinite([h["loss"], h["grad_norm"]]).all() for h in hist):
+        raise AssertionError(f"hybrid-train (a): a loss or norm is not "
+                             f"finite: {hist}")
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    step_s = [h["seconds"] for h in hist[1:]]
+    out = dict(
+        model=cfg.name, layers=cfg.n_layers, parameters=n_params,
+        tokens_per_step=tokens, steps=len(hist), history=hist,
+        step_s=step_s, step_s_mean=float(np.mean(step_s)),
+        tokens_per_s=[tokens / t for t in step_s],
+        launches=launches, launches_per_step=per_step, peak_bytes=peak)
+    for h in hist:
+        log(f"hybrid-train (a) step {h['step']}: {h['seconds'] * 1e3:.4f} "
+            f"ms, {tokens / h['seconds']:.1f} tokens/s, loss "
+            f"{h['loss']:.6f}, grad norm {h['grad_norm']:.6f}")
+    log(f"hybrid-train (a): {TRAIN_STEPS} steps, launches {launches} "
+        f"({per_step} a step), peak device memory {peak / 2**30:.2f} GiB")
+    if peak > ZAMBA_PEAK_LIMIT:
+        raise AssertionError(f"hybrid-train (a): peak {peak / 2**30:.2f} GiB "
+                             "past 75 GiB: drop a segment (48 layers)")
+    batch = data.batch_at(TRAIN_STEPS)
+    out["profile"] = device_profile(
+        lambda: trainer.step_fn(params, opt_state, batch),
+        out["step_s_mean"] * 1e3, "Zamba2 training step (2 x 2 x 4096 "
+        "tokens)", card, groups=ZAMBA_KERNELS, cpu=False)
+    return out
+
+
+def zamba_gradients(card):
+    """(b) loss and every gradient leaf of the shared block and 2 Mamba-2
+    layers at full width, float32 compute through both flash kernels,
+    against float64 on the card (``layers.ACCUM_DTYPE`` raised, so the SSD
+    runs in float64 too; attention through the plain versions); bf16
+    compute beside it as a sanity reading."""
+    from repro_torch.data import TokenPipeline
+    from repro_torch.kernels import flash_attention as flash_mod
+    from repro_torch.kernels import ops
+    from repro_torch.nn import layers
+    from repro_torch.nn.model import LM
+    from repro_torch.tree import tree_map
+
+    cfg = zamba_train_config(ZAMBA_GRAD_LAYERS)
+    lm = LM(cfg)
+    gen = torch.Generator(device=lm.device)
+    params = lm.init(gen.manual_seed(1))
+    batch = TokenPipeline(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                          global_batch=GRAD_BATCH, seed=1).batch_at(0)
+    names = leaf_names(params)
+    compute, accum = layers.COMPUTE_DTYPE, layers.ACCUM_DTYPE
+    wrappers = (flash_mod.flash_attention, flash_mod.flash_attention_bwd)
+    before = [w.launches for w in wrappers]
+    layers.COMPUTE_DTYPE = torch.float32
+    try:
+        (l32, g32), t32 = timed(lambda: value_and_grad(lm, params, batch))
+    finally:
+        layers.COMPUTE_DTYPE = compute
+    got = tuple(w.launches - b for w, b in zip(wrappers, before))
+    uses = cfg.n_layers // cfg.shared_attn_every
+    if got != (uses, uses):
+        raise AssertionError(f"hybrid-train (b) float32: flash launches "
+                             f"{got}, expected {(uses, uses)}")
+    (l16, g16), t16 = timed(lambda: value_and_grad(lm, params, batch))
+    p64 = tree_map(lambda t: t.double(), params)
+    del params
+    plain = ops.flash_attention
+    layers.COMPUTE_DTYPE = layers.ACCUM_DTYPE = torch.float64
+    ops.flash_attention = (lambda q, k, v, causal=True, scale=None,
+                           bf16_scores=False:
+                           OracleAttention.apply(q, k, v, causal, scale))
+    try:
+        (l64, g64), t64 = timed(lambda: value_and_grad(lm, p64, batch))
+    finally:
+        layers.COMPUTE_DTYPE, layers.ACCUM_DTYPE = compute, accum
+        ops.flash_attention = plain
+    del p64
+    loss_rel = abs(float(l32) - float(l64)) / abs(float(l64))
+    ratio32, worst32 = grad_ratio(g32, g64)
+    ratio16, _ = grad_ratio(g16, g64)
+    ratios32 = [grad_ratio([a], [w])[0] for a, w in zip(g32, g64)]
+    top = sorted(range(len(names)), key=lambda i: -ratios32[i])[:4]
+    out = dict(layers=cfg.n_layers, shared_attn_every=cfg.shared_attn_every,
+               tokens=GRAD_BATCH * TRAIN_SEQ, loss_f32=float(l32),
+               loss_bf16=float(l16), loss_f64=float(l64), loss_rel=loss_rel,
+               grad_ratio_f32=ratio32, worst_leaf_f32=names[worst32],
+               grad_ratio_bf16=ratio16,
+               ratios_f32=dict(zip(names, ratios32)),
+               seconds=dict(f32=t32, bf16=t16, f64=t64))
+    log(f"hybrid-train (b) on {card}: the shared block and "
+        f"{cfg.n_layers} Mamba-2 layers, loss float32 {float(l32):.8f}, "
+        f"float64 {float(l64):.8f} (relative {loss_rel:.3e}, bound "
+        f"{LOSS_REL}), bf16 {float(l16):.8f}; largest |grad diff| / leaf "
+        f"max over {len(g64)} leaves: float32 {ratio32:.3e} ({names[worst32]}"
+        f"; bound {GRAD_REL}), bf16 {ratio16:.3e} (a sanity reading); "
+        f"{t32:.2f} / {t16:.2f} / {t64:.2f} s; the largest float32 leaves: "
+        + ", ".join(f"{names[i]} {ratios32[i]:.3e}" for i in top))
+    if loss_rel > LOSS_REL or ratio32 > GRAD_REL:
+        raise AssertionError("hybrid-train (b): the float32 gradients miss "
+                             "the float64 oracle")
+    return out
+
+
+def zamba_train_path(counters, result):
+    """Phase 14; frees everything it allocates (fails otherwise).  Returns
+    (a)'s launches."""
+    card = result["card"]
+    held = held_bytes()
+    t0 = time.perf_counter()
+    out = {"trainer": zamba_trainer(counters, card)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["gradients"] = zamba_gradients(card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["wall_s"] = time.perf_counter() - t0
+    workspaces = torch.cuda.memory_allocated() - held
+    left = held_bytes() - held
+    out["memory"] = dict(allocated_before=held, cublas_workspaces=workspaces,
+                         left=left)
+    log(f"hybrid-train: phase 14 in {out['wall_s']:.1f} s; {held} B "
+        f"allocated before it, {workspaces} B more after it, all of them "
+        f"cuBLAS workspaces but {left} B")
+    if left:
+        raise AssertionError(f"hybrid-train: phase 14 left {left} B "
+                             "allocated")
+    result["train_hybrid"] = out
+    return out["trainer"]["launches"]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to drive", file=sys.stderr)
@@ -5051,6 +5510,7 @@ def main() -> int:
     launches["tuple_dot"] = moe_train_path(counters, result)["tuple_dot"]
     launches["rwkv6_scan_bwd"] = rwkv_train_path(counters, result)[
         "rwkv6_scan_bwd"]
+    zamba_train_path(counters, result)
 
     line = {"kernels": [
         {k: r[k] for k in ("name", "route", "source", "replaces")}

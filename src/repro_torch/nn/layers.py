@@ -10,10 +10,11 @@ Conventions, as in the JAX package:
   * compute dtype is bf16 (params stored f32, cast at use); softmax,
     normalisation statistics and losses are f32.
 
-Full-sequence attention (``attend_flash``) is the ``flash_attention``
-kernel on the card (``kernels.ops``; bf16 on the tensor cores), MLA's
-prefill included; the decode path's ``attend`` over a cache is plain
-PyTorch, as the JAX package's is plain jnp.
+Full-sequence attention (``attend_flash``, and ``attend_flash_scan``, the
+same function) is the ``flash_attention`` kernel on the card
+(``kernels.ops``; bf16 on the tensor cores), MLA's prefill included; the
+dense ``attend`` (the decode path's, over a cache) and ``attend_chunked``
+are plain PyTorch, as the JAX package's are plain jnp.
 """
 from __future__ import annotations
 
@@ -229,6 +230,34 @@ def attend_flash(q, k, v, causal: bool = True, bf16_scores: bool = False,
     chunk = min(chunk or auto_chunk(s), s)
     return ops.flash_attention(q, k, v, causal=causal,
                                bf16_scores=bf16_scores and s % chunk == 0)
+
+
+def attend_flash_scan(q, k, v, causal: bool = True):
+    """The JAX package's ``attend_flash_scan``: ``attend_flash`` with its kv
+    loop as a ``lax.scan`` (the dry-run's memory model), float32 scores
+    always, the dense ``attend`` for a ragged S.  All three compute one
+    function, so here it is ``ops.flash_attention`` as ``attend_flash``
+    runs it without ``bf16_scores``: the kernel on the card, its plain
+    version on the CPU."""
+    return ops.flash_attention(q, k, v, causal=causal)
+
+
+def attend_chunked(q, k, v, chunk: int = 2048, q_offset: int = 0):
+    """Causal attention per q-chunk against only the kv prefix that chunk
+    can see (the JAX package's ``attend_chunked``): dense ``attend`` on
+    each chunk, so no strictly-future block is computed.  Plain PyTorch,
+    as the JAX version is jnp outside any kernel."""
+    sq = q.shape[2]
+    if sq <= chunk:
+        return attend(q, k, v, causal=True, q_offset=q_offset)
+    assert sq % chunk == 0
+    outs = []
+    for lo in range(0, sq, chunk):
+        kv_hi = q_offset + lo + chunk
+        outs.append(attend(q[:, :, lo:lo + chunk], k[:, :, :kv_hi],
+                           v[:, :, :kv_hi], causal=True,
+                           q_offset=q_offset + lo))
+    return torch.cat(outs, dim=2)
 
 
 def merge_heads(x):

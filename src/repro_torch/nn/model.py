@@ -29,8 +29,9 @@ Entry points, and the kernels each runs on the card:
       ssm: rwkv6_scan a layer; moe with impl="sort": moe_dispatch and
       relational_matmul a MoE layer; dense/vlm/audio and hybrid: none
 
-Full-sequence attention (``forward``, ``prefill``) goes through the
-``flash_attention`` kernel on the card, one launch per layer (MLA's too,
+Full-sequence attention (``forward``, ``prefill``) goes, under the
+configs' default ``attn_impl="flash"``, through the ``flash_attention``
+kernel on the card, one launch per layer (MLA's too,
 with q/k of head dim d_nope + d_rope and v of d_v; ``attn_bf16_scores``
 rounds q, k, v and P to bf16 where the JAX chunk rule allows); the decode
 step attends over the cache in plain PyTorch (MLA's in the compressed latent
@@ -50,7 +51,12 @@ Training: ``loss_fn(params, batch) → (loss, {"ce", "aux"})`` with
 ``cfg.loss_impl`` "full", "onehot" or "chunked" (vocab-streamed), the JAX
 package's functions.  ``cfg.remat="full"`` recomputes each layer body of
 ``backbone`` in the backward pass (``torch.utils.checkpoint``, as JAX
-wraps it in ``jax.checkpoint``), "none" keeps its activations.  On the
+wraps it in ``jax.checkpoint``), "dots" keeps the body's products with no
+batch dimensions and recomputes the rest (JAX's
+``dots_with_no_batch_dims_saveable``; the hybrid's Mamba layers as
+"full", as in JAX), "none" keeps its activations.  ``cfg.attn_impl``
+"chunked" and "dense" attend in plain PyTorch; "flash" (with either
+``flash_impl``) runs the kernel.  On the
 card the dense families train through both flash kernels: the forward
 kernels, and ``flash_attention_bwd`` for the gradient.  The moe family
 with ``impl="sort"`` trains there too: ``moe_dispatch`` and
@@ -68,7 +74,9 @@ from __future__ import annotations
 from typing import Any
 
 import torch
+import torch.utils._pytree as pytree
 import torch.utils.checkpoint
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from ..configs.base import ArchConfig
 from ..device import resolve
@@ -76,19 +84,6 @@ from ..tree import leaves
 from . import layers as L
 from . import moe as M
 from . import ssm as S
-
-#: what this slice leaves out, and the ROADMAP.md item that brings it
-_LATER = {
-    "attn_impl": "attn_impl={!r}: only 'flash' is ported; the chunked "
-                 "schedule and the dense path come with ROADMAP.md queue 1, "
-                 "item 12",
-    "flash_impl": "flash_impl='scan' comes with ROADMAP.md queue 1, item 12 "
-                  "(attend_flash_scan)",
-    "remat": "remat='dots' (save the matrix products, recompute the rest) "
-             "comes with ROADMAP.md queue 1, item 18, the dry-run that sets "
-             "it",
-}
-
 
 def _moe_cfg(cfg: ArchConfig) -> M.MoEConfig:
     m = cfg.moe
@@ -113,13 +108,82 @@ def _depth(tree) -> int:
     return _depth(leaf) if isinstance(leaf, dict) else leaf.shape[0]
 
 
+aten = torch.ops.aten
+#: the products with no batch dimensions: ``x @ W`` (a 3-D x reaches
+#: ``aten.mm`` through a view); ``torch.einsum`` with a batch dimension is
+#: ``aten.bmm``, which JAX's policy does not save either
+_PRODUCTS = {aten.mm.default, aten.addmm.default}
+#: ops whose gradient reads none of their operands' values, so they save
+#: nothing for the backward; any other op on an operand that requires grad
+#: is taken to save something
+_SAVE_NOTHING = {
+    aten.add.Tensor, aten.sub.Tensor, aten.neg.default, aten.sum.dim_IntList,
+    aten.view.default, aten._unsafe_view.default, aten.reshape.default,
+    aten.expand.default, aten.t.default, aten.transpose.int,
+    aten.permute.default, aten.slice.Tensor, aten.select.int,
+    aten.unsqueeze.default, aten.squeeze.dim, aten.alias.default,
+    aten.split.Tensor, aten.unbind.int, aten.cat.default, aten.clone.default,
+    aten._to_copy.default, aten.detach.default}
+
+
+class _Dots:
+    """``remat="dots"`` for one layer call, the counterpart of JAX's
+    ``dots_with_no_batch_dims_saveable``: ``forward()`` and ``recompute()``
+    are the two dispatch contexts of a non-reentrant
+    ``torch.utils.checkpoint``.  The forward keeps the output of every
+    product with no batch dimensions; the recompute takes each back in
+    order instead of running it, and runs everything else again (the
+    kernels too: they launch inside ``autograd.Function``s, out of a
+    dispatch mode's sight).  ``prune()``, once the forward is done, lets go
+    of the products made at or after the layer's last op that saves a
+    tensor for the backward: the recompute stops at that op's saves
+    (checkpoint's early stop) and never reaches them, and JAX's partial
+    evaluation keeps no residual for them (a residual branch's last
+    product, whose output only an add reads).  Should a recompute reach a
+    product let go of, it runs it."""
+
+    def __init__(self):
+        self.kept: list = []
+        self.read = 0            # products made before the last saving op
+        self.taken = 0
+
+    def forward(self):
+        return _DotsMode(self, recompute=False)
+
+    def recompute(self):
+        return _DotsMode(self, recompute=True)
+
+    def prune(self) -> None:
+        self.kept[self.read:] = [None] * (len(self.kept) - self.read)
+
+
+class _DotsMode(TorchDispatchMode):
+    def __init__(self, dots: _Dots, recompute: bool):
+        super().__init__()
+        self.dots, self.recompute = dots, recompute
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        dots = self.dots
+        if self.recompute:
+            if func in _PRODUCTS and dots.taken < len(dots.kept):
+                out, dots.kept[dots.taken] = dots.kept[dots.taken], None
+                dots.taken += 1
+                if out is not None:
+                    return out
+            return func(*args, **kwargs)
+        if func not in _SAVE_NOTHING and any(
+                isinstance(a, torch.Tensor) and a.requires_grad
+                for a in pytree.tree_leaves((args, kwargs))):
+            dots.read = len(dots.kept)
+        out = func(*args, **kwargs)
+        if func in _PRODUCTS:
+            dots.kept.append(out.detach())
+        return out
+
+
 class LM:
     def __init__(self, cfg: ArchConfig, device="cuda"):
-        if cfg.attn_impl != "flash":
-            raise NotImplementedError(_LATER["attn_impl"].format(
-                cfg.attn_impl))
-        if cfg.flash_impl == "scan":
-            raise NotImplementedError(_LATER["flash_impl"])
         self.cfg = cfg
         self.device = resolve(device)
 
@@ -248,11 +312,22 @@ class LM:
 
     # ------------------------------------------------------ layer-stack body
     def _attend_full(self, q, k, v):
-        """Full-sequence attention as the JAX ``LM._attend_full`` runs it
-        for ``attn_impl="flash"``: the chunk (``attn_chunk`` or auto)
-        decides where ``attn_bf16_scores`` holds."""
-        return L.attend_flash(q, k, v, bf16_scores=self.cfg.attn_bf16_scores,
-                              chunk=self.cfg.attn_chunk or None)
+        """Full-sequence attention, dispatched as the JAX
+        ``LM._attend_full`` dispatches it: ``attn_impl="flash"`` through
+        the kernel (``flash_impl="scan"`` too, without ``bf16_scores``, as
+        JAX drops it there), "chunked" per q-chunk of ``attn_chunk`` (or
+        auto) tokens, anything else the dense ``attend``."""
+        cfg = self.cfg
+        s = q.shape[2]
+        chunk = min(cfg.attn_chunk or L.auto_chunk(s), s)
+        if cfg.attn_impl == "flash":
+            if cfg.flash_impl == "scan":
+                return L.attend_flash_scan(q, k, v)
+            return L.attend_flash(q, k, v, bf16_scores=cfg.attn_bf16_scores,
+                                  chunk=chunk)
+        if cfg.attn_impl == "chunked":
+            return L.attend_chunked(q, k, v, chunk=chunk)
+        return L.attend(q, k, v, causal=True)
 
     def _attn_block(self, p, x, cos, sin, cache=None, pos=None):
         """Returns (out, kv): this call's K/V (full sequence; MLA: the
@@ -342,7 +417,7 @@ class LM:
                 p["mixer"], norm(p["norm1"], x), self._mamba_dims,
                 state=cache, chunk=cfg.ssm.chunk, ssd_impl=cfg.ssd_impl,
                 compute_dtype=(torch.bfloat16 if cfg.ssm_bf16
-                               else torch.float32))
+                               else L.ACCUM_DTYPE))
             return x + o, aux, st
         attn_out, kv = self._attn_block(p["attn"], norm(p["norm1"], x),
                                         cos, sin, cache=cache, pos=pos)
@@ -368,20 +443,30 @@ class LM:
             ys.append(y)
         return carry, ys
 
-    def _remat(self, fn, lp, x):
+    def _remat(self, fn, lp, x, remat: str | None = None):
         """``fn(lp, x)``, a layer body over its parameters ``lp``, under
-        ``cfg.remat``: "full" recomputes it in the backward pass
-        (non-reentrant ``torch.utils.checkpoint``), "none" runs it plain.
-        Where autograd records nothing (serving) it runs plain either way.
-        ``lp`` goes in as an argument, never through a closure: the
-        recompute runs after the layer loop has moved on."""
-        if self.cfg.remat == "dots":
-            raise NotImplementedError(_LATER["remat"])
-        if self.cfg.remat == "none" or not torch.is_grad_enabled() or not (
-                x.requires_grad or any(t.requires_grad for t in leaves(lp))):
+        ``remat`` (default ``cfg.remat``): "full" recomputes it in the
+        backward pass (non-reentrant ``torch.utils.checkpoint``), "dots"
+        keeps its products with no batch dimensions and recomputes the
+        rest (``_Dots``), anything else ("none") runs it plain, as JAX's
+        ``_scan_blocks`` reads it.  Where autograd records
+        nothing (serving) it runs plain either way.  ``lp`` goes in as an
+        argument, never through a closure: the recompute runs after the
+        layer loop has moved on."""
+        remat = remat or self.cfg.remat
+        if remat not in ("full", "dots") or not torch.is_grad_enabled() or \
+                not (x.requires_grad
+                     or any(t.requires_grad for t in leaves(lp))):
             return fn(lp, x)
-        return torch.utils.checkpoint.checkpoint(fn, lp, x,
-                                                 use_reentrant=False)
+        if remat == "full":
+            return torch.utils.checkpoint.checkpoint(fn, lp, x,
+                                                     use_reentrant=False)
+        dots = _Dots()
+        out = torch.utils.checkpoint.checkpoint(
+            fn, lp, x, use_reentrant=False,
+            context_fn=lambda: (dots.forward(), dots.recompute()))
+        dots.prune()
+        return out
 
     # ------------------------------------------------------------- forward
     def _rope_dim(self) -> int:
@@ -406,7 +491,8 @@ class LM:
         x = self.embed_inputs(params, batch)
         cos, sin = self._rope(x.shape[1], x.device)
         if self.cfg.shared_attn_every:
-            x, _ = self._hybrid_forward(params, x, cos, sin)
+            x, _ = self._hybrid_forward(params, x, cos, sin,
+                                        want_cache=False)
             return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
         def body(carry, lp):
@@ -426,16 +512,21 @@ class LM:
         return self.unembed(params, x), aux
 
     # ------------------------------------------------------------- hybrid
-    def _hybrid_forward(self, params, x, cos, sin, cache=None, pos=None):
+    def _hybrid_forward(self, params, x, cos, sin, cache=None, pos=None,
+                        want_cache: bool = True):
         """Zamba2: before each segment of ``shared_attn_every`` Mamba-2
         layers, the shared block on (hidden, embeddings).  Without a cache
         (full sequence) returns (x, (mamba states, shared K/V)) stacked as
-        ``init_cache`` lays them out, for S positions; with one (a decode
-        step at ``pos``) writes the step's states and K/V into it in place
-        and returns (x, cache)."""
+        ``init_cache`` lays them out, for S positions, or (x, None) with
+        ``want_cache=False`` (training: no stacked copy); with one (a decode step at ``pos``) writes the step's
+        states and K/V into it in place and returns (x, cache).  The Mamba
+        layers are checkpointed whole unless ``cfg.remat`` is "none", as
+        JAX checkpoints them ("dots" too); the shared block runs plain, as
+        in JAX."""
         x0 = x
         mamba, attn = (None, None) if cache is None else cache
         period = self.cfg.shared_attn_every
+        remat = "none" if self.cfg.remat == "none" else "full"
         layers = _layers(params["layers"])
         states, kvs = [], []
         for seg in range(self.cfg.n_layers // period):
@@ -449,7 +540,8 @@ class LM:
                 lp = layers[i]
                 if cache is None:
                     x, _, st = self._remat(
-                        lambda p, h: self._block(p, h, cos, sin), lp, x)
+                        lambda p, h: self._block(p, h, cos, sin), lp, x,
+                        remat)
                     states.append(st)
                 else:
                     conv, h = mamba[0][i], mamba[1][i]
@@ -459,6 +551,8 @@ class LM:
                     h.copy_(nh)
         if cache is not None:
             return x, cache
+        if not want_cache:
+            return x, None
         return x, (_stack(states), _stack(kvs))
 
     def _shared_block(self, p, x, x0, cos, sin, cache=None, pos=None):
@@ -545,7 +639,7 @@ class LM:
                                    device=self.device)
         if cfg.family == "hybrid":
             di, hd, n, d_conv = self._mamba_dims
-            f32 = lambda *s: torch.zeros(s, dtype=torch.float32,
+            f32 = lambda *s: torch.zeros(s, dtype=L.ACCUM_DTYPE,
                                          device=self.device)
             mamba = (f32(cfg.n_layers, batch_size, d_conv - 1, di + 2 * n),
                      f32(cfg.n_layers, batch_size, di // hd, n, hd))

@@ -27,7 +27,8 @@ would build a (B, nc, C, N, H, P) tensor (10.7 GB at Zamba2-2.7B's
 prefill).  With ``compute_dtype`` bf16 the chunk tensors (x, B, C, L, the
 decays, the entering states) are rounded to bf16 where JAX rounds them and
 every product accumulates in float32; the decay cumsums and the state h
-stay float32.
+stay float32.  That float32 is ``layers.ACCUM_DTYPE``, as RWKV-6's is, so
+an oracle can raise the whole mixer to float64.
 
 Params are nested dicts as in the JAX package; the init functions take a
 ``torch.Generator`` (its device is where the tensors are made) and
@@ -175,16 +176,22 @@ def _segsum(a):
     return out.masked_fill(~mask, float("-inf"))
 
 
+def _accum() -> torch.dtype:
+    """``layers.ACCUM_DTYPE`` (float32), read at the call: inside the SSD
+    ``L`` names its decay matrix."""
+    return L.ACCUM_DTYPE
+
+
 def _f32(*ts):
     """float32 views of the operands of a product that accumulates in
-    float32 (bf16 widens exactly)."""
-    return tuple(t.to(torch.float32) for t in ts)
+    float32 (bf16 widens exactly): ``layers.ACCUM_DTYPE``."""
+    return tuple(t.to(_accum()) for t in ts)
 
 
 def _step(x, a, b_in, c_in, h_prev):
     """One token of the recurrence: h ← exp(a) h + b xᵀ, y = c · h, in
     float32.  x (B,H,P), a (B,H), b_in/c_in (B,N), h_prev (B,H,N,P)."""
-    f32 = torch.float32
+    f32 = L.ACCUM_DTYPE
     da = torch.exp(a)
     h = h_prev * da[..., None, None] + torch.einsum(
         "bn,bhp->bhnp", b_in.to(f32), x.to(f32))
@@ -199,7 +206,7 @@ def ssd_chunked(x, a, b_in, c_in, chunk: int = 64, h0=None,
     cumsums stay float32)."""
     bsz, s, h, p = x.shape
     n = b_in.shape[-1]
-    f32 = torch.float32
+    f32 = _accum()
     assert s % chunk == 0 or s == 1
     if s == 1:                      # decode step: the plain recurrence
         h_prev = (torch.zeros((bsz, h, n, p), dtype=f32, device=x.device)
@@ -225,14 +232,17 @@ def ssd_chunked(x, a, b_in, c_in, chunk: int = 64, h0=None,
     xd = xs32 * decay_states.to(f32).permute(0, 2, 3, 1)[..., None]
     states = torch.einsum("bzcn,bzchp->bzhnp", *_f32(Bs), xd)
     del xd, xs32
-    # 3. the inter-chunk recurrence, on the float32 state
+    # 3. the inter-chunk recurrence, on the float32 state; each chunk's
+    # decay and state are unbound once, not indexed chunk by chunk: under
+    # autograd, states[:, z] would fill and add a zero gradient of the
+    # whole (B, nc, H, N, P) tensor for every chunk
     chunk_decay = torch.exp(A_cum[..., -1])                      # (B,H,nc)
     hcur = (torch.zeros((bsz, h, n, p), dtype=f32, device=x.device)
             if h0 is None else h0)
     h_prevs = []
-    for z in range(nc):
+    for dz, sz in zip(chunk_decay.unbind(2), states.unbind(1)):
         h_prevs.append(hcur)
-        hcur = hcur * chunk_decay[:, :, z, None, None] + states[:, z]
+        hcur = hcur * dz[..., None, None] + sz
     h_prevs = torch.stack(h_prevs, dim=1)                         # (B,nc,H,N,P)
     del states
     # 4. off-diagonal part (the state entering each chunk): Cs · h_prev,
@@ -255,7 +265,7 @@ def ssd_scan(x, a, b_in, c_in, chunk: int = 64, h0=None,
     if s == 1 or s % chunk:
         return ssd_chunked(x, a, b_in, c_in, chunk=chunk, h0=h0,
                            compute_dtype=compute_dtype)
-    f32 = torch.float32
+    f32 = _accum()
     nc = s // chunk
     xs = x.reshape(bsz, nc, chunk, h, p).to(f32)
     As = a.reshape(bsz, nc, chunk, h).permute(0, 1, 3, 2).to(f32)  # (B,nc,H,C)
@@ -264,8 +274,8 @@ def ssd_scan(x, a, b_in, c_in, chunk: int = 64, h0=None,
     hprev = (torch.zeros((bsz, h, n, p), dtype=f32, device=x.device)
              if h0 is None else h0)
     ys = []
-    for z in range(nc):
-        xc, ac, bc, cc = xs[:, z], As[:, z], Bs[:, z], Cs[:, z]
+    for xc, ac, bc, cc in zip(xs.unbind(1), As.unbind(1), Bs.unbind(1),
+                              Cs.unbind(1)):
         a_cum = torch.cumsum(ac, dim=-1)                         # (B,H,C)
         L = torch.exp(_segsum(ac))                                # (B,H,C,C)
         m = torch.einsum("bln,bsn->bls", cc, bc)[:, None] * L
@@ -285,7 +295,7 @@ def ssd_naive(x, a, b_in, c_in, h0=None):
     """Step-by-step oracle for ssd_chunked."""
     bsz, s, h, p = x.shape
     n = b_in.shape[-1]
-    hst = (torch.zeros((bsz, h, n, p), dtype=torch.float32, device=x.device)
+    hst = (torch.zeros((bsz, h, n, p), dtype=L.ACCUM_DTYPE, device=x.device)
            if h0 is None else h0)
     ys = []
     for t in range(s):
@@ -318,7 +328,7 @@ def mamba2_mixer(p, xin, dims: tuple[int, int, int, int], state=None,
         xbc_c = xbc_c + conv_in[:, i:i + s] * wconv[i]
     xbc_c = F.silu(xbc_c)
     xpart, b_in, c_in = torch.split(xbc_c, [d_inner, n, n], dim=-1)
-    dt_f = F.softplus(dt.to(torch.float32) + p["dt_bias"])        # (B,S,H)
+    dt_f = F.softplus(dt.to(L.ACCUM_DTYPE) + p["dt_bias"])        # (B,S,H)
     a = -torch.exp(p["a_log"]) * dt_f                             # log decay
     xh = xpart.reshape(b, s, n_heads, head_p) * dt_f[..., None].to(
         xpart.dtype)
@@ -331,4 +341,4 @@ def mamba2_mixer(p, xin, dims: tuple[int, int, int, int], state=None,
     y = L.rmsnorm(p["norm"], y * F.silu(z))
     out = y @ p["out_proj"].to(xin.dtype)
     new_conv = conv_in[:, conv_in.shape[1] - (d_conv - 1):]
-    return out, (new_conv.to(torch.float32), h_fin)
+    return out, (new_conv.to(L.ACCUM_DTYPE), h_fin)

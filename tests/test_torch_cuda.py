@@ -1088,6 +1088,75 @@ def test_flash_attention_autograd_on_the_card(cuda, dtype, bf16_scores):
                else BF16_BWD))
 
 
+# Zamba2-2.7B's shared attention in a training microbatch, (2, 32, 4096,
+# 80), cut to S = 512 (chip_smoke.py phase 2 runs the full shape)
+ZAMBA2_TRAIN = (2, 32, 512, 80)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_autograd_at_zamba2s_training_shape(cuda, dtype):
+    """Both flash kernels at (80, 80) through ``ops.flash_attention``'s
+    autograd, on head-split views of (B, S, 2560) projections as the
+    shared block hands them over: the forward against the plain version
+    (bf16 also against its bf16-scores twin), the gradients against the
+    plain backward in float64; one forward and one backward launch."""
+    b, h, s, d = ZAMBA2_TRAIN
+    rng = np.random.RandomState(81)
+    q, k, v, do = (rnd(rng, b, s, h, d, device=cuda, dtype=dtype
+                       ).transpose(1, 2) for _ in range(4))
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    fwd = flash_mod.flash_attention.launches
+    bwd = flash_mod.flash_attention_bwd.launches
+    out = ops.flash_attention(*leaves)
+    got = torch.autograd.grad(out, leaves, do)
+    assert flash_mod.flash_attention.launches == fwd + 1
+    assert flash_mod.flash_attention_bwd.launches == bwd + 1
+    want = flash_mod.plain(q, k, v)
+    if dtype == torch.float32:
+        torch.testing.assert_close(out, want, **F32)
+    else:
+        torch.testing.assert_close(out.float(), want.float(), **BF16)
+        torch.testing.assert_close(
+            out.float(), flash_mod.plain(q, k, v, bf16_scores=True).float(),
+            **TC_SCORES)
+    tol = F32 if dtype == torch.float32 else BF16_BWD
+    for name, g, w in zip("qkv", got, bwd_oracle(q, k, v, do, True)):
+        torch.testing.assert_close(g.float(), w.float(), **tol,
+                                   msg=lambda m: f"d{name}: {m}")
+
+
+def test_remat_dots_trains_like_full_on_the_card(cuda):
+    """The reduced Yi-6B's loss and gradients under ``remat="dots"`` equal
+    those under "full" bit for bit on the card (the same kernels on the
+    same operands), with the flash kernels launched as often: a forward
+    and a recompute a layer, and a backward."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.nn.model import LM
+    from repro_torch.tree import leaves, unflatten
+
+    cfg = get_config("yi_6b", reduced=True)
+    params = LM(cfg).init(torch.Generator(device=cuda).manual_seed(0))
+    tok = torch.randint(0, cfg.vocab, (2, 256), device=cuda,
+                        generator=torch.Generator(device=cuda).manual_seed(1))
+    batch = {"tokens": tok, "labels": tok}
+    runs = []
+    for remat in ("full", "dots"):
+        lm = LM(dataclasses.replace(cfg, remat=remat))
+        flat = [t.detach().requires_grad_() for t in leaves(params)]
+        fwd = flash_mod.flash_attention.launches
+        bwd = flash_mod.flash_attention_bwd.launches
+        loss, _ = lm.loss_fn(unflatten(params, flat), batch)
+        grads = torch.autograd.grad(loss, flat)
+        assert flash_mod.flash_attention.launches - fwd == 2 * cfg.n_layers
+        assert flash_mod.flash_attention_bwd.launches - bwd == cfg.n_layers
+        runs.append((loss, grads))
+    (l_full, g_full), (l_dots, g_dots) = runs
+    assert torch.equal(l_full, l_dots)
+    assert all(torch.equal(a, b) for a, b in zip(g_full, g_dots))
+
+
 def test_kernels_without_a_backward_raise_on_the_card(cuda):
     """fused_sigmoid_matmul (a card kernel with no backward: the paper's
     dense engine differentiates in its own IR) with an operand that

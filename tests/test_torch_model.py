@@ -398,10 +398,13 @@ def test_bf16_params_are_cast_like_jax():
 @pytest.mark.parametrize("change", [dict(attn_impl="chunked"),
                                     dict(attn_impl="dense"),
                                     dict(flash_impl="scan")])
-def test_attention_options_outside_the_slice_raise(change):
-    cfg = dataclasses.replace(get_config("yi_6b", reduced=True), **change)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        LM(cfg, device="cpu")
+def test_attention_options_outside_the_slice_raise(f32_compute, change):
+    """The attention options an earlier slice refused (the name is kept
+    from then): ``forward``, ``prefill`` and the decode steps under each,
+    against the JAX LM under the same option, in float32 (S = 12: one
+    chunk, so "chunked" attends densely; ``tests/test_torch_attention_impls.py``
+    holds it in chunks)."""
+    check_against_jax("yi_6b", F32, options=change)
 
 
 def test_the_entry_points_default_to_the_card():
