@@ -87,11 +87,11 @@ Phases (any failure exits non-zero; nothing is caught and carried on past):
            weight seeds 0, 1 and 2, held together; then a profile of one
            prefill and one decode step; (d) (a)'s prompts prefilled in
            float32 under the flash path, attn_impl "dense", "chunked"
-           (chunks of 1000) and flash_impl="scan", and in float64: "dense"
-           and "chunked" within (c)'s float32 atol of float64, "scan" the
-           flash path bit for bit, the flash path's distance from float64
-           and a one-ulp nudge's read beside them; flash launched 32
-           times under "scan" and never under the other two;
+           (chunks of 1000) and flash_impl="scan", and in float64: the
+           flash path, "dense" and "chunked" within (c)'s float32 atol of
+           float64, "scan" the flash path bit for bit, a one-ulp nudge's
+           distance read beside them; flash launched 32 times under "scan"
+           and never under the other two;
 6. rwkv    the same serving path on the full-width RWKV-6 7B (32 layers,
            d_model 4096, 64 heads of 64, 30.1 GB of float32 weights), after
            phase 5 has freed Yi-6B's: (a) ``LM.prefill`` of 4 prompts × 2000
@@ -240,6 +240,20 @@ Phases (any failure exits non-zero; nothing is caught and carried on past):
            (the SSD raised to float64 through layers.ACCUM_DTYPE, attention
            through the plain versions), phase 11's bound, bf16 beside it as
            a reading.  It frees all it allocates.
+15. expert-parallel the expert-owner MoE plan and the roofline, after
+           phase 14, under a minute: (a) ``moe_ffn(impl="shard")`` on one
+           full-width DeepSeek-V2-Lite MoE layer, 8000 tokens, float32, on
+           a (data 1, model 1) mesh over a one-rank NCCL group (a local
+           TCPStore, destroyed after), against the array form at phase 7
+           (d)'s bound, exactly one moe_dispatch and one relational_matmul
+           launch; (b) four owners of 16 experts each through
+           ``_moe_sort_local``, summed, against the full range at
+           tests/test_moe.py's rtol 2e-3, atol 2e-4; (c) the dry-run's
+           count (``launch.dryrun.measure_costs`` on a (1, 1) mesh of one
+           placeholder rank) of phase 11 (a)'s step: its three terms, the
+           bottleneck and roofline_fraction, beside the step phase 11
+           measured, which the modelled step may not exceed by more than
+           5 %.
 
 ``python3 chip_smoke.py --kernels [name ...]`` runs phases 1 and 2 alone,
 for the named kernels (all nine without a name), and prints no result line:
@@ -250,6 +264,14 @@ alone, with where (b)'s float32 margin comes from: the float64 model with
 one op group at a time in float32 (the group norm, the token-shift mixes,
 the layers' products, the scan kernels); it prints no result line and
 writes ``chiprun_out/chip_smoke_margin.json``.
+
+``python3 chip_smoke.py --flash-margin [name ...]`` runs phase 1 and the
+float32 flash path's error split by part (FLASH_MARGIN, all without a
+name): on one layer's operands at Yi-6B's prefill shape, and through phase
+5 (d)'s prefill at all 32 layers, the kernel and the plain emulation of
+its arithmetic with one source of error changed at a time
+(``ref.flash_attention_emulated``) against float64; it prints no result
+line and writes ``chiprun_out/chip_smoke_flash_margin.json``.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
 line before it lists the kernels as JSON.  Details also go to
@@ -2214,14 +2236,13 @@ def serve_path(counters, result):
 # run once a layer under flash_impl="scan" and never under the other two.
 # Each run's last-token logits are read against the model in float64
 # (dense attention: no kernel takes float64) and against the flash path's,
-# beside a one-ulp nudge of the flash path's embeddings.  Held: "dense" and
-# "chunked" within (c)'s float32 atol of float64, "scan" equal to the flash
-# path bit for bit (the same kernel on the same operands).  The flash
-# path's own distance from float64 is a reading: the float32 kernel
-# (3xTF32) read 1.260e-4 at this depth and length where the dense float32
-# path reads 2.203e-5 and a one-ulp nudge 1.669e-5 (PERF.md; NVIDIA H100
-# 80GB HBM3, 700.00 W), past the 1e-4 the two paths would need to agree
-# within.
+# beside a one-ulp nudge of the flash path's embeddings.  Held: the flash
+# path, "dense" and "chunked" within (c)'s float32 atol of float64, "scan"
+# equal to the flash path bit for bit (the same kernel on the same
+# operands).  The float32 kernel once read 1.260e-4 here, where the dense
+# float32 path reads 2.203e-5: its P.V accumulator, carried through every
+# key tile's wgmmas, shrank under the tensor cores' truncation; each
+# tile's P.V is now summed apart (csrc/flash_attention.cu, PERF.md).
 ATTN_IMPLS = {"dense": dict(attn_impl="dense"),
               "chunked": dict(attn_impl="chunked", attn_chunk=1000),
               "scan": dict(flash_impl="scan")}
@@ -2292,13 +2313,130 @@ def attention_impls(cfg, params, tokens, flash, card) -> dict:
             raise AssertionError(f"serve (d) {name}: {rec['launches']} flash "
                                  f"launches (expected {expected[name]}) or "
                                  "logits not finite")
-        if name in ("dense", "chunked"):
+        if name in ("flash", "dense", "chunked"):
             torch.testing.assert_close(
                 logits, exact, **LOGIT_TOL["float32"],
                 msg=lambda m: f"serve (d) {name} against float64: {m}")
         if name == "scan" and rec["to_flash"]:
             raise AssertionError("serve (d) scan: not the flash path's "
                                  "logits bit for bit")
+    return out
+
+
+#: ``--flash-margin``: the float32 flash kernel's arithmetic emulated
+#: (``ref.flash_attention_emulated``) with one source of error changed at a
+#: time, in place of the kernel on (d)'s prefill; "O carried" is the design
+#: before each tile's P.V was summed apart (the wgmma accumulator carried
+#: through every tile).
+FLASH_MARGIN = {
+    "the kernel": {},
+    "O carried through all tiles": dict(pv_tile=False),
+    "O carried, no TF32 split": dict(pv_tile=False, parts=0),
+    "O carried, 3 parts, 6 products": dict(pv_tile=False, parts=3),
+    "O carried, softmax in float64": dict(pv_tile=False,
+                                          softmax_dtype=torch.float64),
+    "O carried, accumulation to nearest": dict(
+        pv_tile=False, s_round="nearest", pv_round="nearest"),
+    "O carried, S to nearest": dict(pv_tile=False, s_round="nearest"),
+    "O carried, P.V to nearest": dict(pv_tile=False, pv_round="nearest"),
+    "S's small products apart": dict(s_apart=True),
+    "small products apart": dict(s_apart=True, pv_apart=True),
+}
+
+
+def flash_margin(card, names) -> dict:
+    """K13: where the float32 flash path's distance from float64 at (d)'s
+    depth comes from.  On one layer's operands at Yi-6B's prefill shape,
+    the kernel and each emulation against the plain version in float64
+    (the largest error and the mean error along the sign of the exact
+    value: a shrink reads negative); then (d)'s prefill (Yi-6B, 32 layers,
+    4 x 2000 tokens, the last weight seed) in float32 through the kernel,
+    the dense path and each emulation, and in float64: each run's
+    last-token logits against float64's."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as flash_mod
+    from repro_torch.kernels import ops, ref
+    from repro_torch.nn import layers
+    from repro_torch.nn.model import LM
+
+    runs = {n: FLASH_MARGIN[n] for n in names or FLASH_MARGIN}
+    out = {"card": card, "operands": {}, "prefill": {}}
+    cfg = get_config("yi_6b")
+    lm = LM(cfg)
+    rng = np.random.RandomState(0)
+    b, hq, hkv, s, d = FLASH_MAIN
+    q = torch.tensor(rng.randn(b, hq, s, d), dtype=torch.float32,
+                     device=lm.device)
+    k, v = (torch.tensor(rng.randn(b, hkv, s, d), dtype=torch.float32,
+                         device=lm.device) for _ in range(2))
+    exact = ref.flash_attention(q.double(), k.double(), v.double())
+
+    def read(what, got):
+        err = got.double() - exact
+        rec = dict(max_abs_err=float(err.abs().max()),
+                   shrink=float((err * exact.sign()).mean()
+                                / exact.abs().mean()))
+        out["operands"][what] = rec
+        log(f"flash margin, one layer {FLASH_MAIN} on {card}: {what}: max "
+            f"|err| {rec['max_abs_err']:.3e}, mean signed error "
+            f"{rec['shrink']:+.3e} of the mean |value|")
+        return got
+
+    kernel = read("kernel", flash_mod.flash_attention(q, k, v))
+    read("plain float32", ref.flash_attention(q, k, v))
+    for name, kw in runs.items():
+        out["operands"][name]["to_kernel"] = float((read(
+            name, ref.flash_attention_emulated(q, k, v, **kw)) - kernel
+        ).abs().max())
+    del q, k, v, exact, kernel
+
+    params = lm.init(torch.Generator(device=lm.device).manual_seed(
+        PVD_SEEDS[-1]))
+    tokens = torch.from_numpy(np.random.RandomState(0).randint(
+        0, cfg.vocab, (PREFILL_BATCH, PREFILL_LEN)).astype(np.int32)).to(
+            lm.device)
+    compute, accum, kernel = (layers.COMPUTE_DTYPE, layers.ACCUM_DTYPE,
+                              ops.flash_attention)
+    got = {}
+
+    def prefill(name, change=None):
+        torch.cuda.empty_cache()
+        lm_run = LM(dataclasses.replace(cfg, **(change or {})))
+        (logits, _), wall = timed(lambda: lm_run.prefill(
+            params, {"tokens": tokens}))
+        got[name] = (logits[:, 0].double(), wall)
+
+    layers.COMPUTE_DTYPE = torch.float32
+    try:
+        prefill("flash")
+        prefill("dense", dict(attn_impl="dense"))
+        for name, kw in runs.items():
+            ops.flash_attention = (
+                lambda q, k, v, causal=True, scale=None, bf16_scores=False,
+                kw=kw: ref.flash_attention_emulated(q, k, v, causal, scale,
+                                                    **kw))
+            prefill(name)
+            ops.flash_attention = kernel
+        stack = [params]
+        while stack:
+            node = stack.pop()
+            for key, val in node.items():
+                if isinstance(val, dict):
+                    stack.append(val)
+                else:
+                    node[key] = val.double()
+        layers.COMPUTE_DTYPE = layers.ACCUM_DTYPE = torch.float64
+        prefill("float64", dict(attn_impl="dense"))
+    finally:
+        layers.COMPUTE_DTYPE, layers.ACCUM_DTYPE = compute, accum
+        ops.flash_attention = kernel
+    want = got.pop("float64")[0]
+    for name, (logits, wall) in got.items():
+        dist = float((logits - want).abs().max())
+        out["prefill"][name] = dict(to_float64=dist, wall_s=wall)
+        log(f"flash margin, prefill {PREFILL_BATCH} x {PREFILL_LEN}, "
+            f"{cfg.n_layers} layers, float32 on {card}: {name}: last-token "
+            f"logits {dist:.3e} from float64's ({wall:.1f} s)")
     return out
 
 
@@ -5382,6 +5520,170 @@ def zamba_train_path(counters, result):
     return out["trainer"]["launches"]
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the expert-parallel MoE layer and the roofline on the card
+# ---------------------------------------------------------------------------
+
+# (a) impl="shard" on one full-width DeepSeek-V2-Lite MoE layer (d_model
+# 2048, 64 experts of 1408, top-6, 2 shared), phase 7 (d)'s 8000 tokens, in
+# float32, on a (data 1, model 1) mesh over a one-rank NCCL group: the
+# owner fills all 64 experts through one moe_dispatch and combines through
+# one relational_matmul, the all_reduce over 'model' runs on one rank.
+# Held against the layer's plain version (the array form, no kernel: at
+# 8000 tokens both take one group and the same capacity) at phase 7 (d)'s
+# MOE_IMPL_TOL.  (b) four expert owners on one card, each _moe_sort_local
+# over its 16 experts, summed, against the full range at OWNER_TOL, the
+# bound of tests/test_moe.py::test_shard_partials_sum_to_full.  (c) the
+# dry-run's count of phase 11 (a)'s Yi-6B step (12 layers, 2 microbatches
+# of 2 x 4096, AdamW) on a (1, 1) mesh of one placeholder rank, beside the
+# step phase 11 measured: the modelled step may not exceed the measured
+# one by more than ROOFLINE_SLACK, since a step faster than its bound
+# means the count is wrong.
+OWNERS = 4
+OWNER_TOL = dict(rtol=2e-3, atol=2e-4)
+ROOFLINE_SLACK = 1.05
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def moe_shard_layer(counters, card, device="cuda", backend="nccl") -> dict:
+    """Phase 15 (a) and (b); destroys the process group it makes.
+    ``device`` / ``backend``: the CPU and gloo rehearse it."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs import get_config
+    from repro_torch.nn import layers, moe
+    from repro_torch.nn.model import _moe_cfg
+
+    cfg = get_config("deepseek_v2_lite_16b")
+    mcfg = _moe_cfg(cfg)
+    t, e = PREFILL_BATCH * PREFILL_LEN, mcfg.n_experts
+    p = moe.init_moe(torch.Generator(device=device).manual_seed(0), mcfg)
+    x = torch.randn((t, cfg.d_model), device=device,
+                    generator=torch.Generator(device=device).manual_seed(1))
+    store = dist.TCPStore("127.0.0.1", free_port(), 1, is_master=True)
+    dist.init_process_group(backend, store=store, rank=0, world_size=1)
+    layers.COMPUTE_DTYPE = torch.float32
+    try:
+        mesh = init_device_mesh(device, (1, 1),
+                                mesh_dim_names=("data", "model"))
+        moe.set_moe_mesh(mesh, ("data",))
+        shard = dataclasses.replace(mcfg, impl="shard")
+        run = lambda: moe.moe_ffn(p, x, shard)
+        zero_launches(counters)
+        (y, _), first_s = timed(run)
+        launched = {n: c for n, c in read_launches(counters).items() if c}
+        if launched != {"moe_dispatch": 1, "relational_matmul": 1}:
+            raise AssertionError(f"moe-shard (a) launches {launched}")
+        plain, _ = moe.moe_ffn(p, x, dataclasses.replace(mcfg,
+                                                         impl="einsum"))
+        err = max_err(y, plain, MOE_IMPL_TOL,
+                      "moe-shard (a) against the array form")
+        ms = time_ms(run, iters=3, warmup=1)
+        plain_ms = time_ms(lambda: moe.moe_ffn(
+            p, x, dataclasses.replace(mcfg, impl="einsum")), iters=3,
+            warmup=1)
+        del y, plain
+        gates, idx, _ = moe._route(p, x, mcfg)
+        cap = moe._capacity(t, mcfg)
+        full = moe._moe_sort_local(p["wi"], p["wg"], p["wo"], x, mcfg,
+                                   gates, idx, 0, e, cap)
+        e_loc = e // OWNERS
+        parts = sum(moe._moe_sort_local(
+            p["wi"][lo:lo + e_loc], p["wg"][lo:lo + e_loc],
+            p["wo"][lo:lo + e_loc], x, mcfg, gates, idx, lo, e_loc, cap)
+            for lo in range(0, e, e_loc))
+        owners_err = max_err(parts, full, OWNER_TOL,
+                             "moe-shard (b) four owners against the full "
+                             "range")
+    finally:
+        moe.set_moe_mesh(None, None)
+        layers.COMPUTE_DTYPE = torch.bfloat16
+        dist.destroy_process_group()
+    out = dict(tokens=t, experts=e, capacity=cap, launches=launched,
+               first_s=first_s, ms=ms, plain_ms=plain_ms, max_abs_err=err,
+               tolerance=MOE_IMPL_TOL, owners=OWNERS,
+               owners_max_abs_err=owners_err, owners_tolerance=OWNER_TOL)
+    log(f"moe-shard (a) impl=shard, one DeepSeek-V2-Lite MoE layer, {t} "
+        f"tokens, float32, (data 1, model 1) {backend} mesh on {card}: "
+        f"{ms:.4f} ms (first call {first_s:.4f} s), launches {launched}, "
+        f"max |err| {err:.3e} against the array form ({plain_ms:.4f} ms; "
+        f"held at {MOE_IMPL_TOL})")
+    log(f"moe-shard (b) {OWNERS} owners of {e_loc} experts summed against "
+        f"the full range on {card}: max |err| {owners_err:.3e} (held at "
+        f"{OWNER_TOL})")
+    return out
+
+
+def roofline_step(result, card) -> dict:
+    """Phase 15 (c): the dry-run's count of phase 11 (a)'s step beside its
+    measured step."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch import dryrun
+    from repro_torch.roofline import analysis
+
+    cfg = dataclasses.replace(get_config("yi_6b"), n_layers=TRAIN_LAYERS)
+    shape = ShapeSpec("train_4k", TRAIN_SEQ, TRAIN_BATCH, "train")
+    t0 = time.perf_counter()
+    dryrun.placeholder_group(1)
+    try:
+        mesh = init_device_mesh("cpu", (1, 1),
+                                mesh_dim_names=("data", "model"))
+        flops, hbm, wire, by_kind = dryrun.measure_costs(
+            cfg, shape, mesh, True, grad_accum=TRAIN_ACCUM)
+    finally:
+        dist.destroy_process_group()
+    rl = analysis.roofline(flops, hbm, wire,
+                           analysis.model_flops(cfg, shape, 1), by_kind)
+    measured = result["train"]["trainer"]["step_s_mean"]
+    ratio = rl.step_s / measured
+    out = dict(flops=flops, hbm_bytes=hbm, wire_bytes=wire,
+               terms_s=dict(compute=rl.compute_s, memory=rl.memory_s,
+                            collective=rl.collective_s),
+               bottleneck=rl.bottleneck, modelled_step_s=rl.step_s,
+               measured_step_s=measured, modelled_over_measured=ratio,
+               roofline_fraction=rl.roofline_fraction,
+               measured_fraction=rl.model_flops / analysis.PEAK_FLOPS
+               / measured, count_s=time.perf_counter() - t0)
+    log(f"roofline (c) Yi-6B, {TRAIN_LAYERS} layers, {TRAIN_ACCUM} x "
+        f"{TRAIN_BATCH // TRAIN_ACCUM} x {TRAIN_SEQ} tokens, AdamW, "
+        f"counted on a (1, 1) mesh (modelled, {out['count_s']:.1f} s): "
+        f"{flops:.4e} FLOPs, {hbm:.4e} bytes (unfused), {wire:.4e} wire "
+        f"bytes; compute {rl.compute_s:.4f} s, memory {rl.memory_s:.4f} s, "
+        f"collective {rl.collective_s:.4f} s, bottleneck {rl.bottleneck}, "
+        f"roofline_fraction {rl.roofline_fraction:.4f}; measured in phase "
+        f"11 (a) on {card}: {measured:.4f} s a step, the modelled step "
+        f"{ratio:.4f} of it (held at {ROOFLINE_SLACK}), model FLOPs at "
+        f"{out['measured_fraction']:.4f} of the bf16 peak")
+    if ratio > ROOFLINE_SLACK:
+        raise AssertionError(f"roofline (c): the modelled step is {ratio:.4f}"
+                             " of the measured one: the count is wrong")
+    return out
+
+
+def moe_shard_path(counters, result):
+    """Phase 15; under a minute."""
+    t0 = time.perf_counter()
+    out = {"moe_shard": moe_shard_layer(counters, result["card"])}
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["roofline"] = roofline_step(result, result["card"])
+    out["wall_s"] = time.perf_counter() - t0
+    log(f"phase 15 in {out['wall_s']:.1f} s")
+    result["expert_parallel"] = out
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to drive", file=sys.stderr)
@@ -5428,6 +5730,17 @@ def main() -> int:
             if "Used" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
 
+    if sys.argv[1:2] == ["--flash-margin"]:
+        unknown = set(sys.argv[2:]) - set(FLASH_MARGIN)
+        if unknown:
+            print(f"chip_smoke: --flash-margin takes names from "
+                  f"{sorted(FLASH_MARGIN)}", file=sys.stderr)
+            return 2
+        out = flash_margin(card, sys.argv[2:])
+        OUT_DIR.mkdir(exist_ok=True)
+        (OUT_DIR / "chip_smoke_flash_margin.json").write_text(
+            json.dumps(out, indent=1))
+        return 0
     if sys.argv[1:] == ["--rwkv-margin"]:
         out = rwkv_gradients(card, margin_split=True)
         OUT_DIR.mkdir(exist_ok=True)
@@ -5457,6 +5770,7 @@ def main() -> int:
     unknown = set(sys.argv[2:]) - set(checks)
     if sys.argv[1:] and not kernels_only or unknown:
         print(f"chip_smoke: usage: chip_smoke.py [--kernels [name ...] | "
+              f"--flash-margin [name ...] | "
               f"--rwkv-margin], "
               f"names from {sorted(checks)}", file=sys.stderr)
         return 2
@@ -5511,6 +5825,7 @@ def main() -> int:
     launches["rwkv6_scan_bwd"] = rwkv_train_path(counters, result)[
         "rwkv6_scan_bwd"]
     zamba_train_path(counters, result)
+    moe_shard_path(counters, result)
 
     line = {"kernels": [
         {k: r[k] for k in ("name", "route", "source", "replaces")}

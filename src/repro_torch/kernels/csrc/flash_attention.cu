@@ -63,8 +63,16 @@
 //     lanes owns two rows, keeps m and a per-lane partial l in float32 and
 //     takes full-precision expf; only tiles that cross the diagonal or the
 //     ragged end of S are masked, to -1e30 as the reference masks;
-//   - O += P V: P is split in the registers and passed as wgmma's A
-//     fragment, V^T read from shared memory;
+//   - O = alpha O + P V: P is split in the registers and passed as
+//     wgmma's A fragment, V^T read from shared memory; each tile's P V is
+//     summed from zero in an accumulator of its own and added to O in
+//     the registers (one FMA with the rescale), since the tensor cores
+//     truncate every wgmma's float32 sum: O carried through all the
+//     tiles' wgmmas shrank by 4.9e-6 of itself at 2000 keys, and
+//     that bias, the same sign in every layer, set the float32 path's
+//     distance from float64 at depth (1.26e-4 at Yi-6B's 32 layers; the
+//     TF32 split, the softmax and S's own sums each moved it little: see
+//     ref.flash_attention_emulated and ``chip_smoke.py --flash-margin``);
 //   - out = O / l, stored from the registers.
 // Query tiles go out longest first, the tiles of one head (and the heads
 // of one GQA group) next to each other, so the blocks that run together
@@ -596,18 +604,19 @@ flash_fwd(const __grid_constant__ CUtensorMap tm_khi,
     }
     l0 = l0 * alpha0 + sum0;
     l1 = l1 * alpha1 + sum1;
-#pragma unroll
-    for (int i = 0; i < DVP / 8; ++i) {
-      o[4 * i] *= alpha0;
-      o[4 * i + 1] *= alpha0;
-      o[4 * i + 2] *= alpha1;
-      o[4 * i + 3] *= alpha1;
-    }
 
+    // this tile's P V, summed from zero in an accumulator of its own and
+    // added to O in the registers: the tensor cores truncate each wgmma's
+    // float32 sum, and O carried through every tile's wgmmas (24 a tile,
+    // 768 at 2000 keys) shrank toward zero, by 4.9e-6 of itself on
+    // average at Yi-6B's prefill shape
+    float t[DVP / 2];
+#pragma unroll
+    for (int i = 0; i < DVP / 2; ++i) t[i] = 0.f;
     constexpr int kV = 2 * P::kVBlocks;    // V chunks a tile
     for (int i = 0; i < kV; ++i)
       mbar_wait(full0 + 8 * ((c + i) % kSlots), ((c + i) / kSlots) & 1);
-    hold(o);
+    hold(t);
     hold(ph);
     hold(pl);
     wgmma_fence();
@@ -617,24 +626,31 @@ flash_fwd(const __grid_constant__ CUtensorMap tm_khi,
       for (int blk = 0; blk < P::kVBlocks; ++blk) {
         const int i = half * P::kVBlocks + blk;
         const uint32_t vh = ring + ((c + i) % kSlots) * kChunk;
-        float* oo = &o[blk * kVW / 2];
+        float* tt = &t[blk * kVW / 2];
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk) {   // 8 keys a k-step
           const uint32_t* a_hi = &ph[4 * (4 * half + kk)];
           const uint32_t* a_lo = &pl[4 * (4 * half + kk)];
           const uint64_t v_hi = desc(vh + 32 * kk);
           const uint64_t v_lo = desc(vh + kPart + 32 * kk);
-          wgmma_pv<kVW>(oo, a_lo, v_hi);
-          wgmma_pv<kVW>(oo, a_hi, v_lo);
-          wgmma_pv<kVW>(oo, a_hi, v_hi);
+          wgmma_pv<kVW>(tt, a_lo, v_hi);
+          wgmma_pv<kVW>(tt, a_hi, v_lo);
+          wgmma_pv<kVW>(tt, a_hi, v_hi);
         }
       }
     }
     wgmma_commit();
     wgmma_wait_all();
-    hold(o);
+    hold(t);
     release(c, kV);
     c += kV;
+#pragma unroll
+    for (int i = 0; i < DVP / 8; ++i) {
+      o[4 * i] = fmaf(o[4 * i], alpha0, t[4 * i]);
+      o[4 * i + 1] = fmaf(o[4 * i + 1], alpha0, t[4 * i + 1]);
+      o[4 * i + 2] = fmaf(o[4 * i + 2], alpha1, t[4 * i + 2]);
+      o[4 * i + 3] = fmaf(o[4 * i + 3], alpha1, t[4 * i + 3]);
+    }
   }
 
   l0 += __shfl_xor_sync(0xffffffffu, l0, 1);

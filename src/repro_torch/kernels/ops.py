@@ -3,7 +3,8 @@
 Operands on the CPU go to the plain PyTorch version (``ref``); operands on
 a CUDA device go to the hand-written kernel, which launches or raises.
 There is no switch and no fallback: a CUDA tensor never reaches the plain
-version through here.  (The JAX package's ``ops`` chooses with
+version through here.  Meta operands (the dry-run's) get shapes alone, and
+their cost counted (``meta``).  (The JAX package's ``ops`` chooses with
 ``use_pallas=``; here the device decides.)
 
 Gradients.  On the CPU autograd differentiates the plain versions.  On the
@@ -26,7 +27,7 @@ from __future__ import annotations
 
 import torch
 
-from . import ref
+from . import meta, ref
 from .flash_attention import flash_attention as _flash_cuda
 from .flash_attention import flash_attention_bwd as _flash_bwd_cuda
 from .flash_attention import takes as _flash_takes
@@ -37,6 +38,12 @@ from .relational_matmul import relational_matmul as _relmm_cuda
 from .rwkv6_scan import rwkv6_scan as _rwkv6_cuda
 from .rwkv6_scan import rwkv6_scan_bwd as _rwkv6_bwd_cuda
 from .tuple_dot import tuple_dot as _tuple_dot_cuda
+
+
+def _on_meta(*operands: torch.Tensor) -> bool:
+    """True where every operand is a meta tensor (the dry-run's): the
+    entry point then returns shapes alone (``meta``)."""
+    return all(t.device.type == "meta" for t in operands)
 
 
 def _on_host(*operands: torch.Tensor) -> bool:
@@ -130,6 +137,8 @@ def relational_matmul(row_ids, col_ids, vals, b, m: int) -> torch.Tensor:
     differentiable in vals and b on both routes (on the card through
     ``_RelationalMatmul``; with no operand that requires grad, or under
     ``no_grad``, the forward kernel alone, nothing recorded)."""
+    if _on_meta(row_ids, col_ids, vals, b):
+        return meta.relational_matmul(row_ids, col_ids, vals, b, m)
     if _on_host(row_ids, col_ids, vals, b):
         return ref.relational_matmul(row_ids, col_ids, vals, b, m)
     return _RelationalMatmul.apply(row_ids, col_ids, vals, b.contiguous(), m)
@@ -187,6 +196,8 @@ def moe_dispatch(x, sort_idx, gates) -> torch.Tensor:
     gates on both routes (on the card through ``_MoeDispatch``; with no
     operand that requires grad, or under ``no_grad``, the forward kernel
     alone, nothing recorded)."""
+    if _on_meta(x, sort_idx, gates):
+        return meta.moe_dispatch(x, sort_idx, gates)
     if _on_host(x, sort_idx, gates):
         return ref.moe_dispatch(x, sort_idx, gates)
     return _MoeDispatch.apply(x.contiguous(),
@@ -244,6 +255,9 @@ def flash_attention(q, k, v, causal: bool = True, scale=None,
     operands the kernel was given and dO in their type: rounded to bf16
     under ``bf16_scores``; with no operand that requires grad, or under
     ``no_grad``, it runs the forward kernel alone and records nothing)."""
+    if _on_meta(q, k, v):
+        return meta.flash_attention(q, k, v, causal=causal, scale=scale,
+                                    bf16_scores=bf16_scores)
     if _on_host(q, k, v):
         return ref.flash_attention(q, k, v, causal=causal, scale=scale,
                                    bf16_scores=bf16_scores)
@@ -289,6 +303,8 @@ def rwkv6_scan(r, k, v, w, u, s0):
     shapes ((BH, S, N) or (B, H, S, N)).  Differentiable on both routes: on
     the card through ``_Rwkv6Scan`` (with no operand that requires grad, or
     under ``no_grad``, the forward kernel alone, nothing recorded)."""
+    if _on_meta(r, k, v, w, u, s0):
+        return meta.rwkv6_scan(r, k, v, w, u, s0)
     if _on_host(r, k, v, w, u, s0):
         return ref.rwkv6_scan(r, k, v, w, u, s0)
     r, k, v, w, u = (t if t.stride(-1) == 1 else t.contiguous()

@@ -160,6 +160,157 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+# ---------------------------------------------------------------------------
+# The float32 flash kernel's arithmetic, emulated part by part
+
+def to_tf32(x: torch.Tensor) -> torch.Tensor:
+    """float32 rounded to TF32 (10 explicit mantissa bits) to nearest, ties
+    away from zero, as the kernel's ``to_tf32`` rounds: half a unit of the
+    13 dropped bits added to the int32 word, then those bits cleared."""
+    return ((x.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def tf32_parts(x: torch.Tensor, parts: int) -> list[torch.Tensor]:
+    """x as ``parts`` TF32 words, the largest first, each the rounded rest
+    of the ones before it (the subtractions are exact in float32):
+    |x - sum| <= 2^-11 |x| for one part, 2^-22 |x| for two (hi, lo),
+    2^-33 |x| for three (hi, mid, lo).  ``parts=0`` is x itself, unsplit."""
+    if parts == 0:
+        return [x]
+    out, rest = [], x
+    for _ in range(parts):
+        out.append(to_tf32(rest))
+        rest = rest - out[-1]
+    return out
+
+
+#: the products a k-step takes, as (part of a, part of b), smallest first:
+#: the kernel's 3xTF32 (lo·hi, hi·lo, hi·hi); 6 of 3 parts, every one above
+#: 2^-24 |a b|; one unsplit float32 product (exact, as if the tensor core
+#: took float32 operands).
+PRODUCTS = {0: ((0, 0),),
+            2: ((1, 0), (0, 1), (0, 0)),
+            3: ((2, 0), (0, 2), (1, 1), (1, 0), (0, 1), (0, 0))}
+
+
+_TILE = 64                  # the kernel's keys a tile
+
+
+def round_f32(x: torch.Tensor, mode: str) -> torch.Tensor:
+    """float64 → float32 to nearest (IEEE) or toward zero (how the tensor
+    cores round a wgmma's float32 accumulation)."""
+    y = x.to(torch.float32)
+    if mode == "zero":
+        over = y.to(x.dtype).abs() > x.abs()
+        y = torch.where(over, torch.nextafter(y, torch.zeros_like(y)), y)
+    elif mode != "nearest":
+        raise ValueError(f"rounding {mode!r}: 'nearest' or 'zero'")
+    return y
+
+
+def _chain(acc, a_parts, b_parts, parts: int, mode: str, apart: bool = False,
+           kstep: int = 8):
+    """acc (float32) plus Σ_k a[..., k] b[k, ...] as the kernel issues it:
+    k-steps of ``kstep`` in order, each the PRODUCTS of their parts, one
+    wgmma each; a wgmma's products are exact and the sum with its
+    accumulator is rounded once, by ``mode``.  ``apart``: the products
+    other than hi·hi go to an accumulator of their own, started from zero
+    and added to the result at the end (to nearest)."""
+    small = torch.zeros_like(acc) if apart else None
+    for k0 in range(0, a_parts[0].shape[-1], kstep):
+        for i, j in PRODUCTS[parts]:
+            term = a_parts[i][..., k0:k0 + kstep].double() @ \
+                b_parts[j][..., k0:k0 + kstep, :].double()
+            if apart and (i, j) != (0, 0):
+                small = round_f32(small.double() + term, mode)
+            else:
+                acc = round_f32(acc.double() + term, mode)
+    return acc if small is None else acc + small
+
+
+def flash_attention_emulated(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, causal: bool = True,
+                             scale: float | None = None, *, parts: int = 2,
+                             s_round: str = "zero", pv_round: str = "zero",
+                             pv_tile: bool = True, s_apart: bool = False,
+                             pv_apart: bool = False,
+                             softmax_dtype: torch.dtype = torch.float32
+                             ) -> torch.Tensor:
+    """The float32 kernel's arithmetic (``csrc/flash_attention.cu``) in plain
+    PyTorch,
+    with each of its sources of error a knob, so that its share of the
+    kernel's error can be read alone:
+
+    - ``parts``: each operand of S = q kᵀ and of P·V split into that many
+      TF32 parts (2: the kernel's hi and lo; 3: hi, mid, lo; 0: float32
+      operands, exact products);
+    - ``s_round`` / ``pv_round``: how a wgmma's float32 accumulation is
+      rounded ("zero": truncated, as the tensor cores do; "nearest");
+    - ``pv_tile``: each key tile's P·V summed from zero and added to the
+      rescaled O in float32 registers (one FMA, to nearest), instead of
+      one accumulator carried across all tiles (False: the kernel's
+      design before the repair this emulation measured for);
+    - ``s_apart`` / ``pv_apart`` (the latter with ``pv_tile``): the small
+      products (all but hi·hi) of S's / a tile's P·V summed in an
+      accumulator of their own, added at the end;
+    - ``softmax_dtype``: the online softmax (exp, the running max and sum,
+      O's rescaling and O / l) in float32 (the kernel's) or float64.
+
+    S is summed per 64-key tile from zero, as the kernel sums it; the
+    online softmax runs tile by tile.  Float32 operands (B, Hq, S, D) /
+    (B, Hkv, S, D) / (B, Hkv, S, Dv); returns float32.  Slow (a PyTorch
+    op a wgmma): for reading the error, not for use."""
+    if pv_apart and not pv_tile:
+        raise ValueError("pv_apart sums a tile's small products apart: "
+                         "it needs pv_tile")
+    b, hq, s, d = q.shape
+    group = hq // k.shape[1]
+    if scale is None:
+        scale = d ** -0.5
+    sd = softmax_dtype
+    out = torch.empty((b, hq, s, v.shape[-1]), dtype=torch.float32,
+                      device=q.device)
+    rows = torch.arange(s, device=q.device)[:, None]
+    for i in range(b):                     # one batch row at a time: memory
+        qp = tf32_parts(q[i].float(), parts)
+        kp = [t.repeat_interleave(group, dim=0).transpose(-1, -2)
+              for t in tf32_parts(k[i].float(), parts)]
+        vp = [t.repeat_interleave(group, dim=0)
+              for t in tf32_parts(v[i].float(), parts)]
+        scores = _chain(torch.zeros((hq, s, s), dtype=torch.float32,
+                                    device=q.device), qp, kp, parts,
+                        s_round, s_apart)
+        m = torch.full((hq, s, 1), -1e30, dtype=sd, device=q.device)
+        l = torch.zeros((hq, s, 1), dtype=sd, device=q.device)
+        o = torch.zeros((hq, s, v.shape[-1]), dtype=torch.float32,
+                        device=q.device)
+        for k0 in range(0, s, _TILE):
+            x = (scores[..., k0:k0 + _TILE] * scale).to(sd)
+            if causal:
+                keys = torch.arange(k0, min(k0 + _TILE, s), device=q.device)
+                x = torch.where(keys[None] <= rows, x, -1e30)
+            mn = torch.maximum(m, x.amax(dim=-1, keepdim=True))
+            alpha = torch.exp(m - mn)
+            p = torch.exp(x - mn)
+            l = l * alpha + p.sum(dim=-1, keepdim=True)
+            m = mn
+            pp = tf32_parts(p.to(torch.float32), parts)
+            vt = [t[:, k0:k0 + _TILE] for t in vp]
+            if pv_tile:                      # o = fma(o, alpha, tile's P·V)
+                part = _chain(torch.zeros_like(o), pp, vt, parts, pv_round,
+                              pv_apart)
+                o = (o.double() * alpha.double() + part.double()).to(
+                    torch.float32)
+            else:
+                o = _chain((o.to(sd) * alpha).to(torch.float32), pp, vt,
+                           parts, pv_round)
+        if sd == torch.float32:             # the kernel's o · (1 / l)
+            out[i] = o * (1.0 / l)
+        else:
+            out[i] = (o.to(sd) / l).to(torch.float32)
+    return out
+
+
 def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                w: torch.Tensor, u: torch.Tensor, s0: torch.Tensor
                ) -> tuple[torch.Tensor, torch.Tensor]:

@@ -31,9 +31,18 @@ Tokens are processed in GROUPS (GShard's group dimension): capacity and
 ranks are group-local.  Both impls drop overflow beyond expert capacity
 with identical rank-major priority, so their outputs match.
 
-``impl="shard"`` without a mesh runs the sort path, as the JAX package
-does without one; the expert-parallel ``_moe_shard`` (and ``set_moe_mesh``)
-come with ROADMAP.md queue 1, item 18.
+``impl="shard"`` — the relational plan with ENGINE SUPPORT at cluster
+    scale, once ``set_moe_mesh`` has installed a mesh: each (data, model)
+    rank routes its token shard, fills capacity buckets ONLY for the
+    experts it owns (``_moe_sort_local``: the same two kernels under the
+    owned-range relation, the other assignments parked in a drop bucket
+    as non-matching join tuples), runs the local expert products and
+    combines its partial sums; one ``all_reduce`` over 'model' replaces
+    both the dispatch all-to-all and the one-hot einsums
+    (``_moe_shard``, through ``local_map``, the counterpart of JAX's
+    ``shard_map``).  Its capacity is JAX's: over all of a rank's tokens,
+    not per group.  Without a mesh it runs the sort path, as the JAX
+    package does.
 """
 from __future__ import annotations
 
@@ -217,6 +226,116 @@ def _moe_sort(p, xg, cfg: MoEConfig, gates, idx):
     return out.to(xg.dtype).reshape(n_groups, g, d)
 
 
+# ---------------------------------------------------------------------------
+# relational representation with ENGINE SUPPORT: the expert-owner plan
+# ---------------------------------------------------------------------------
+# The paper's conclusion — the relational representation needs engine
+# support (sort-based aggregation, §8) — repeats at cluster scale: under
+# pure sharding propagation the sort/scatter plan communicates *more* than
+# the one-hot einsum.  local_map is that engine support: each (data,
+# model) rank routes its token shard, fills capacity buckets ONLY for the
+# experts it owns, runs the local expert GEMMs, and partial-combines; a
+# single all_reduce over 'model' replaces both the dispatch all-to-all and
+# the one-hot einsums.
+
+_SHARD_CTX: dict = {"mesh": None, "dp": None}
+
+
+def set_moe_mesh(mesh, dp_axes):
+    """Install the mesh for impl='shard' (the dry-run and phase 15 call
+    this); ``mesh=None`` takes it away."""
+    _SHARD_CTX["mesh"] = mesh
+    _SHARD_CTX["dp"] = dp_axes
+
+
+def _moe_sort_local(p_wi, p_wg, p_wo, x, cfg, gates, idx, e_lo, e_loc,
+                    cap):
+    """Bucket-fill + expert GEMM + combine for the local expert range
+    [e_lo, e_lo + e_loc) over all of x's tokens (one group).  Slots
+    outside the range drop like non-matching join tuples: their
+    assignments go to a drop bucket, expert e_loc, which fills no slot.
+    x (g, d); gates / idx (g, k); the weights (e_loc, ...).  The bucket
+    fill is one ``moe_dispatch``, the combine one ``relational_matmul``
+    over the owned, kept assignments (the others carry value 0)."""
+    g, d = x.shape
+    dev = x.device
+    loc = idx - e_lo
+    owned = (loc >= 0) & (loc < e_loc)
+    loc = torch.where(owned, loc, e_loc)              # park in drop bucket
+    slot_token, slot_live, pos = _sort_relation(loc[None], cap, e_loc + 1)
+    slot_token, slot_live, pos = (slot_token[0, :e_loc],
+                                  slot_live[0, :e_loc], pos[0])
+    src = torch.where(slot_live, slot_token, 0)
+    buf = ops.moe_dispatch(x, src.reshape(-1).to(torch.int32),
+                           slot_live.reshape(-1).to(torch.float32))
+    ys = _expert_ffn({"wi": p_wi, "wg": p_wg, "wo": p_wo},
+                     buf.reshape(e_loc, cap, d))
+    keep = owned & (pos < cap)
+    rows = torch.arange(g, dtype=torch.int32,
+                        device=dev).repeat_interleave(cfg.top_k)
+    cols = torch.where(keep, loc * cap + pos, 0).reshape(-1).to(torch.int32)
+    vals = torch.where(keep, gates, 0.0).reshape(-1).to(torch.float32)
+    out = ops.relational_matmul(rows, cols, vals, ys.reshape(-1, d), g)
+    return out.to(x.dtype)
+
+
+class _PSum(torch.autograd.Function):
+    """Sum over a process group (JAX's ``psum``) into a value every rank
+    holds alike; each rank's share takes the output's gradient as it is
+    (JAX's transpose of a psum into a replicated output)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        import torch.distributed._functional_collectives as funcol
+        return funcol.wait_tensor(funcol.all_reduce(x, "sum", group))
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def _moe_shard(p, x, cfg: MoEConfig):
+    """Expert-owner execution over the installed mesh. x: (T, d) flat
+    tokens, a DTensor on the mesh or a tensor every rank holds whole (then
+    taken as replicated, and the output returned whole)."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    from ..launch.mesh import axis_size
+
+    mesh, dp = _SHARD_CTX["mesh"], _SHARD_CTX["dp"]
+    mp = axis_size(mesh, "model")
+    e_loc = cfg.n_experts // mp
+    t = x.shape[0]
+    dp_n = axis_size(mesh, dp)
+    t_loc = t // dp_n if t % dp_n == 0 else t
+    cap = _capacity(t_loc, cfg)
+    names = tuple(mesh.mesh_dim_names)
+
+    def local(x_loc, router, wi, wg, wo):
+        gates, idx, _ = _route({"router": router}, x_loc, cfg)
+        e_lo = mesh.get_local_rank("model") * e_loc
+        partial = _moe_sort_local(wi, wg, wo, x_loc, cfg, gates, idx,
+                                  e_lo, e_loc, cap)
+        return _PSum.apply(partial, mesh.get_group("model"))
+
+    whole = not isinstance(x, DTensor)
+    args = [x, p["router"], p["wi"], p["wg"], p["wo"]]
+    if whole:
+        args = [DTensor.from_local(a, mesh, [Replicate()] * len(names),
+                                   run_check=False) for a in args]
+    # local_map reads a tuple as one entry an output and a list as the
+    # placements of one tensor
+    x_spec = [Shard(0) if n in dp and t % dp_n == 0 else Replicate()
+              for n in names]
+    rep = [Replicate()] * len(names)
+    experts = [Shard(0) if n == "model" else Replicate() for n in names]
+    out = local_map(local, out_placements=x_spec,
+                    in_placements=(x_spec, rep, experts, experts, experts),
+                    device_mesh=mesh, redistribute_inputs=True)(*args)
+    return out.full_tensor() if whole else out
+
+
 def moe_ffn(p, x, cfg: MoEConfig):
     """x: (T, d) flat tokens → (out (T, d), aux_loss)."""
     t, d = x.shape
@@ -225,9 +344,11 @@ def moe_ffn(p, x, cfg: MoEConfig):
         g = t                                        # tiny/odd batches
     xg = x.reshape(t // g, g, d)
     gates, idx, aux = _route(p, xg, cfg)
-    if cfg.impl == "einsum":
+    if cfg.impl == "shard" and _SHARD_CTX["mesh"] is not None:
+        out = _moe_shard(p, x, cfg)
+    elif cfg.impl == "einsum":
         out = _moe_einsum(p, xg, cfg, gates, idx).reshape(t, d)
-    elif cfg.impl in ("sort", "shard"):              # shard: no mesh here
+    elif cfg.impl in ("sort", "shard"):              # shard falls back
         out = _moe_sort(p, xg, cfg, gates, idx).reshape(t, d)
     else:
         raise ValueError(cfg.impl)

@@ -453,6 +453,55 @@ def test_flash_attention_f32_kernel(cuda, d, dv, s, group, causal):
                                **F32)
 
 
+def test_flash_attention_f32_kernel_does_not_shrink_its_output(cuda):
+    """At Yi-6B's prefill shape the float32 kernel's mean error along the
+    sign of the float64 value stays near 0: the tensor cores truncate each
+    wgmma's float32 sum, and an accumulator carried through all 32 key
+    tiles shrank the output by 4.9e-6 of itself (each tile's P·V is now
+    summed apart, PERF.md); the bound sits between that and the emulated
+    design's 1.3e-6."""
+    rng = np.random.RandomState(0)
+    q = rnd(rng, 4, 32, 2000, 128, device=cuda)
+    k, v = (rnd(rng, 4, 4, 2000, 128, device=cuda) for _ in range(2))
+    got = ops.flash_attention(q, k, v).double()
+    exact = ref.flash_attention(q.double(), k.double(), v.double())
+    shrink = float(((got - exact) * exact.sign()).mean() / exact.abs().mean())
+    assert abs(shrink) < 2.5e-6, shrink
+
+
+def test_flash_attention_f32_path_at_depth_meets_float64(cuda, monkeypatch):
+    """The float32 flash path through 4 full-width Yi-6B layers (random
+    weights) and 2 prompts of 2000 tokens: last-token logits within the
+    float32 logit tolerance (1e-4, ``chip_smoke.LOGIT_TOL``) of the same
+    model in float64 with dense attention."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.nn import layers
+    from repro_torch.nn.model import LM
+
+    cfg = dataclasses.replace(get_config("yi_6b"), n_layers=4)
+    lm = LM(cfg)
+    params = lm.init(torch.Generator(device=cuda).manual_seed(2))
+    tokens = torch.from_numpy(np.random.RandomState(0).randint(
+        0, cfg.vocab, (2, 2000)).astype(np.int32)).to(cuda)
+    monkeypatch.setattr(layers, "COMPUTE_DTYPE", torch.float32)
+    before = flash_mod.flash_attention.launches
+    got = lm.prefill(params, {"tokens": tokens})[0].double()
+    assert flash_mod.flash_attention.launches == before + cfg.n_layers
+
+    def wide(tree):
+        return {k: wide(v) if isinstance(v, dict) else v.double()
+                for k, v in tree.items()}
+
+    params = wide(params)
+    monkeypatch.setattr(layers, "COMPUTE_DTYPE", torch.float64)
+    monkeypatch.setattr(layers, "ACCUM_DTYPE", torch.float64)
+    dense = LM(dataclasses.replace(cfg, attn_impl="dense"))
+    exact = dense.prefill(params, {"tokens": tokens})[0]
+    torch.testing.assert_close(got, exact, rtol=0.0, atol=1e-4)
+
+
 @pytest.mark.parametrize("d,dv", [(32, 32), (80, 80), (128, 128), (192, 128)])
 @pytest.mark.parametrize("offset", [0, 1])
 def test_flash_attention_f32_kernel_takes_head_split_views(cuda, d, dv,

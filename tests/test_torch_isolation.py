@@ -61,7 +61,10 @@ def test_the_port_has_modules():
             "repro_torch/optim/compression.py",
             "repro_torch/checkpoint/checkpointer.py",
             "repro_torch/train/trainer.py",
-            "repro_torch/launch/train.py"} <= names
+            "repro_torch/launch/train.py", "repro_torch/launch/specs.py",
+            "repro_torch/launch/sharding.py", "repro_torch/launch/dryrun.py",
+            "repro_torch/roofline/analysis.py",
+            "repro_torch/kernels/meta.py"} <= names
 
 
 @pytest.mark.parametrize("path", PORT + [SMOKE],
