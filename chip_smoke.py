@@ -254,6 +254,30 @@ Phases (any failure exits non-zero; nothing is caught and carried on past):
            bottleneck and roofline_fraction, beside the step phase 11
            measured, which the modelled step may not exceed by more than
            5 %.
+16. examples the repository's examples as the port runs them
+           (``repro_torch.examples``), each ``main`` on the card with the
+           command line its docstring names, the counts zeroed just before
+           and read just after each, exactly as ``example_launches`` gives
+           them (every other kernel 0): quickstart (300 Iris iterations on
+           both engines; their accuracies equal, and their weights, which
+           float32 rounding parts by far more than any bound over 300
+           iterations at lr 0.05, held below QUICKSTART_DRIFT_LIMIT there,
+           and to each other and to numpy's float64 training at
+           QUICKSTART_BIND_ITERS with phase 3's bound);
+           mnist_e2e --batch 1000 --hidden 20 (30 epochs, the engines'
+           weights at phase 3's bound, accuracies equal); train_in_db,
+           observe_in_db (in a temporary working directory) and zoo_in_db
+           in sqlite (the database against the card and the zoo against its
+           oracles within 1e-4); serve_lm --requests 8 --slots 4 (every
+           request its 16 new tokens; the engine's decode path launches no
+           kernel); train_lm --preset 100m --steps 200 (the loss at the last
+           step below the first, the checkpoints at 100 and 200 written to a
+           fresh temporary directory) and train_lm --arch dbrx_132b --steps
+           20.  Each example's wall, rates and peak device memory, its own
+           printed lines and its launches; then every kernel it launched,
+           at each shape, type and layout it was given (``ShapeLog``),
+           against its plain version at phase 2's tolerance, timed beside
+           the plain version, one PyTorch call and its bound.
 
 ``python3 chip_smoke.py --kernels [name ...]`` runs phases 1 and 2 alone,
 for the named kernels (all nine without a name), and prints no result line:
@@ -5684,6 +5708,409 @@ def moe_shard_path(counters, result):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the examples on the card
+# ---------------------------------------------------------------------------
+
+#: each example and the command line phase 16 gives it (its docstring's);
+#: observe_in_db runs in a temporary working directory and train_lm gets a
+#: fresh temporary --ckpt-dir
+EXAMPLES = [
+    ("quickstart", []),
+    ("mnist_e2e", ["--batch", "1000", "--hidden", "20"]),
+    ("train_in_db", []),
+    ("observe_in_db", []),
+    ("zoo_in_db", []),
+    ("serve_lm", ["--requests", "8", "--slots", "4"]),
+    ("train_lm", ["--preset", "100m", "--steps", "200"]),
+    ("train_lm", ["--arch", "dbrx_132b", "--steps", "20"]),
+]
+#: ops' entries into the card kernels that the examples reach, and the
+#: wrapper behind each
+EXAMPLE_ENTRIES = {"_fsm_cuda": "fused_sigmoid_matmul",
+                   "_relmm_cuda": "relational_matmul",
+                   "_embed_cuda": "onehot_embed",
+                   "_flash_cuda": "flash_attention",
+                   "_flash_bwd_cuda": "flash_attention_bwd"}
+# quickstart's 300 Iris iterations at lr 0.05 part the float32 engines by
+# far more than any float32 bound (0.16 on the card, 0.05 on the CPU, and
+# the JAX package's own two engines 0.09 on the CPU): its first dozen
+# iterations about double the rounding error each.  The engines are held to each other and to numpy's
+# float64 training at QUICKSTART_BIND_ITERS, before that growth.
+QUICKSTART_BIND_ITERS = 8
+# and the 300-iteration distance is held below about three times the card's
+# reading (0.156), so that a relational path that drifts fails
+QUICKSTART_DRIFT_LIMIT = 0.5
+
+
+def example_launches(name: str, out: dict) -> dict:
+    """The launches one example's run must make, from what it ran: one
+    one-hot transform, 2 fused layers (dense) and 5 relational products
+    (relational) a training step, 2 of either an inference; a flash
+    forward a layer and another in remat's recompute, and a backward a
+    layer, a training step.  The serving engine feeds every prompt through
+    ``decode_step``, which attends over the cache in plain PyTorch, and the
+    in-database examples run SQL on the host: they launch nothing."""
+    if name == "quickstart":
+        it = out["iters"]
+        return {"fused_sigmoid_matmul": 2 * it + 2,
+                "relational_matmul": 5 * it + 2}
+    if name == "mnist_e2e":           # inference warm, then timed
+        it = out["epochs"]
+        return {"onehot_embed": 1, "fused_sigmoid_matmul": 2 * it + 4,
+                "relational_matmul": 5 * it + 4}
+    if name == "train_in_db":          # the dense engine's differential
+        return {"fused_sigmoid_matmul": 2 * out["n_iters"] + 2}
+    if name == "train_lm":
+        steps = len(out["history"])
+        return {"flash_attention": 2 * out["layers"] * steps,
+                "flash_attention_bwd": out["layers"] * steps}
+    return {}
+
+
+def copy_as(t: torch.Tensor) -> torch.Tensor:
+    """A copy with ``t``'s size and strides (a kernel reads views by
+    stride)."""
+    out = torch.empty_strided(t.size(), t.stride(), dtype=t.dtype,
+                              device=t.device)
+    return out.copy_(t)
+
+
+class ShapeLog:
+    """Wraps ops' entries into the card kernels (``EXAMPLE_ENTRIES``): the
+    first call of each kernel at each shape, type and layout keeps a copy
+    of its operands, and the call goes on to the kernel unchanged.  Phase
+    16 then holds each kernel against its plain version where the examples
+    called it, after their counts are read."""
+
+    def __init__(self, ops):
+        self.ops, self.calls, self.saved = ops, {}, {}
+
+    def __enter__(self):
+        for attr, name in EXAMPLE_ENTRIES.items():
+            self.saved[attr] = getattr(self.ops, attr)
+            setattr(self.ops, attr, self._wrap(name, self.saved[attr]))
+        return self
+
+    def __exit__(self, *exc):
+        for attr, fn in self.saved.items():
+            setattr(self.ops, attr, fn)
+
+    def _wrap(self, name, fn):
+        def call(*args, **kwargs):
+            key = (name, *(
+                (tuple(a.shape), a.dtype, a.stride())
+                if isinstance(a, torch.Tensor) else a for a in args),
+                *sorted(kwargs.items()))
+            if key not in self.calls:
+                self.calls[key] = (name, [copy_as(a) if isinstance(
+                    a, torch.Tensor) else a for a in args], kwargs)
+            return fn(*args, **kwargs)
+        return call
+
+    def take(self) -> list:
+        calls, self.calls = list(self.calls.values()), {}
+        return calls
+
+
+def check_at_shape(name: str, args: list, kwargs: dict, mods: dict) -> dict:
+    """One kernel at one shape an example gave it, against its plain
+    version at the reference's tolerance (relational_matmul's oracle in
+    float64, flash_attention_bwd's too, as phase 2 holds them): its time,
+    the plain version's, one PyTorch call's and the card's bound."""
+    mod = mods[name]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    if name == "fused_sigmoid_matmul":
+        x, w = args
+        kernel = lambda: mod.fused_sigmoid_matmul(x, w)
+        plain = lambda: mod.plain(x, w)
+        want = plain()
+        tol = F32_TOL if x.dtype == torch.float32 else BF16_TOL
+        library = lambda: torch.sigmoid(x @ w)
+        (m, k), n = x.shape, w.shape[1]
+        bound = bound_ms(x.element_size() * (m * k + k * n + m * n),
+                         2 * m * k * n)
+        shape = f"({m}x{k}).({k}x{n}) {x.dtype}"
+    elif name == "relational_matmul":
+        rows, cols, vals, b, m = args
+        kernel = lambda: mod.relational_matmul(rows, cols, vals, b, m)
+        plain = lambda: mod.plain(rows, cols, vals, b, m)
+        want = mod.plain(rows, cols, vals.double(), b.double(), m).float()
+        tol = F32_TOL
+        (k, n), nnz = b.shape, rows.numel()
+        live = rows < m
+        coo = torch.sparse_coo_tensor(
+            torch.stack([rows[live].long(), cols[live].long()]), vals[live],
+            (m, k), check_invariants=True).coalesce()
+        b32 = b.float()
+        library = lambda: torch.sparse.mm(coo, b32)
+        bound = relmm_bound(nnz, int(torch.unique(cols[live]).numel()), m, n,
+                            b.element_size())
+        shape = f"({m}x{k}).({k}x{n}) as {nnz} tuples, b {b.dtype}"
+    elif name == "onehot_embed":
+        ids, table = args
+        kernel = lambda: mod.onehot_embed(ids, table)
+        plain = lambda: mod.plain(ids, table)
+        want, tol = plain(), None
+        long_ids = ids.long()
+        library = lambda: torch.nn.functional.embedding(long_ids, table)
+        (t,), (v, d) = ids.shape, table.shape
+        size = table.element_size()
+        bound = bound_ms(4 * t + size * v * d + size * t * d, 0)
+        shape = f"{t} ids into ({v}x{d}) {table.dtype}"
+    elif name == "flash_attention":
+        q, k, v = args
+        causal, scale = kwargs["causal"], kwargs["scale"]
+        bf16 = q.dtype == torch.bfloat16
+        kernel = lambda: mod.flash_attention(q, k, v, causal=causal,
+                                             scale=scale)
+        plain = lambda: mod.plain(q, k, v, causal=causal, scale=scale,
+                                  bf16_scores=bf16)
+        want, tol = plain(), BF16_TOL if bf16 else F32_TOL
+        library = lambda: sdpa(q, k, v, is_causal=causal, scale=scale,
+                               enable_gqa=True)
+        (b, hq, s, d), hkv, dv = q.shape, k.shape[1], v.shape[-1]
+        bound = flash_bound(b, hq, hkv, s, d, q.dtype, causal, dv)
+        shape = (f"q ({b},{hq},{s},{d}), k/v ({b},{hkv},{s},{d}/{dv}) "
+                 f"{q.dtype} causal={causal}")
+    elif name == "flash_attention_bwd":
+        q, k, v, do = args
+        causal, scale = kwargs["causal"], kwargs["scale"]
+        kernel = lambda: mod.flash_attention_bwd(q, k, v, do, causal=causal,
+                                                 scale=scale)
+        plain = lambda: mod.plain_bwd(q, k, v, do, causal=causal, scale=scale)
+        want = [g.to(t.dtype) for g, t in zip(mod.plain_bwd(
+            *(t.double() for t in (q, k, v, do)), causal=causal,
+            scale=scale), (q, k, v))]
+        tol = BF16_BWD_TOL if q.dtype == torch.bfloat16 else F32_TOL
+        leaves_ = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+        out = sdpa(*leaves_, is_causal=causal, scale=scale, enable_gqa=True)
+        library = lambda: torch.autograd.grad(out, leaves_, do,
+                                              retain_graph=True)
+        (b, hq, s, d), hkv, dv = q.shape, k.shape[1], v.shape[-1]
+        bound = bwd_bound(b, hq, hkv, s, d, dv, q.dtype, causal)
+        shape = (f"q ({b},{hq},{s},{d}), k/v ({b},{hkv},{s},{d}/{dv}) "
+                 f"{q.dtype} causal={causal}")
+    else:
+        raise AssertionError(f"no plain check for {name}")
+    got = kernel()
+    what = f"phase 16 {name} at {shape}"
+    if isinstance(want, list):
+        err = max(max_err(g, w_, tol, f"{what} d{n_}")
+                  for n_, g, w_ in zip("qkv", got, want))
+    else:
+        err = max_err(got, want, tol, what)
+    return dict(name=name, shape=shape, max_abs_err=err, tolerance=tol,
+                ms=time_ms(kernel), plain_ms=time_ms(plain, iters=5),
+                library_ms=time_ms(library, iters=5), bound_ms=bound[0],
+                bound_by=bound[1])
+
+
+def quickstart_bind(card: str) -> dict:
+    """Quickstart's training (its own ``train_both``) for
+    QUICKSTART_BIND_ITERS iterations on the card: both engines within phase
+    3's TRAIN_TOL of each other and of numpy's float64 training, their
+    accuracies equal."""
+    from repro_torch.core import nn2sql
+    from repro_torch.core.relational import one_hot_dense
+    from repro_torch.data import make_iris
+    from repro_torch.examples import quickstart
+
+    x, y = make_iris()
+    y_oh = one_hot_dense(y, 3).to_dense()
+    spec = nn2sql.MLPSpec(n_rows=150, n_features=4,
+                          n_hidden=quickstart.HIDDEN, n_classes=3, lr=0.05)
+    runs = quickstart.train_both(nn2sql.build_graph(spec),
+                                 nn2sql.init_weights(spec), x, y, y_oh,
+                                 QUICKSTART_BIND_ITERS, "cuda")
+    ref = nn2sql.numpy_train(x.cpu().double().numpy(),
+                             y_oh.cpu().double().numpy(), quickstart.HIDDEN,
+                             QUICKSTART_BIND_ITERS, lr=spec.lr)
+    diffs = {}
+    for name in ("w_xh", "w_ho"):
+        a, b = (runs[kind]["weights"][name] for kind in ("dense",
+                                                         "relational"))
+        torch.testing.assert_close(a, b, **TRAIN_TOL)
+        diffs[f"dense vs relational {name}"] = float((a - b).abs().max())
+        for kind in ("dense", "relational"):
+            got = runs[kind]["weights"][name].cpu().double().numpy()
+            np.testing.assert_allclose(got, ref[name], **TRAIN_TOL,
+                                       err_msg=f"quickstart {kind} {name}")
+            diffs[f"{kind} {name} vs numpy f64"] = float(
+                np.abs(got - ref[name]).max())
+    if runs["dense"]["accuracy"] != runs["relational"]["accuracy"]:
+        raise AssertionError("quickstart: the engines' accuracies differ "
+                             f"after {QUICKSTART_BIND_ITERS} iterations")
+    log(f"phase 16 quickstart at {QUICKSTART_BIND_ITERS} iterations on "
+        f"{card}: " + ", ".join(f"{k} {v:.3e}" for k, v in diffs.items()))
+    return diffs
+
+
+def example_checks(name: str, argv: list, out: dict, wall: float,
+                   card: str) -> dict:
+    """What one example's run must show, and its rates."""
+    def engines_agree(runs, tol):
+        diffs = {n: float((runs["dense"]["weights"][n]
+                           - runs["relational"]["weights"][n]).abs().max())
+                 for n in ("w_xh", "w_ho")}
+        if tol is not None:
+            for n in diffs:
+                torch.testing.assert_close(runs["dense"]["weights"][n],
+                                           runs["relational"]["weights"][n],
+                                           **tol)
+        if runs["dense"]["accuracy"] != runs["relational"]["accuracy"]:
+            raise AssertionError(f"{name}: the engines' accuracies differ: "
+                                 f"{runs['dense']['accuracy']} and "
+                                 f"{runs['relational']['accuracy']}")
+        return {f"dense vs relational {n}": d for n, d in diffs.items()}
+
+    if name == "quickstart":
+        rows = 150 * out["iters"]
+        # not held at phase 3's bound (see QUICKSTART_BIND_ITERS), only
+        # below QUICKSTART_DRIFT_LIMIT
+        drift = engines_agree(out["runs"], None)
+        if max(drift.values()) > QUICKSTART_DRIFT_LIMIT:
+            raise AssertionError(f"quickstart: the engines drift apart: "
+                                 f"{drift} beyond {QUICKSTART_DRIFT_LIMIT}")
+        return dict(
+            checks=drift | {
+                f"at {QUICKSTART_BIND_ITERS} iterations": quickstart_bind(
+                    card)},
+            rates={f"{k} training tuples/s": rows / r["seconds"]
+                   for k, r in out["runs"].items()})
+    if name == "mnist_e2e":
+        for r in out["runs"].values():
+            if r["probs"].shape != (out["batch"], 10) or \
+                    not torch.isfinite(r["probs"]).all():
+                raise AssertionError("mnist_e2e: probabilities not finite "
+                                     f"or shaped {tuple(r['probs'].shape)}")
+        rates = {}
+        for k, r in out["runs"].items():
+            rates[f"{k} training tuples/s"] = r["train_tuples_per_s"]
+            rates[f"{k} inference tuples/s"] = r["infer_tuples_per_s"]
+        return dict(checks=engines_agree(out["runs"], TRAIN_TOL), rates=rates)
+    if name == "train_in_db":
+        checks = {"in-DB vs card weights": out["max_diff_weights"],
+                  "in-DB vs card probabilities": out["max_diff_probs"]}
+        if max(checks.values()) > DB_TOL:
+            raise AssertionError(f"train_in_db: {checks} beyond {DB_TOL}")
+        return dict(checks=checks, rates={
+            "in-DB training tuples/s over the wall":
+                out["rows"] * out["n_iters"] / wall})
+    if name == "observe_in_db":
+        from repro_torch.obs import report
+        capture = report.load_capture(out["trace_path"])
+        if not out["spans"] or not capture:
+            raise AssertionError("observe_in_db: no spans traced")
+        return dict(checks={"spans written": out["spans"],
+                            "metric points": out["metric_points"]},
+                    rates={"in-DB training tuples/s over the wall":
+                           out["rows"] * out["n_iters"] / wall})
+    if name == "zoo_in_db":
+        checks = {k: out[k] for k in ("moe", "rwkv_o", "rwkv_s",
+                                      "channel_mix")}
+        if max(checks.values()) > ZOO_TOL or not out["grad_tables"] or \
+                not np.isfinite(out["router_max"]):
+            raise AssertionError(f"zoo_in_db: {checks}, "
+                                 f"{out['grad_tables']} gradient tables, "
+                                 f"max|d router| {out['router_max']}")
+        return dict(checks=checks | {"gradient tables": out["grad_tables"]},
+                    rates={})
+    if name == "serve_lm":
+        n_req = int(argv[argv.index("--requests") + 1])
+        if out["requests"] != n_req or any(
+                len(g) != out["max_new"] for g in out["generated"].values()):
+            raise AssertionError(f"serve_lm: {out['generated']}")
+        return dict(checks={"requests served": out["requests"]},
+                    rates={"tokens/s": out["tokens_per_s"]})
+    hist = out["history"]
+    losses = [h["loss"] for h in hist]
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"train_lm {argv}: losses {losses}")
+    checks = {"first loss": losses[0], "last loss": losses[-1]}
+    if "--preset" in argv:
+        steps = int(argv[argv.index("--steps") + 1])
+        if not losses[-1] < losses[0]:
+            raise AssertionError(f"train_lm {argv}: loss {losses[0]} -> "
+                                 f"{losses[-1]}")
+        # every 100 steps and at the end; the checkpointer keeps three
+        want = sorted({*range(100, steps + 1, 100), steps})[-3:]
+        if out["checkpoints"] != want:
+            raise AssertionError(f"train_lm {argv}: checkpoints "
+                                 f"{out['checkpoints']}, expected {want}")
+        checks["checkpoints"] = out["checkpoints"]
+    seconds = sorted(h["seconds"] for h in hist)
+    return dict(checks=checks, rates={
+        "tokens/s": out["tokens_per_step"] * len(hist) / sum(seconds),
+        "median step ms": seconds[len(seconds) // 2] * 1e3})
+
+
+def examples_path(counters, mods, result):
+    """Phase 16: each example's ``main`` on the card with its command line,
+    every count zeroed just before and read just after; then each kernel
+    held against its plain version at the shapes that example gave it."""
+    import importlib
+    import tempfile
+
+    from repro_torch.kernels import ops
+
+    card = result["card"]
+    t0 = time.perf_counter()
+    out_all = []
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_examples_") as tmp, \
+            ShapeLog(ops) as shapes:
+        for name, argv in EXAMPLES:
+            mod = importlib.import_module(f"repro_torch.examples.{name}")
+            argv = list(argv)
+            if name == "train_lm":
+                argv += ["--ckpt-dir", tempfile.mkdtemp(dir=tmp)]
+            here = os.getcwd()
+            if name == "observe_in_db":
+                os.chdir(tmp)
+            log(f"phase 16: python -m repro_torch.examples.{name} "
+                f"{' '.join(argv)}")
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            try:
+                for fn in counters.values():
+                    fn.launches = 0
+                out, wall = timed(lambda: mod.main(argv))
+                launches = {n: fn.launches for n, fn in counters.items()}
+            finally:
+                os.chdir(here)
+            peak = torch.cuda.max_memory_allocated()
+            expected = {n: 0 for n in counters} | example_launches(name, out)
+            log(f"phase 16 {name} launches on {card}: {launches}")
+            if launches != expected:
+                raise AssertionError(f"{name}: launches {launches}, "
+                                     f"expected {expected}")
+            row = dict(name=name, argv=argv, wall_s=wall, peak_bytes=peak,
+                       launches=launches)
+            row |= example_checks(name, argv, out, wall, card)
+            rates = ", ".join(f"{k} {v:.1f}" for k, v in row["rates"].items())
+            log(f"phase 16 {name} on {card}: wall {wall:.3f} s, "
+                f"{rates or 'no rate (four checks of 12-16 rows)'}, peak "
+                f"device "
+                f"memory {peak / 2**20:.1f} MiB")
+            for what, v in row["checks"].items():
+                log(f"  {what}: {v}")
+            row["kernels"] = [check_at_shape(n, a, kw, mods)
+                              for n, a, kw in shapes.take()]
+            for k in row["kernels"]:
+                log(f"  kernel {k['name']} at {k['shape']} on {card}: "
+                    f"{k['ms']:.4f} ms, plain {k['plain_ms']:.4f} ms, "
+                    f"library {k['library_ms']:.4f} ms, bound "
+                    f"{k['bound_ms']:.4f} ms "
+                    f"({k['bound_by']}), max |err| {k['max_abs_err']:.3e}")
+            out_all.append(row)
+            del out
+            gc.collect()
+    wall = time.perf_counter() - t0
+    log(f"phase 16 in {wall:.1f} s on {card}")
+    result["examples"] = dict(runs=out_all, wall_s=wall)
+    return out_all
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to drive", file=sys.stderr)
@@ -5826,6 +6253,11 @@ def main() -> int:
         "rwkv6_scan_bwd"]
     zamba_train_path(counters, result)
     moe_shard_path(counters, result)
+    examples_path(counters, {
+        "fused_sigmoid_matmul": fused_sigmoid_matmul,
+        "relational_matmul": relational_matmul, "onehot_embed": onehot_embed,
+        "flash_attention": flash_attention,
+        "flash_attention_bwd": flash_attention}, result)
 
     line = {"kernels": [
         {k: r[k] for k in ("name", "route", "source", "replaces")}

@@ -64,7 +64,15 @@ def test_the_port_has_modules():
             "repro_torch/launch/train.py", "repro_torch/launch/specs.py",
             "repro_torch/launch/sharding.py", "repro_torch/launch/dryrun.py",
             "repro_torch/roofline/analysis.py",
-            "repro_torch/kernels/meta.py"} <= names
+            "repro_torch/kernels/meta.py",
+            "repro_torch/examples/__init__.py",
+            "repro_torch/examples/quickstart.py",
+            "repro_torch/examples/mnist_e2e.py",
+            "repro_torch/examples/train_in_db.py",
+            "repro_torch/examples/observe_in_db.py",
+            "repro_torch/examples/zoo_in_db.py",
+            "repro_torch/examples/serve_lm.py",
+            "repro_torch/examples/train_lm.py"} <= names
 
 
 @pytest.mark.parametrize("path", PORT + [SMOKE],
