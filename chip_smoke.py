@@ -799,8 +799,12 @@ def profiled(fn, calls: int = 1, sessions: int = 3, cpu: bool = True
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
+        # the program's spans (``repro_torch.obs``) are ``record_function``
+        # ranges under the profiler, which it also lists on the device as
+        # annotations over the kernels launched inside: not device work
         events = sorted((e for e in prof.events()
-                         if e.device_type == torch.autograd.DeviceType.CUDA),
+                         if e.device_type == torch.autograd.DeviceType.CUDA
+                         and not e.is_user_annotation),
                         key=lambda e: e.time_range.start)
         marks = [i for i, e in enumerate(events) if "spin_kernel" in e.name]
         if marks and marks[-1] + 1 < len(events):
@@ -3888,7 +3892,7 @@ def db_serve(counters, core, nn2sql, data_mod, weights, tracer, card):
     card_probs = card_probs.double().cpu().numpy()
     out = {"launches": launches}
     for rep, dialect in (("relational", None), ("array", "array")):
-        t_start = time.perf_counter()     # the tracer's clock
+        t_start = obs.epoch_clock()       # the tracer's clock
         with SQLBatchServer([one.a_ho], ["img"], w, pool_size=SERVE_POOL,
                             dialect=dialect) as srv:
             done = [0.0] * SERVE_REQUESTS

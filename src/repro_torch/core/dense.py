@@ -170,4 +170,10 @@ def evaluate(roots: list[E.Expr], env: dict[str, torch.Tensor],
         cache[id(node)] = out
         return out
 
-    return [ev(r) for r in roots]
+    try:
+        return [ev(r) for r in roots]
+    finally:
+        # ``ev`` refers to itself through its closure: drop it, so that
+        # the memo's intermediates are freed on return and not at
+        # Python's next cyclic collection
+        del ev

@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from ..device import resolve, to_host
+from ..obs import tracer as obs
 from . import autodiff, dense, expr as E, rel_engine
 from .relational import RelTensor
 
@@ -59,10 +60,12 @@ class Engine:
 
     # -- evaluation -----------------------------------------------------------
     def evaluate(self, roots: list[E.Expr], env: dict):
-        if self.kind == "sql":
-            return self._sql.evaluate(roots, env)
-        ev = rel_engine.evaluate if self.kind == "relational" else dense.evaluate
-        return ev(roots, env, self.device)
+        with obs.span("engine.evaluate", kind=self.kind):
+            if self.kind == "sql":
+                return self._sql.evaluate(roots, env)
+            ev = (rel_engine.evaluate if self.kind == "relational"
+                  else dense.evaluate)
+            return ev(roots, env, self.device)
 
     def eval_fn(self, roots: list[E.Expr]) -> Callable:
         """Evaluator: env dict (dense tensors or arrays) → dense outputs.

@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from ..device import resolve
+from ..obs import tracer as obs
 from . import expr as E
 from .engine import Engine, sgd_step_fn
 from .recursive_cte import recursive_cte
@@ -107,9 +108,14 @@ def train(graph: MLPGraph, weights, x: torch.Tensor, y_onehot: torch.Tensor,
     step = sgd_step_fn(graph.loss, [graph.w_xh, graph.w_ho],
                        graph.spec.lr, engine)
     data_env = {"img": x, "one_hot": y_onehot}
+    rows = graph.spec.n_rows
 
-    def cte_step(w, _it):
-        new_w, _ = step(w, data_env)
+    def cte_step(w, it):
+        with obs.span("nn2sql.iteration", it=it, rows=rows) as sp:
+            allocs = obs.device_allocs(x.device)
+            new_w, _ = step(w, data_env)
+            if allocs is not None:
+                sp.set(cuda_mallocs=obs.device_allocs(x.device) - allocs)
         return new_w
 
     return recursive_cte(weights, cte_step, n_iters,

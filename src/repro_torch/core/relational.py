@@ -28,6 +28,7 @@ import dataclasses
 import torch
 
 from ..kernels import ops
+from ..obs import tracer as obs
 
 
 @dataclasses.dataclass
@@ -48,10 +49,11 @@ class RelTensor:
     def from_dense(x: torch.Tensor) -> "RelTensor":
         """Pivot a dense matrix into the canonical sorted relation."""
         m, n = x.shape
-        i = torch.arange(m, dtype=torch.int32, device=x.device)
-        j = torch.arange(n, dtype=torch.int32, device=x.device)
-        return RelTensor(i=i.repeat_interleave(n), j=j.repeat(m),
-                         v=x.reshape(-1), shape=(m, n))
+        with obs.span("rel.pivot", shape=(m, n)):
+            i = torch.arange(m, dtype=torch.int32, device=x.device)
+            j = torch.arange(n, dtype=torch.int32, device=x.device)
+            return RelTensor(i=i.repeat_interleave(n), j=j.repeat(m),
+                             v=x.reshape(-1), shape=(m, n))
 
     def to_dense(self) -> torch.Tensor:
         """Materialise the relation as a dense matrix (outer-join + coalesce:
@@ -78,10 +80,11 @@ class RelTensor:
         (the clustered index) is a permutation known from the shape alone.
         """
         m, n = self.shape
-        key = self.j.long() * m + self.i
-        order = torch.argsort(key, stable=True)
-        return RelTensor(i=self.j[order], j=self.i[order], v=self.v[order],
-                         shape=(n, m))
+        with obs.span("rel.transpose", shape=(m, n), tuples=self.capacity):
+            key = self.j.long() * m + self.i
+            order = torch.argsort(key, stable=True)
+            return RelTensor(i=self.j[order], j=self.i[order],
+                             v=self.v[order], shape=(n, m))
 
     def map(self, fn) -> "RelTensor":
         """``select i, j, f(v)`` — elementwise function application."""
@@ -124,9 +127,10 @@ class RelTensor:
             raise ValueError("rhs of the join must be the canonical relation")
         m, k = self.shape
         n = other.shape[1]
-        out = ops.relational_matmul(self.i, self.j, self.v,
-                                    other.v.reshape(k, n), m)
-        return RelTensor.from_dense(out)
+        with obs.span("rel.matmul", shape=(m, k, n), tuples=self.capacity):
+            out = ops.relational_matmul(self.i, self.j, self.v,
+                                        other.v.reshape(k, n), m)
+            return RelTensor.from_dense(out)
 
     def matmul_intermediate_tuples(self, other: "RelTensor") -> int:
         """Size (in tuples) of the join result before aggregation — the

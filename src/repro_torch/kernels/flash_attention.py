@@ -31,6 +31,7 @@ import ctypes
 
 import torch
 
+from ..obs import tracer as obs
 from . import build, ref
 
 plain = ref.flash_attention
@@ -130,18 +131,23 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     strides = (ctypes.c_longlong * 9)(*(st for t in (q, k, v)
                                         for st in _strides(t)))
     source, entry, tail = _LIBS[q.dtype]
-    lib = build.library(source, {entry: _ARGS + tail})
-    device, stream = build.device_and_stream(q)
-    # the float32 kernel's split K and V^T; freed after the call, which is
-    # safe on the stream that the kernel runs on
-    scratch = [torch.empty(scratch_numel(b, hkv, s, d, dv),
-                           dtype=torch.float32, device=dev)
-               ] if q.dtype == torch.float32 else []
-    build.check(getattr(lib, entry)(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, hq, hkv,
-        s, d, dv, ctypes.addressof(strides), float(scale), int(bool(causal)),
-        *(t.data_ptr() for t in scratch), device, stream), "flash_attention")
-    flash_attention.launches += 1
+    with obs.span("kernels.flash_attention", shape=(b, hq, hkv, s, d, dv),
+                  route=source):
+        lib = build.library(source, {entry: _ARGS + tail})
+        device, stream = build.device_and_stream(q)
+        # the float32 kernel's split K and V^T; freed after the call, which
+        # is safe on the stream that the kernel runs on
+        scratch = [torch.empty(scratch_numel(b, hkv, s, d, dv),
+                               dtype=torch.float32, device=dev)
+                   ] if q.dtype == torch.float32 else []
+        with obs.span("kernels.launch"):
+            rc = getattr(lib, entry)(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b,
+                hq, hkv, s, d, dv, ctypes.addressof(strides), float(scale),
+                int(bool(causal)), *(t.data_ptr() for t in scratch), device,
+                stream)
+        build.check(rc, "flash_attention")
+        flash_attention.launches += 1
     return out
 
 
@@ -209,21 +215,26 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         scale = d ** -0.5
     strides = (ctypes.c_longlong * 12)(*(st for t in ops_
                                          for st in _strides(t)))
-    lib = build.library("flash_attention_bwd",
-                        {"flash_attention_bwd_launch": _BWD_ARGS})
-    device, stream = build.device_and_stream(q)
-    # the logsumexp and Delta of every query row, and float32's split
-    # copies; freed after the call, which is safe on the stream that the
-    # kernels run on
-    scratch = torch.empty(bwd_scratch_numel(b, hq, hkv, s, d, dv, q.dtype),
-                          dtype=torch.float32, device=dev)
-    build.check(lib.flash_attention_bwd_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-        dq.data_ptr(), dk.data_ptr(), dv_.data_ptr(), b, hq,
-        hkv, s, d, dv, ctypes.addressof(strides), float(scale),
-        int(bool(causal)), int(q.dtype == torch.bfloat16),
-        scratch.data_ptr(), device, stream), "flash_attention_bwd")
-    flash_attention_bwd.launches += 1
+    with obs.span("kernels.flash_attention_bwd",
+                  shape=(b, hq, hkv, s, d, dv)):
+        lib = build.library("flash_attention_bwd",
+                            {"flash_attention_bwd_launch": _BWD_ARGS})
+        device, stream = build.device_and_stream(q)
+        # the logsumexp and Delta of every query row, and float32's split
+        # copies; freed after the call, which is safe on the stream that
+        # the kernels run on
+        scratch = torch.empty(bwd_scratch_numel(b, hq, hkv, s, d, dv,
+                                                q.dtype),
+                              dtype=torch.float32, device=dev)
+        with obs.span("kernels.launch"):
+            rc = lib.flash_attention_bwd_launch(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                dq.data_ptr(), dk.data_ptr(), dv_.data_ptr(), b, hq,
+                hkv, s, d, dv, ctypes.addressof(strides), float(scale),
+                int(bool(causal)), int(q.dtype == torch.bfloat16),
+                scratch.data_ptr(), device, stream)
+        build.check(rc, "flash_attention_bwd")
+        flash_attention_bwd.launches += 1
     return dq, dk, dv_
 
 

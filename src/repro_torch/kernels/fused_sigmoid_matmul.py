@@ -13,6 +13,7 @@ import ctypes
 
 import torch
 
+from ..obs import tracer as obs
 from . import build, ref
 
 plain = ref.fused_sigmoid_matmul
@@ -68,14 +69,17 @@ def fused_sigmoid_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
     if m == 0 or n == 0:
         return out
-    lib = build.library("fused_sigmoid_matmul", _SIGNATURES)
-    device, stream = build.device_and_stream(x)
-    build.check(lib.fsm_launch(x.data_ptr(), w.data_ptr(), out.data_ptr(),
-                               m, k, n, _DTYPES[x.dtype],
-                               TILES[instance(m, k, n)][0], chunks(x, w),
-                               device, stream),
-                "fused_sigmoid_matmul")
-    fused_sigmoid_matmul.launches += 1
+    tile = instance(m, k, n)
+    with obs.span("kernels.fused_sigmoid_matmul", shape=(m, k, n),
+                  route=tile):
+        lib = build.library("fused_sigmoid_matmul", _SIGNATURES)
+        device, stream = build.device_and_stream(x)
+        with obs.span("kernels.launch"):
+            rc = lib.fsm_launch(x.data_ptr(), w.data_ptr(), out.data_ptr(),
+                                m, k, n, _DTYPES[x.dtype], TILES[tile][0],
+                                chunks(x, w), device, stream)
+        build.check(rc, "fused_sigmoid_matmul")
+        fused_sigmoid_matmul.launches += 1
     return out
 
 

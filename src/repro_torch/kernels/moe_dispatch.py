@@ -13,6 +13,7 @@ import ctypes
 
 import torch
 
+from ..obs import tracer as obs
 from . import build, ref
 
 plain = ref.moe_dispatch
@@ -54,14 +55,17 @@ def moe_dispatch(x: torch.Tensor, sort_idx: torch.Tensor,
     out = torch.empty((slots, d), dtype=x.dtype, device=dev)
     if slots == 0 or d == 0:
         return out
-    lib = build.library("moe_dispatch", _SIGNATURES)
-    device, stream = build.device_and_stream(x)
-    rc = lib.moe_dispatch_launch(
-        x.data_ptr(), sort_idx.data_ptr(), gates.data_ptr(), out.data_ptr(),
-        slots, t, d, _DTYPES[x.dtype], device, stream)
-    if rc != _BAD_INDEX:
-        build.check(rc, "moe_dispatch")
-    moe_dispatch.launches += 1
+    with obs.span("kernels.moe_dispatch", shape=(slots, t, d)):
+        lib = build.library("moe_dispatch", _SIGNATURES)
+        device, stream = build.device_and_stream(x)
+        # the launcher waits for the kernel and reads its status flag
+        with obs.span("kernels.status_wait"):
+            rc = lib.moe_dispatch_launch(
+                x.data_ptr(), sort_idx.data_ptr(), gates.data_ptr(),
+                out.data_ptr(), slots, t, d, _DTYPES[x.dtype], device, stream)
+        if rc != _BAD_INDEX:
+            build.check(rc, "moe_dispatch")
+        moe_dispatch.launches += 1
     if rc == _BAD_INDEX:
         raise ValueError(f"moe_dispatch kernel: an index lies outside "
                          f"0..{t - 1}")

@@ -12,6 +12,7 @@ import ctypes
 
 import torch
 
+from ..obs import tracer as obs
 from . import build, ref
 
 plain = ref.onehot_embed
@@ -43,13 +44,17 @@ def onehot_embed(ids: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     word = next(w for w in (16, 8, 4, 2)
                 if not (row_bytes % w or table.data_ptr() % w
                         or out.data_ptr() % w))
-    lib = build.library("onehot_embed", _SIGNATURES)
-    device, stream = build.device_and_stream(table)
-    rc = lib.onehot_launch(ids.data_ptr(), table.data_ptr(), out.data_ptr(),
-                           t, v, row_bytes, word, device, stream)
-    if rc != _BAD_ID:
-        build.check(rc, "onehot_embed")
-    onehot_embed.launches += 1
+    with obs.span("kernels.onehot_embed", shape=(t, v, d)):
+        lib = build.library("onehot_embed", _SIGNATURES)
+        device, stream = build.device_and_stream(table)
+        # the launcher waits for the kernel and reads its status flag
+        with obs.span("kernels.status_wait"):
+            rc = lib.onehot_launch(ids.data_ptr(), table.data_ptr(),
+                                   out.data_ptr(), t, v, row_bytes, word,
+                                   device, stream)
+        if rc != _BAD_ID:
+            build.check(rc, "onehot_embed")
+        onehot_embed.launches += 1
     if rc == _BAD_ID:
         raise IndexError(f"onehot_embed kernel: an id lies outside 0..{v - 1}")
     return out

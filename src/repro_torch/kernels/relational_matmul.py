@@ -30,6 +30,7 @@ import functools
 
 import torch
 
+from ..obs import tracer as obs
 from . import build, ref
 
 plain = ref.relational_matmul
@@ -152,37 +153,47 @@ def relational_matmul(row_ids: torch.Tensor, col_ids: torch.Tensor,
     out = torch.empty((m, n), dtype=torch.float32, device=dev)
     if m == 0 or n == 0:
         return out
-    lib = build.library("relational_matmul", _SIGNATURES)
-    device, stream = build.device_and_stream(b)
-    offsets = torch.empty(m + 1, dtype=torch.int32, device=dev)
+    with obs.span("kernels.relational_matmul", shape=(m, k, n),
+                  tuples=nnz) as sp:
+        lib = build.library("relational_matmul", _SIGNATURES)
+        device, stream = build.device_and_stream(b)
+        offsets = torch.empty(m + 1, dtype=torch.int32, device=dev)
 
-    def first_pass() -> int:
-        rc = lib.relmm_offsets(row_ids.data_ptr(), col_ids.data_ptr(), nnz, m,
-                               k, offsets.data_ptr(), device, stream)
-        if rc > 0:
-            build.check(rc, "relational_matmul/segment_offsets")
-        return -rc
+        def first_pass() -> int:
+            with obs.span("kernels.status_wait"):
+                rc = lib.relmm_offsets(row_ids.data_ptr(), col_ids.data_ptr(),
+                                       nnz, m, k, offsets.data_ptr(), device,
+                                       stream)
+            if rc > 0:
+                build.check(rc, "relational_matmul/segment_offsets")
+            return -rc
 
-    bad = first_pass()
-    if bad == _UNSORTED:
-        order = torch.sort(row_ids, stable=True).indices
-        row_ids, col_ids, vals = row_ids[order], col_ids[order], vals[order]
         bad = first_pass()
-    if bad:
-        reasons = [why for bit, why in _FAULTS if bad & bit]
-        raise ValueError("relational_matmul kernel: " + "; ".join(reasons))
-    plan = schedule(m, k, n, nnz, b.dtype, _sms(dev))
-    ptrs = (offsets.data_ptr(), col_ids.data_ptr(), vals.data_ptr(),
-            b.data_ptr(), out.data_ptr())
-    if plan.kind == "slab":
-        rc = lib.relmm_slab(*ptrs, m, k, n, _DTYPES[b.dtype], plan.tile_n,
-                            plan.rows_per_block, plan.split, device, stream)
-    else:
-        vec = n % plan.vector == 0 and b.data_ptr() % 16 == 0
-        rc = lib.relmm_stream(*ptrs, m, n, _DTYPES[b.dtype], int(vec), device,
-                              stream)
-    build.check(rc, f"relational_matmul/{plan.kind}_spmm")
-    relational_matmul.launches += 1
+        resorted = bad == _UNSORTED
+        if resorted:
+            order = torch.sort(row_ids, stable=True).indices
+            row_ids, col_ids, vals = (row_ids[order], col_ids[order],
+                                      vals[order])
+            bad = first_pass()
+        if bad:
+            reasons = [why for bit, why in _FAULTS if bad & bit]
+            raise ValueError("relational_matmul kernel: "
+                             + "; ".join(reasons))
+        plan = schedule(m, k, n, nnz, b.dtype, _sms(dev))
+        sp.set(route=plan.kind, resorted=resorted)
+        ptrs = (offsets.data_ptr(), col_ids.data_ptr(), vals.data_ptr(),
+                b.data_ptr(), out.data_ptr())
+        with obs.span("kernels.launch"):
+            if plan.kind == "slab":
+                rc = lib.relmm_slab(*ptrs, m, k, n, _DTYPES[b.dtype],
+                                    plan.tile_n, plan.rows_per_block,
+                                    plan.split, device, stream)
+            else:
+                vec = n % plan.vector == 0 and b.data_ptr() % 16 == 0
+                rc = lib.relmm_stream(*ptrs, m, n, _DTYPES[b.dtype], int(vec),
+                                      device, stream)
+        build.check(rc, f"relational_matmul/{plan.kind}_spmm")
+        relational_matmul.launches += 1
     return out
 
 

@@ -28,6 +28,7 @@ import ctypes
 
 import torch
 
+from ..obs import tracer as obs
 from . import build, ref
 
 plain = ref.rwkv6_scan
@@ -95,13 +96,16 @@ def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     strides = (ctypes.c_longlong * 17)(
         *(t.stride(i) for t in seqs for i in range(3)),
         *(as4(u).stride(i) for i in range(2)))
-    lib = build.library("rwkv6_scan", _SIGNATURES)
-    device, stream = build.device_and_stream(r)
-    build.check(lib.rwkv6_scan_launch(
-        r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(),
-        s0.data_ptr(), o.data_ptr(), s_fin.data_ptr(), batch, heads, s, n,
-        ctypes.addressof(strides), device, stream), "rwkv6_scan")
-    rwkv6_scan.launches += 1
+    with obs.span("kernels.rwkv6_scan", shape=(batch, heads, s, n)):
+        lib = build.library("rwkv6_scan", _SIGNATURES)
+        device, stream = build.device_and_stream(r)
+        with obs.span("kernels.launch"):
+            rc = lib.rwkv6_scan_launch(
+                r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
+                u.data_ptr(), s0.data_ptr(), o.data_ptr(), s_fin.data_ptr(),
+                batch, heads, s, n, ctypes.addressof(strides), device, stream)
+        build.check(rc, "rwkv6_scan")
+        rwkv6_scan.launches += 1
     return o, s_fin
 
 
@@ -136,25 +140,28 @@ def rwkv6_scan_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     rows = s0.numel() // (n * n)
     if rows == 0:
         return dr, dk, dv, dw, du, ds0
-    lib = build.library("rwkv6_scan_bwd", _BWD_SIGNATURES)
-    # the state before and G after every chunk, and du's sum in each
-    scratch = torch.empty(lib.rwkv6_scan_bwd_scratch(rows, s, n),
-                          dtype=torch.uint8, device=r.device)
     as4 = (lambda t: t) if r.dim() == 4 else (lambda t: t.unsqueeze(0))
     seqs = [as4(t) for t in (r, k, v, w, do, dr, dk, dv, dw)]
     batch, heads = seqs[0].shape[:2]
     strides = (ctypes.c_longlong * 29)(
         *(t.stride(i) for t in seqs for i in range(3)),
         *(as4(u).stride(i) for i in range(2)))
-    device, stream = build.device_and_stream(r)
     ptr = lambda t: None if t is None else t.data_ptr()
-    build.check(lib.rwkv6_scan_bwd_launch(
-        r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(),
-        s0.data_ptr(), do.data_ptr(), ptr(ds_fin), dr.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(), dw.data_ptr(), du.data_ptr(), ptr(ds0),
-        scratch.data_ptr(), batch, heads, s, n, ctypes.addressof(strides),
-        device, stream), "rwkv6_scan_bwd")
-    rwkv6_scan_bwd.launches += 1
+    with obs.span("kernels.rwkv6_scan_bwd", shape=(batch, heads, s, n)):
+        lib = build.library("rwkv6_scan_bwd", _BWD_SIGNATURES)
+        # the state before and G after every chunk, and du's sum in each
+        scratch = torch.empty(lib.rwkv6_scan_bwd_scratch(rows, s, n),
+                              dtype=torch.uint8, device=r.device)
+        device, stream = build.device_and_stream(r)
+        with obs.span("kernels.launch"):
+            rc = lib.rwkv6_scan_bwd_launch(
+                r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
+                u.data_ptr(), s0.data_ptr(), do.data_ptr(), ptr(ds_fin),
+                dr.data_ptr(), dk.data_ptr(), dv.data_ptr(), dw.data_ptr(),
+                du.data_ptr(), ptr(ds0), scratch.data_ptr(), batch, heads, s,
+                n, ctypes.addressof(strides), device, stream)
+        build.check(rc, "rwkv6_scan_bwd")
+        rwkv6_scan_bwd.launches += 1
     return dr, dk, dv, dw, du, ds0
 
 

@@ -15,6 +15,7 @@ import ctypes
 
 import torch
 
+from ..obs import tracer as obs
 from . import build, ref
 
 plain = ref.tuple_dot
@@ -56,14 +57,17 @@ def tuple_dot(a: torch.Tensor, rows: torch.Tensor, b: torch.Tensor,
     out = torch.empty(nnz, dtype=torch.float32, device=dev)
     if nnz == 0:
         return out
-    lib = build.library("tuple_dot", _SIGNATURES)
-    device, stream = build.device_and_stream(b)
-    rc = lib.tuple_dot_launch(
-        a.data_ptr(), rows.data_ptr(), b.data_ptr(), cols.data_ptr(),
-        out.data_ptr(), nnz, a.shape[0], b.shape[0], d, _DTYPES[a.dtype],
-        _DTYPES[b.dtype], device, stream)
-    build.check(rc, "tuple_dot")
-    tuple_dot.launches += 1
+    with obs.span("kernels.tuple_dot", shape=(a.shape[0], b.shape[0], d),
+                  tuples=nnz):
+        lib = build.library("tuple_dot", _SIGNATURES)
+        device, stream = build.device_and_stream(b)
+        with obs.span("kernels.launch"):
+            rc = lib.tuple_dot_launch(
+                a.data_ptr(), rows.data_ptr(), b.data_ptr(), cols.data_ptr(),
+                out.data_ptr(), nnz, a.shape[0], b.shape[0], d,
+                _DTYPES[a.dtype], _DTYPES[b.dtype], device, stream)
+        build.check(rc, "tuple_dot")
+        tuple_dot.launches += 1
     return out
 
 

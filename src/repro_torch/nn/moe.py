@@ -52,6 +52,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels import ops
+from ..obs import tracer as obs
 from .layers import cdt, dense_init
 
 
@@ -112,6 +113,16 @@ def _capacity(group: int, cfg: MoEConfig) -> int:
     return max(8, -(-c // 8) * 8)  # round up to 8
 
 
+def _count_drops(keep) -> None:
+    """Traced, the counters ``moe.assignments`` and ``moe.dropped`` (the
+    token-to-expert assignments past their expert's capacity, summed on
+    the device); a forward that activation checkpointing recomputes in
+    the backward is not counted again."""
+    if obs.tracing() and not obs.in_backward():
+        obs.inc("moe.assignments", keep.numel())
+        obs.inc("moe.dropped", (~keep).sum())
+
+
 def _expert_ffn(p, xs):
     """xs: (..., E, C, d) → SwiGLU per expert."""
     h = torch.einsum("...ecd,edf->...ecf", xs, cdt(p["wi"]))
@@ -137,14 +148,16 @@ def _moe_einsum(p, xg, cfg: MoEConfig, gates, idx):
         pos_offset = pos_offset + mask_r.sum(dim=1)
         pos_tok = (mask_r * pos_r).sum(dim=-1)                    # (G, g)
         keep = pos_tok < cap
+        _count_drops(keep)
         oh_pos = F.one_hot(torch.where(keep, pos_tok, cap), cap + 1)[
             ..., :cap].to(torch.float32)                          # (G,g,C)
         d_r = mask_r.to(torch.float32)[..., :, None] * oh_pos[..., None, :]
+        # out of place: combine's product saved d_r for the gates' gradient
         if dispatch is None:
             dispatch, combine = d_r, d_r * gates[..., r, None, None]
         else:
-            dispatch += d_r
-            combine += d_r * gates[..., r, None, None]
+            dispatch = dispatch + d_r
+            combine = combine + d_r * gates[..., r, None, None]
     xs = torch.einsum("gsec,gsd->gecd", dispatch.to(xg.dtype), xg)
     ys = _expert_ffn(p, xs)
     return torch.einsum("gsec,gecd->gsd", combine.to(xg.dtype), ys)
@@ -214,6 +227,7 @@ def _moe_sort(p, xg, cfg: MoEConfig, gates, idx):
                            .to(torch.float32))
     ys = _expert_ffn(p, buf.reshape(e, n_groups * cap, d))
     keep = pos < cap
+    _count_drops(keep)
     slot = ((idx * n_groups + torch.arange(n_groups, device=dev)[:, None,
                                                                   None])
             * cap + pos)

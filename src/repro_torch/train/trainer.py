@@ -12,12 +12,14 @@ first).
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import time
 from typing import Callable, Optional
 
 import torch
 
 from ..checkpoint.checkpointer import Checkpointer
+from ..obs import tracer as obs
 from ..optim.optimizers import Optimizer, clip_by_global_norm
 from ..tree import leaves, tree_map, unflatten
 
@@ -36,9 +38,22 @@ def make_train_step(loss_fn: Callable, optimizer: Optimizer,
     the gradients are clipped to ``clip_norm`` by their global norm and the
     optimizer updates the parameters in place.  Metrics are 0-dim tensors:
     ``loss``, ``grad_norm`` (before the clip) and ``loss_fn``'s own.
+
+    Traced (``repro_torch.obs``), a step is the span ``train.step``
+    (attributes ``step``, the call's number, and ``tokens``) with
+    ``train.microbatch`` spans around each microbatch's ``train.forward``
+    and ``train.backward`` (which holds the forward that activation
+    checkpointing recomputes; both carry device time), then
+    ``train.grad_scale``, ``train.clip`` and ``train.update``.
     """
+    calls = itertools.count()
 
     def step(params, opt_state, batch):
+        with obs.span("train.step", step=next(calls),
+                      tokens=next(iter(batch.values())).numel()):
+            return run(params, opt_state, batch)
+
+    def run(params, opt_state, batch):
         flat = [p.detach().requires_grad_() for p in leaves(params)]
         tracked = unflatten(params, flat)
         on_grad = all(p.dtype == torch.float32 for p in flat)
@@ -53,8 +68,11 @@ def make_train_step(loss_fn: Callable, optimizer: Optimizer,
         loss_sum = None
         for i in range(grad_accum):
             micro = {k: v[i * size:(i + 1) * size] for k, v in batch.items()}
-            loss, metrics = loss_fn(tracked, micro)
-            loss.backward()
+            with obs.span("train.microbatch", i=i):
+                with obs.span("train.forward", device=True):
+                    loss, metrics = loss_fn(tracked, micro)
+                with obs.span("train.backward", device=True):
+                    loss.backward()
             loss = loss.detach().to(torch.float32)
             loss_sum = loss if loss_sum is None else loss_sum + loss
             if acc is not None:
@@ -68,11 +86,15 @@ def make_train_step(loss_fn: Callable, optimizer: Optimizer,
         for p in flat:
             p.grad = None
         if grad_accum > 1:
-            for g in acc:
-                g.div_(grad_accum)
+            with obs.span("train.grad_scale"):
+                for g in acc:
+                    g.div_(grad_accum)
             loss_sum = loss_sum / grad_accum
-        grads, gnorm = clip_by_global_norm(unflatten(params, acc), clip_norm)
-        params, opt_state = optimizer.update(grads, opt_state, params)
+        with obs.span("train.clip"):
+            grads, gnorm = clip_by_global_norm(unflatten(params, acc),
+                                               clip_norm)
+        with obs.span("train.update"):
+            params, opt_state = optimizer.update(grads, opt_state, params)
         metrics = {k: v.detach() for k, v in metrics.items()}
         return params, opt_state, dict(metrics, loss=loss_sum,
                                        grad_norm=gnorm)
