@@ -515,6 +515,71 @@ def relmm_product(mod, rel, b) -> dict:
         library_ms=time_ms(lambda: torch.sparse.mm(coo, b)))
 
 
+#: the benchmark's table (``portbench/configs/mlp-mnist-60k.json``):
+#: MNIST's 60,000 training rows, where Eqs. 10 and 11 have k past any slab
+LONG_ROWS = 60000
+
+
+def check_relmm_long(mod, RelTensor, data, report):
+    """Eqs. 10 and 11 at the benchmark's 60,000 rows, the transposed
+    relations as the engine builds them, which take the ``kslab`` schedule:
+    each held against the float64 dense product (``img`` is dense in the
+    relation; the plain version's join of 47 M x 200 values would need
+    37.6 GB), two calls equal bit for bit and bf16 b equal to its float32
+    widening; then timed beside the stream route they took before (the
+    wrapper's schedule told the cols are unsorted), one ``torch.sparse.mm``
+    call and the bound."""
+    gen = torch.Generator(device="cuda").manual_seed(LONG_ROWS)
+    img = torch.rand(LONG_ROWS, N_FEAT, generator=gen, device="cuda")
+    a_xh = torch.sigmoid(img @ data["w_xh"])
+    d_ho = torch.randn(LONG_ROWS, N_CLS, generator=gen, device="cuda") * 0.05
+    d_xh = torch.randn(LONG_ROWS, N_HID, generator=gen, device="cuda") * 0.01
+    schedule, out = mod.schedule, {}
+
+    def as_stream(*args, **kw):
+        return schedule(*args, **{**kw, "cols_sorted": False})
+
+    for what, (a, b) in {"Eq10 a_xh^T.d_ho": (a_xh, d_ho),
+                         "Eq11 img^T.d_xh": (img, d_xh)}.items():
+        rel = RelTensor.from_dense(a).transpose()
+        (m, k), n = rel.shape, b.shape[1]
+        args = (rel.i, rel.j, rel.v, b, m)
+        plan = schedule(m, k, n, rel.capacity, b.dtype)
+        if plan.kind != "kslab":
+            raise AssertionError(f"relmm {what} at {LONG_ROWS} rows: "
+                                 f"{plan.kind}, not kslab")
+        want = (a.double().T @ b.double()).float()
+        err = max_err(mod.relational_matmul(*args), want, F32_TOL,
+                      f"relmm {what} at {LONG_ROWS} rows")
+        same_bits(mod, *args, f"relmm {what} at {LONG_ROWS} rows")
+        coo = torch.sparse_coo_tensor(
+            torch.stack([rel.i.long(), rel.j.long()]), rel.v, (m, k),
+            check_invariants=True).coalesce()
+        bms, by = relmm_bound(rel.capacity, k, m, n, 4)
+        events = device_events(lambda: mod.relational_matmul(*args), 5)
+        mod.schedule = as_stream
+        try:
+            stream_ms = time_ms(lambda: mod.relational_matmul(*args), 5, 1)
+        finally:
+            mod.schedule = schedule
+        r = out[what] = dict(
+            shape=f"({m}x{k}).({k}x{n}) as {rel.capacity} tuples",
+            schedule=dataclasses.asdict(plan),
+            scratch_bytes=plan.scratch(m, n), max_abs_err=err,
+            ms=time_ms(lambda: mod.relational_matmul(*args)),
+            device=events, device_ms=device_ms(events), stream_ms=stream_ms,
+            yardstick="float64 dense product", bound_ms=bms, bound_by=by,
+            library_ms=time_ms(lambda: torch.sparse.mm(coo, b), 5))
+        del coo
+        log(f"relational_matmul {what} {r['shape']}, kslab (ranges "
+            f"{plan.ranges}, {plan.blocks} blocks, scratch "
+            f"{r['scratch_bytes']} B): {r['ms']:.4f} ms a call, device "
+            f"{r['device_ms']:.4f} ms in {events}; the stream route "
+            f"{stream_ms:.4f} ms, torch.sparse.mm {r['library_ms']:.4f} ms, "
+            f"bound {bms:.4f} ms ({by}), max |err| {err:.3e}")
+    report["relational_matmul"]["long"] = out
+
+
 # DeepSeek-V2-Lite prefill's MoE combine: 8000 tokens x top-6 = 48,000
 # tuples (token, slot, gate) into 8000 x 2048 rows, from the 64 x 944 =
 # 60,416-slot expert output (nn/moe.py, _moe_sort)
@@ -6185,6 +6250,7 @@ def main() -> int:
     checks = {
         "relational_matmul": lambda: (
             check_relational(relational_matmul, RelTensor, data, report),
+            check_relmm_long(relational_matmul, RelTensor, data, report),
             check_relmm_combine(relational_matmul, report),
             check_relmm_backward(relational_matmul, report)),
         "fused_sigmoid_matmul": lambda: check_fused(fused_sigmoid_matmul,

@@ -29,7 +29,7 @@
 namespace {
 
 constexpr int kMaxDevices = 64;
-constexpr int kFlagWords = 2;
+constexpr int kFlagWords = 3;
 
 // One device's flags (host side and the device's view of them), the event
 // a call waits on, and the lock that keeps calls apart.

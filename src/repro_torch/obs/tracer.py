@@ -58,7 +58,8 @@ tracer on each call): ``nn2sql.iteration``, ``engine.evaluate``,
 with children ``kernels.status_wait`` and ``kernels.launch``,
 ``train.step``, ``train.microbatch``, ``train.forward`` /
 ``train.backward`` (device), ``train.grad_scale`` / ``train.clip`` /
-``train.update``, and the counters ``moe.assignments`` / ``moe.dropped``.
+``train.update``, and the counters ``moe.assignments`` / ``moe.dropped``
+and ``relmm.calls`` / ``relmm.<route>`` (``relational_matmul``'s schedule).
 
 The *active* tracer is a module global (``current()`` / ``install()`` /
 the ``use()`` context manager); engines and adapters additionally accept a

@@ -16,6 +16,9 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch import obs
+from repro_torch.core import nn2sql
+from repro_torch.core.engine import Engine
 from repro_torch.core.relational import RelTensor
 from repro_torch.kernels import flash_attention as flash_mod
 from repro_torch.kernels import fused_sigmoid_matmul as fsm_mod
@@ -165,6 +168,146 @@ def test_relational_matmul_bf16_b_is_its_float32_widening(cuda, m, k, n, nnz,
     assert got.dtype == torch.float32
     assert torch.equal(got, relmm_mod.relational_matmul(rows, cols, vals,
                                                         b16.float(), m))
+
+
+def sorted_relation(rng, m, k, per_row, pad, device):
+    """A relation whose even rows of 0..m-1 hold ``per_row`` distinct cols
+    each, in increasing order (the odd rows stay empty), and ``pad``
+    padding tuples (row m) last: the order the engines build.  Its values
+    are small whole numbers, so that every sum of thousands of products is
+    exact in float32 in any order: the result must equal the float64 one
+    bit for bit (with random normal values a float32 sum of 3000 products
+    is off by about 1e-4, which the per-element tolerance of the reference's
+    test misses where a sum falls near 0)."""
+    live = range(0, m, 2)
+    rows = np.concatenate([np.repeat(np.array(live), per_row),
+                           np.full(pad, m)])
+    cols = np.concatenate([np.sort(rng.choice(k, per_row, replace=False))
+                           for _ in live] + [rng.randint(0, k, pad)])
+    return (torch.tensor(rows, dtype=torch.int32, device=device),
+            torch.tensor(cols, dtype=torch.int32, device=device),
+            whole(rng, rows.size, device=device))
+
+
+def whole(rng, *shape, device, dtype=torch.float32):
+    """Whole numbers in -3..3, exact in bf16 too."""
+    return torch.tensor(rng.randint(-3, 4, shape), dtype=torch.float32,
+                        device=device).to(dtype)
+
+
+def routes(fn):
+    """``fn()`` and the routes its ``relational_matmul`` calls took."""
+    with obs.use(obs.Tracer()) as tr:
+        out = fn()
+    counts = tr.counters
+    calls = counts.pop("relmm.calls", 0)
+    assert sum(counts.values()) == calls
+    return out, counts
+
+
+# The long-segment schedule at its edges: the first k past the widest
+# 4-column slab, ragged k-ranges (k prime), n = 3 / 10 / 200 / 384 (no
+# 16-byte copies at 3 and 10, ragged tiles, two tiles at 384), fewer rows
+# than a block's 16 warps, empty rows and padding.  Rows m, k, n, cols a
+# live row.
+KSLAB_EDGES = [(40, 13505, 3, 2700), (40, 20011, 10, 3000),
+               (40, 20011, 200, 3000), (40, 20011, 384, 3000),
+               (3, 60000, 10, 4000), (50, 30011, 200, 4000)]
+
+
+@pytest.mark.parametrize("m,k,n,per_row", KSLAB_EDGES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_relational_matmul_kslab_at_its_edges(cuda, m, k, n, per_row, dtype):
+    """Rows whose cols are sorted take ``kslab`` and give the float64 plain
+    version's result exactly (whole numbers: ``sorted_relation``); two runs
+    give equal bits; the relation in shuffled order, which the wrapper
+    sorts by row (its cols then out of order), takes the stream and gives
+    the same."""
+    rng = np.random.RandomState(m + k + n)
+    rows, cols, vals = sorted_relation(rng, m, k, per_row, 16, cuda)
+    b = whole(rng, k, n, device=cuda, dtype=dtype)
+    assert relmm_mod.schedule(m, k, n, rows.numel(), dtype).kind == "kslab"
+    got, taken = routes(lambda: relmm_mod.relational_matmul(rows, cols, vals,
+                                                            b, m))
+    assert taken == {"relmm.kslab": 1}
+    want = oracle(rows, cols, vals, b, m)
+    assert torch.equal(got, want)
+    assert torch.equal(got, relmm_mod.relational_matmul(rows, cols, vals, b,
+                                                        m))
+    order = torch.tensor(rng.permutation(rows.numel()), device=cuda)
+    shuffled, taken = routes(lambda: relmm_mod.relational_matmul(
+        rows[order], cols[order], vals[order], b, m))
+    assert taken == {"relmm.stream": 1}
+    assert torch.equal(shuffled, want)
+
+
+@pytest.mark.parametrize("m,k,n,per_row", KSLAB_EDGES)
+def test_relational_matmul_kslab_bf16_b_is_its_float32_widening(
+        cuda, m, k, n, per_row):
+    """Random normal b, rounded to bf16: the float32 sums of its widened
+    values, in the schedule's fixed order, give the same bits as the
+    widening itself."""
+    rng = np.random.RandomState(n + 1)
+    rows, cols, vals = sorted_relation(rng, m, k, per_row, 4, cuda)
+    b16 = rnd(rng, k, n, device=cuda, dtype=torch.bfloat16)
+    got, taken = routes(lambda: relmm_mod.relational_matmul(rows, cols, vals,
+                                                            b16, m))
+    assert taken == {"relmm.kslab": 1}
+    assert torch.equal(got, relmm_mod.relational_matmul(rows, cols, vals,
+                                                        b16.float(), m))
+
+
+@pytest.mark.parametrize("n", [10, 200])
+def test_relational_matmul_unsorted_cols_keep_the_stream(cuda, n):
+    """One row with two cols out of order, rows still sorted: the first
+    pass's third bit sends the call to the stream, which is right; the
+    sorted relation takes ``kslab`` and agrees (exactly: whole numbers)."""
+    rng = np.random.RandomState(n)
+    m, k = 40, 20011
+    rows, cols, vals = sorted_relation(rng, m, k, 3000, 16, cuda)
+    b = whole(rng, k, n, device=cuda)
+    swapped = cols.clone()
+    swapped[[7, 8]] = cols[[8, 7]]
+    got, taken = routes(lambda: relmm_mod.relational_matmul(rows, swapped,
+                                                            vals, b, m))
+    assert taken == {"relmm.stream": 1}
+    assert torch.equal(got, oracle(rows, swapped, vals, b, m))
+    kslab, taken = routes(lambda: relmm_mod.relational_matmul(rows, cols,
+                                                              vals, b, m))
+    assert taken == {"relmm.kslab": 1}
+    assert torch.equal(kslab, oracle(rows, cols, vals, b, m))
+
+
+def test_relational_mlp_past_the_slab_edge_takes_kslab(cuda):
+    """The MLP at 16,000 rows, the smallest round size past the 13,504 rows
+    a 4-column slab of b holds: one relational iteration, under the
+    profiler, counts 5 ``relational_matmul`` calls, 2 of them ``kslab``
+    (Eqs. 10 and 11), and its mean gradient agrees with the dense
+    engine's on the card."""
+    from torch.profiler import ProfilerActivity, profile
+    rows, lr = 16000, 1e-5
+    spec = nn2sql.MLPSpec(rows, 784, 200, 10, lr=lr)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.rand(rows, 784, generator=gen, device=cuda)
+    labels = torch.randint(0, 10, (rows,), generator=gen, device=cuda)
+    y = torch.nn.functional.one_hot(labels, 10).float()
+    graph = nn2sql.build_graph(spec)
+    w = nn2sql.init_weights(spec, device=cuda)
+    engine = Engine("relational", device=cuda)
+    nn2sql.train(graph, w, x, y, 1, engine)             # warm: builds
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU]):
+        w_rel, _ = nn2sql.train(graph, w, x, y, 1, engine)
+        torch.cuda.synchronize()
+    counts = obs.profiled().counters
+    assert (counts.get("relmm.kslab"), counts.get("relmm.calls")) == (2, 5)
+    assert counts.get("relmm.slab") == 2 and counts.get("relmm.stream") == 1
+    w_dense, _ = nn2sql.train(graph, w, x, y, 1, Engine("dense", device=cuda))
+    for leaf in w:
+        g_rel = (w[leaf] - w_rel[leaf]).double() / lr
+        g_dense = (w[leaf] - w_dense[leaf]).double() / lr
+        torch.testing.assert_close(g_rel, g_dense, rtol=1e-3,
+                                   atol=1e-3 * float(g_dense.abs().max()))
 
 
 def test_relational_matmul_kernel_raises_and_then_runs_clean(cuda):

@@ -256,6 +256,69 @@ def test_relational_matmul_schedule_by_shape(m, k, n, nnz, kind, tile_n,
                                                   else (0, 0))
 
 
+#: (m, k, n, tuples, cols sorted, route) at the benchmark's 60,000 rows
+#: and DeepSeek-V2-Lite's training step
+RELMM_LONG = {
+    "Eq10 a_xh^T.d_ho": (200, 60000, 10, 12_000_000, True, "kslab"),
+    "Eq11 img^T.d_xh": (784, 60000, 200, 47_040_000, True, "kslab"),
+    "z_xh img.w_xh": (60000, 784, 200, 47_040_000, True, "slab"),
+    "z_ho a_xh.w_ho": (60000, 200, 10, 12_000_000, True, "slab"),
+    "Eq8 d_ho.w_ho^T": (60000, 10, 200, 600_000, True, "stream"),
+    "DeepSeek combine": (8192, 61440, 2048, 49_152, True, "stream"),
+    "DeepSeek d ys": (61440, 8192, 2048, 49_152, True, "stream"),
+    "DeepSeek d x": (8192, 61440, 2048, 61_440, True, "stream"),
+    "segments of 1023": (200, 60000, 10, 200 * 1023 + 199, True, "stream"),
+    "segments of 1024": (200, 60000, 10, 200 * 1024, True, "kslab"),
+    "cols unsorted": (784, 60000, 200, 47_040_000, False, "stream"),
+    "one row past the slab": (64, 13505, 3, 64 * 1024, True, "kslab"),
+    "the widest slab": (64, 13504, 3, 64 * 1024, True, "slab"),
+    "three rows": (3, 60000, 10, 180_000, True, "kslab"),
+    "two tiles": (40, 20011, 384, 60_000, True, "kslab")}
+
+
+@pytest.mark.parametrize("case", RELMM_LONG)
+def test_relational_matmul_long_segment_schedule(case):
+    """Where no slab of b fits, long segments whose cols are sorted take
+    ``kslab``; short segments, or a row's cols out of order, keep the
+    stream.  The same for bf16 and float32 b; a kslab's two slab buffers
+    and the staged tuples fit half an SM (two blocks an SM), its k-ranges
+    cover k, its partial sums need at most 8 MB, and its grid is at most
+    four waves of the 264 blocks that 132 SMs hold at once."""
+    m, k, n, nnz, cols_sorted, kind = RELMM_LONG[case]
+    plans = [relmm_mod.schedule(m, k, n, nnz, dt, cols_sorted=cols_sorted)
+             for dt in (torch.float32, torch.bfloat16)]
+    assert plans[0].kind == plans[1].kind == kind
+    plan = plans[0]
+    if kind != "stream":
+        assert plans[0] == plans[1]
+    if kind == "kslab":
+        assert plan.tile_n == min(256, 1 << max(2, (n - 1).bit_length()))
+        assert plan.smem == 2 * plan.k_chunk * plan.tile_n * 4 + \
+            relmm_mod.STAGE_BYTES <= relmm_mod.SMEM_PER_SM // 2 - 1024
+        assert plan.ranges == -(-k // plan.range_k) and plan.ranges >= 1
+        assert plan.k_chunk <= plan.range_k
+        assert plan.scratch(m, n) <= 8_000_000
+        a_range = -(-m // 16) * -(-n // plan.tile_n)
+        assert plan.blocks == a_range * plan.ranges
+        assert plan.blocks < 4 * 264 + a_range
+
+
+def test_relational_matmul_kslab_fills_the_card_at_60000_rows():
+    """Eq10 and Eq11 at 60,000 rows run on hundreds of blocks (the stream
+    gave them 25 and 98), in whole waves of 264 (two blocks an SM) or
+    nearly: Eq10 four less three blocks, Eq11 two less 38."""
+    eq10 = relmm_mod.schedule(200, 60000, 10, 12_000_000, torch.float32)
+    eq11 = relmm_mod.schedule(784, 60000, 200, 47_040_000, torch.float32)
+    assert (eq10.blocks, eq10.ranges, eq10.range_k, eq10.k_chunk) == (
+        1053, 81, 741, 741)
+    assert (eq11.blocks, eq11.ranges, eq11.range_k, eq11.k_chunk) == (
+        490, 10, 6000, 48)
+    assert eq11.scratch(784, 200) == 9 * 784 * 200 * 4
+    stream = relmm_mod.schedule(784, 60000, 200, 47_040_000, torch.float32,
+                                cols_sorted=False)
+    assert stream.blocks == 98
+
+
 def test_fused_sigmoid_matmul_copy_width():
     """16-byte copies for float32 rows of whole 16-byte units from an
     aligned base (bit 0 x, bit 1 w); 4-byte copies otherwise, and always
