@@ -11,7 +11,9 @@ Phases (any failure exits non-zero; nothing is caught and carried on past):
            the ``tests/test_kernels.py`` sweeps and the main paths' shapes
            (flash at Yi-6B's, at MLA's and at Zamba2's (4, 32, 2048, 80)
            and its training microbatch's (2, 32, 4096, 80) as head-split
-           views, bf16 also against the bf16-scores plain version), with
+           views, bf16 also against the bf16-scores plain version;
+           Zamba2-7B's (2, 32, 4096, 224) and a ragged S of 1000 in bf16
+           alone, forward and backward, timed beside the other pairs), with
            the reference's tolerances;
            then its time beside the plain version's, one PyTorch library
            call's (a yardstick only) and the card's bound for the same work
@@ -1178,6 +1180,10 @@ FLASH_MLA = (4, 16, 2000, 192, 128)
 # training microbatch (phase 14), 18 launches a step
 FLASH_ZAMBA2 = (4, 32, 2048, 80)
 FLASH_ZAMBA2_TRAIN = (2, 32, 4096, 80)
+# Zamba2-7B's shared attention in a training microbatch of the benchmark's
+# cell, (D, Dv) = (224, 224), bf16 alone (the float32 kernels stop at
+# 192), and at a ragged S
+FLASH_ZAMBA2_7B = ((2, 32, 4096, 224), (2, 32, 1000, 224))
 # bf16 at the main shape: the kernel rounds P to bf16 before P V (and sums
 # the rounded P), the plain version keeps P in float32, and both round the
 # output to bf16, so they differ by P's rounding (2^-9 of each weight, which
@@ -1290,6 +1296,8 @@ def check_flash(mod, report):
     mla = check_flash_mla(mod, inputs, sdpa)
     zamba2 = check_flash_zamba2(mod, sdpa)
     zamba2_train = check_flash_zamba2(mod, sdpa, FLASH_ZAMBA2_TRAIN)
+    zamba2_7b = {f"s{shape[2]}": check_flash_zamba2_7b(mod, sdpa, shape)
+                 for shape in FLASH_ZAMBA2_7B}
     hgmma = hgmma_count("flash_attention_tc")
     hgmma_f32 = hgmma_count("flash_attention")
     log(f"SASS: flash_attention_tc {hgmma}, flash_attention (float32, "
@@ -1315,7 +1323,7 @@ def check_flash(mod, report):
         f32_library_ms=f32_library_ms, f32_library_kernels=f32_library_kernels,
         f32_source="src/repro_torch/kernels/csrc/flash_attention.cu",
         hgmma=hgmma, hgmma_f32=hgmma_f32, mla=mla, zamba2=zamba2,
-        zamba2_train=zamba2_train)
+        zamba2_train=zamba2_train, zamba2_7b=zamba2_7b)
     out |= flash_rates(out, flash_flops(b, hq, s, d, d))
     out |= f32_rates(f32_ms, flash_flops(b, hq, s, d, d), f32_bound,
                      f32_tf32_bound, f32_library_ms)
@@ -1410,6 +1418,50 @@ def check_flash_mla(mod, inputs, sdpa):
         f"{f32_tf32_bound:.4f} ms ({out['f32_tf32_bound_share']:.3f} of it), "
         f"float32 SDPA (TF32 off) {f32_library_ms:.4f} ms "
         f"{f32_library_kernels}, {out['f32_sdpa_ratio']:.2f} x SDPA")
+    return out
+
+
+def check_flash_zamba2_7b(mod, sdpa, shape):
+    """Zamba2-7B's shared attention, (D, Dv) = (224, 224), causal at
+    ``shape`` as the model hands it over (head-split views of (B, S, 7168)
+    projections): the bf16 kernel against the float32-P plain version and
+    the bf16-scores one at the Yi shape's tolerance, timed beside the
+    plain version, SDPA and the bound; the float32 kernels have no 224 and
+    raise their head-dim error."""
+    b, h, s, d = shape
+    rng = np.random.RandomState(224 + s)
+    q, k, v = (torch.tensor(rng.randn(b, s, h, d), dtype=torch.float32,
+                            device="cuda").transpose(1, 2) for _ in range(3))
+    expect_raise(ValueError, lambda: mod.flash_attention(q, k, v),
+                 "flash Zamba2-7B float32 at 224")
+    q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
+    if not all(mod.takes(t) for t in (q, k, v)):
+        raise AssertionError("flash Zamba2-7B: the head-split views need a "
+                             "copy")
+    err = max_err(mod.flash_attention(q, k, v), mod.plain(q, k, v),
+                  FLASH_MAIN_BF16_TOL, f"flash Zamba2-7B {shape} bf16 causal")
+    err_scores = max_err(mod.flash_attention(q, k, v),
+                         mod.plain(q, k, v, bf16_scores=True),
+                         FLASH_MAIN_BF16_TOL,
+                         f"flash Zamba2-7B {shape} bf16 vs bf16 scores")
+    causal_sdpa = lambda q, k, v: sdpa(q, k, v, is_causal=True)
+    bms, by = flash_bound(b, h, h, s, d, torch.bfloat16)
+    out = dict(
+        shape=f"q, k, v ({b},{h},{s},{d}) head-split views, causal",
+        max_abs_err=err, max_abs_err_bf16_scores=err_scores,
+        ms=time_ms(lambda: mod.flash_attention(q, k, v), iters=20),
+        device=device_events(lambda: mod.flash_attention(q, k, v), 5),
+        plain_ms=time_ms(lambda: mod.plain(q, k, v), iters=3),
+        bound_ms=bms, bound_by=by,
+        library_ms=time_ms(lambda: causal_sdpa(q, k, v)),
+        library_kernels=top_kernels(lambda: causal_sdpa(q, k, v)))
+    out |= flash_rates(out, flash_flops(b, h, s, d, d))
+    log(f"flash Zamba2-7B {shape} vs plain, max |err|: bf16 {err:.3e}, bf16 "
+        f"vs bf16-scores plain {err_scores:.3e}; {out['ms']:.4f} ms (device "
+        f"{device_ms(out['device']):.4f} ms) = {out['tflops']:.1f} TFLOP/s, "
+        f"{out['bound_share']:.3f} of the bound ({bms:.4f} ms, {by}), "
+        f"{out['sdpa_ratio']:.2f} x SDPA ({out['library_ms']:.4f} ms "
+        f"{out['library_kernels']}), plain {out['plain_ms']:.4f} ms")
     return out
 
 
@@ -1611,11 +1663,15 @@ def check_flash_bwd(mod, report):
              "mla_train": FLASH_MLA_TRAIN,
              "mla": (4, 16, 16, 2000, 192, 128, False),
              "zamba2": (4, 32, 32, 2048, 80, 80, True),
-             "zamba2_train": (2, 32, 32, 4096, 80, 80, True)}
+             "zamba2_train": (2, 32, 32, 4096, 80, 80, True),
+             "zamba2_7b_train": (2, 32, 32, 4096, 224, 224, True),
+             "zamba2_7b_ragged": (2, 32, 32, 1000, 224, 224, True)}
     out = {}
     for name, (b, hq, hkv, s, d, dv, views) in cases.items():
         for dtype, tol in ((torch.float32, F32_TOL),
                            (torch.bfloat16, BF16_BWD_TOL)):
+            if (d, dv) not in mod.head_dims(dtype):
+                continue          # (224, 224): bf16 alone
             q, k, v, do = inputs(b, hq, hkv, s, d, dv, dtype, views=views)
             key = f"{name}_{str(dtype).removeprefix('torch.')}"
             row = dict(shape=f"q ({b},{hq},{s},{d}), k/v ({b},{hkv},{s},"

@@ -39,6 +39,15 @@ class SSMSpec:
     d_conv: int = 4
     expand: int = 2
     chunk: int = 64
+    # Mamba-2 as published (Zamba2-7B); the defaults are the JAX package's
+    # mixer, which the zamba2_2_7b config runs
+    n_groups: int = 1             # B and C groups: head h reads h // (H / G)
+    conv_bias: bool = False       # a bias on the depthwise conv
+    d_on_x: bool = False          # D·x (published), not D·(x·dt) (JAX's)
+    norm_groups: int = 0          # gated RMSNorm of y·silu(z) in float32 in
+                                  # this many groups; 0: JAX's rmsnorm of
+                                  # the product in the compute type
+    norm_eps: float = 1e-6        # that norm's epsilon
 
 
 @dataclasses.dataclass(frozen=True)
@@ -53,7 +62,8 @@ class ArchConfig:
     vocab: int
     d_head: int = 128
     norm: str = "rmsnorm"         # rmsnorm | layernorm
-    mlp: str = "swiglu"           # swiglu | gelu
+    mlp: str = "swiglu"           # swiglu | gelu | geglu (exact-GELU gated,
+                                  # Zamba2-7B's shared block)
     rope: bool = True
     rope_theta: float = 1e4
     qk_norm: bool = False
@@ -63,7 +73,18 @@ class ArchConfig:
     mla: Optional[MLAConfig] = None
     ssm: Optional[SSMSpec] = None
     stub_frontend: Optional[str] = None   # "audio_frames" | "vision_patches"
-    shared_attn_every: int = 0            # zamba2: shared block period
+    shared_attn_every: int = 0            # zamba2 (JAX's block): period
+    # Zamba2 as published: the layers in ``hybrid_layer_ids`` each call
+    # shared block (use j: block j % num_mem_blocks) on concat(hidden,
+    # embeddings) first, attention at head dim 2 d / n_heads with rope
+    # (``rope``) on all of it, then ``mlp`` with a LoRA of ``adapter_rank``
+    # on its gate_up that belongs to the use; a per-use d x d linear takes
+    # the block's output to the Mamba layer's input, before its norm
+    hybrid_layer_ids: tuple = ()
+    num_mem_blocks: int = 1
+    adapter_rank: int = 0
+    attn_scale: float = 0.0               # softmax scale; 0: d_head ** -0.5
+    norm_eps: float = 1e-6                # RMSNorm epsilon
     sub_quadratic: bool = False           # may run long_500k
     # execution knobs (hillclimbed in §Perf)
     attn_impl: str = "flash"              # flash | chunked | dense
@@ -85,7 +106,10 @@ class ArchConfig:
 
     @property
     def n_params(self) -> int:
-        """Approximate parameter count (embeddings + blocks)."""
+        """Parameter count (embeddings + blocks): exact for the published
+        Zamba2 layout, approximate for the others."""
+        if self.hybrid_layer_ids:
+            return self._zamba2_params()
         d, L = self.d_model, self.n_layers
         emb = self.vocab * d * (1 if self.tie_embeddings else 2)
         if self.family == "ssm":
@@ -118,6 +142,24 @@ class ArchConfig:
                 + self.n_heads * self.d_head * self.d_model \
                 + 3 * self.d_model * self.d_ff
         return total
+
+    def _zamba2_params(self) -> int:
+        """Every parameter of the published Zamba2 layout: the embedding
+        (tied, or with an output head), each Mamba-2 layer, each hybrid
+        layer's linear and adapter, the shared blocks, the final norm."""
+        d, s = self.d_model, self.ssm
+        di, h = s.expand * d, self.n_heads_mamba()
+        conv = di + 2 * s.n_groups * s.d_state
+        mamba = (d * (di + conv + h) + s.d_conv * conv
+                 + conv * s.conv_bias + 3 * h + di + di * d + d)
+        attn = 2 * d * self.n_heads * self.d_head * 3 \
+            + self.n_heads * self.d_head * d
+        block = 2 * d + attn + d + 3 * d * self.d_ff     # gated: gate_up, down
+        uses = len(self.hybrid_layer_ids)
+        adapter = self.adapter_rank * (d + 2 * self.d_ff)
+        emb = self.vocab * d * (1 if self.tie_embeddings else 2)
+        return (emb + self.n_layers * mamba + uses * (d * d + adapter)
+                + self.num_mem_blocks * block + d)
 
     def n_active_params(self) -> int:
         """Params touched per token (MoE: routed top-k + shared only)."""

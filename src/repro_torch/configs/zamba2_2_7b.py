@@ -1,7 +1,12 @@
-"""Zamba2-2.7B — Mamba-2 backbone + shared attention block every 6 layers
-[arXiv:2411.15242]. Sub-quadratic backbone: runs long_500k (the shared
-attention's KV cache is sequence-sharded at 500k). Per-application LoRA on
-the shared block is omitted (DESIGN.md §8)."""
+"""Zamba2-2.7B's sizes through the JAX package's simplified hybrid block
+[arXiv:2411.15242], not the published 2.7B: one shared block (not two)
+before every 6th layer, a 2d -> d ``in_proj`` before its attention (which
+then runs at head dim 80, not 2d / heads), a SwiGLU with an inner residual,
+the block's output added to the residual stream, no per-use LoRA adapters
+(DESIGN.md §8), one SSM group, D applied to x·dt, no conv bias.  It is the
+twin the JAX-parity tests hold the port to; ``zamba2_7b`` is the published
+layout.  Sub-quadratic backbone: runs long_500k (the shared attention's KV
+cache is sequence-sharded at 500k)."""
 from .base import ArchConfig, SSMSpec
 
 CONFIG = ArchConfig(

@@ -82,7 +82,10 @@
 //      first.  Q and dO stay in shared memory.  A first walk over the key
 //      tiles takes S and dP and folds them into each row's running max,
 //      sum and P-weighted sum of dP (the logsumexp and Delta), which it
-//      writes to the scratch for step 2; a second walk takes S and dP
+//      writes to the scratch for step 2 (two loops, the first ending
+//      before dQ's accumulator is declared, so that it holds no registers
+//      there: 3-30 % faster than one loop over both walks on an H100,
+//      the same bits); a second walk takes S and dP
 //      again, P = exp2(S scale log2 e - lse), dS = P (dP - Delta), split in
 //      the registers, and dQ += dS K, with K read MN-major (bf16) or as the
 //      k^T copy (TF32).
@@ -111,7 +114,13 @@
 // S) get P = 0, as the reference's -1e30 mask gives them; rows and keys
 // past S arrive as zeros from TMA's out-of-bounds fill and are never
 // stored.  (D, Dv) are template parameters: the ten pairs of the forward
-// kernels.  80 is padded on chip, as the forward pads it: the bf16 tiles
+// kernels, and in bf16 alone Zamba2-7B's (224, 224): its tiles take four
+// 64-column slabs (TMA fills columns 224-255 with zeros), 192 KB of shared
+// memory, and each gradient product runs as two n128 rounds into an
+// accumulator that keeps only the 224 columns that exist (the second
+// round adds 48 of its 64 sums a thread), 112 registers, not 128.  The
+// float32 path stops at D = 192.  80 is padded on chip, as the forward
+// pads it: the bf16 tiles
 // take two 64-column slabs whose columns 80-127 TMA fills with zeros, the
 // float32 chunks three of 32.  bf16 operands are read in place by their
 // batch, head and sequence strides (TMA's rules: a 16-byte base and
@@ -639,12 +648,16 @@ __device__ __forceinline__ void store_acc(const float* acc, T* dst, int row0,
 
 template <int D, int DV>
 struct Bf {
-  static_assert(D % 16 == 0 && DV % 16 == 0 && DV <= D && D <= 192,
-                "D, Dv in {32, 64, 80, 128, 192}, Dv <= D");
+  static_assert(D % 16 == 0 && DV % 16 == 0 && DV <= D &&
+                    (D <= 192 || (D == 224 && DV == 224)),
+                "D, Dv in {32, 64, 80, 128, 192}, Dv <= D, or 224 / 224");
   static constexpr int kW = D >= 64 ? 64 : 32, kWv = DV >= 64 ? 64 : 32;
   static constexpr int kSlabs = (D + kW - 1) / kW;
   static constexpr int kSlabsV = (DV + kWv - 1) / kWv;
   static constexpr int kDP = kSlabs * kW, kDVP = kSlabsV * kWv;
+  // the accumulators' columns: every slab's, or past 192 the ones that exist
+  static constexpr int kAcc = kDP > 192 ? D : kDP;
+  static constexpr int kAccV = kDVP > 192 ? DV : kDVP;
   static constexpr uint32_t kTile = kSlabs * kBM * kW * 2;
   static constexpr uint32_t kTileV = kSlabsV * kBM * kWv * 2;
   // resident: a D-wide and a Dv-wide tile; then two stages of the same;
@@ -688,8 +701,9 @@ __device__ __forceinline__ void bf_mma(float* tmp, const uint32_t* a,
 // acc (64 x N) += (hi + lo) . a 64-row tile at `tile`, N columns: the
 // tile's product summed on the tensor cores from zero (the lo part first,
 // k-step by k-step), then added to acc in IEEE float32 (the note at the
-// top says why).
-template <int N, int W>
+// top says why); only the first KEEP of this thread's N / 2 sums (the
+// first 2 KEEP columns) are added.
+template <int N, int W, int KEEP = N / 2>
 __device__ __forceinline__ void bf_round(float* acc, uint32_t (&hi)[16],
                                          uint32_t (&lo)[16], uint32_t tile) {
   float tmp[N / 2];
@@ -709,17 +723,22 @@ __device__ __forceinline__ void bf_round(float* acc, uint32_t (&hi)[16],
   hold(hi);
   hold(lo);
 #pragma unroll
-  for (int i = 0; i < N / 2; ++i) acc[i] += tmp[i];
+  for (int i = 0; i < KEEP; ++i) acc[i] += tmp[i];
 }
 
-// acc (64 x WP) += (hi + lo) . the 64-row tile at `tile` (WP columns in
-// W-column slabs): one round, or at 192 columns two (128, then 64).
-template <int WP, int W>
+// acc (64 x ACC) += (hi + lo) . the 64-row tile at `tile` (WP columns in
+// W-column slabs): one round, at 192 columns two (128, then 64), at 256
+// two of 128, the second adding its columns below ACC.
+template <int WP, int W, int ACC = WP>
 __device__ __forceinline__ void bf_grad(float* acc, uint32_t (&hi)[16],
                                         uint32_t (&lo)[16], uint32_t tile) {
   if constexpr (WP == 192) {
     bf_round<128, W>(acc, hi, lo, tile);
     bf_round<64, W>(acc + 64, hi, lo, tile + 2 * kBM * W * 2);
+  } else if constexpr (WP == 256) {
+    constexpr uint32_t slab = kBM * W * 2;
+    bf_round<128, W>(acc, hi, lo, tile);
+    bf_round<128, W, (ACC - 128) / 2>(acc + 64, hi, lo, tile + 2 * slab);
   } else {
     bf_round<WP, W>(acc, hi, lo, tile);
   }
@@ -793,13 +812,11 @@ flash_bwd_bf16_dq(const __grid_constant__ CUtensorMap tm_q,
 #pragma unroll
   for (int r = 0; r < 2; ++r) st.m[r] = kNegInf, st.l[r] = 0.f, st.t[r] = 0.f;
   float lse[2], delta[2];
-  float dq_acc[T::kDP / 2];
-  zero(dq_acc);
-  for (int it = 0; it < 2 * n_kv; ++it) {
-    const int stg = it & 1, j = it % n_kv, k0 = j * kBN;
+  // S and dP of walk step it (tile it % n_kv from stage it & 1)
+  auto scores = [&](int it, float (&s)[32], float (&dp)[32]) {
+    const int stg = it & 1;
     const uint32_t sk = base + (1 + stg) * T::kStage, sv = sk + T::kTile;
     mbar_wait(full0 + 8 * stg, (it >> 1) & 1);
-    float s[32], dp[32];
     zero(s);
     zero(dp);
     hold(s);
@@ -811,25 +828,35 @@ flash_bwd_bf16_dq(const __grid_constant__ CUtensorMap tm_q,
     wgmma_wait_all();
     hold(s);
     hold(dp);
+  };
+  // the first walk (statistics) before dQ's accumulator exists
+  for (int it = 0; it < n_kv; ++it) {
+    const int k0 = it * kBN;
+    float s[32], dp[32];
+    scores(it, s, dp);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty0 + 8 * (it & 1));
+    fold(s, dp, st, sh, k0 + kBN > sh.S || (sh.causal && it == qt), k0,
+         qpos0, col);
+  }
+  finish(st, lse, delta, lse_out + static_cast<int64_t>(bh) * sh.S64,
+         delta_out + static_cast<int64_t>(bh) * sh.S64, sh, qpos0, lane);
+  float dq_acc[T::kAcc / 2];
+  zero(dq_acc);
+  for (int it = n_kv; it < 2 * n_kv; ++it) {
+    const int stg = it & 1, j = it - n_kv, k0 = j * kBN;
+    const uint32_t sk = base + (1 + stg) * T::kStage;
+    float s[32], dp[32];
+    scores(it, s, dp);
     const bool edge = k0 + kBN > sh.S || (sh.causal && j == qt);
-    if (it < n_kv) {                     // the first walk: statistics
-      __syncwarp();
-      if (lane == 0) mbar_arrive(empty0 + 8 * stg);
-      fold(s, dp, st, sh, edge, k0, qpos0, col);
-      if (it == n_kv - 1)
-        finish(st, lse, delta, lse_out + static_cast<int64_t>(bh) * sh.S64,
-               delta_out + static_cast<int64_t>(bh) * sh.S64, sh, qpos0,
-               lane);
-      continue;
-    }
     row_ds(s, dp, lse, delta, sh, edge, k0, qpos0, col);
     uint32_t hi[16], lo[16];
     bf_frags(dp, hi, lo);
-    bf_grad<T::kDP, T::kW>(dq_acc, hi, lo, sk);
+    bf_grad<T::kDP, T::kW, T::kAcc>(dq_acc, hi, lo, sk);
     __syncwarp();
     if (lane == 0) mbar_arrive(empty0 + 8 * stg);
   }
-  store_acc<D, T::kDP>(dq_acc,
+  store_acc<D, T::kAcc>(dq_acc,
                        dq + static_cast<int64_t>(bh) * sh.S * D, qpos0, sh.S,
                        sh.scale, col);
 }
@@ -845,6 +872,7 @@ flash_bwd_bf16_dkdv(const __grid_constant__ CUtensorMap tm_q,
   using T = Bf<D, DV>;
   constexpr int kW = kDK ? D : DV, kWP = kDK ? T::kDP : T::kDVP;
   constexpr int kSlabW = kDK ? T::kW : T::kWv;
+  constexpr int kAcc = kDK ? T::kAcc : T::kAccV;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t sk = base, sv = base + T::kTile;
@@ -895,7 +923,7 @@ flash_bwd_bf16_dkdv(const __grid_constant__ CUtensorMap tm_q,
   const int warp = tid / 32, lane = tid % 32;
   const int kpos0 = k0 + warp * 16 + lane / 4, col = 2 * (lane % 4);
   mbar_wait(res_bar, 0);
-  float acc[kWP / 2];
+  float acc[kAcc / 2];
   zero(acc);
   for (int it = 0; it < n_it; ++it) {
     const int stg = it & 1, qt = qt0 + it % (n_q - qt0), q0 = qt * kBM;
@@ -921,11 +949,11 @@ flash_bwd_bf16_dkdv(const __grid_constant__ CUtensorMap tm_q,
     uint32_t hi[16], lo[16];
     if constexpr (kDK) bf_frags(dp, hi, lo);
     else bf_frags(s, hi, lo);
-    bf_grad<kWP, kSlabW>(acc, hi, lo, kDK ? sq : sdo);
+    bf_grad<kWP, kSlabW, kAcc>(acc, hi, lo, kDK ? sq : sdo);
     __syncwarp();
     if (lane == 0) mbar_arrive(empty0 + 8 * stg);
   }
-  store_acc<kW, kWP>(acc, out + static_cast<int64_t>(bkv) * sh.S * kW, kpos0,
+  store_acc<kW, kAcc>(acc, out + static_cast<int64_t>(bkv) * sh.S * kW, kpos0,
                      sh.S, kDK ? sh.scale : 1.f, col);
 }
 
@@ -1610,7 +1638,8 @@ cudaError_t launch(const Operands& o, const Shape& sh, int bf16,
 // rounded up to 64: the logsumexp and Delta), and for float32 the split
 // copies after them: 2 (batch hq s (d + dv) + batch hkv s (d + dv)) rows and
 // 2 (batch hq (d + dv) + batch hkv d) s8 transposed (s8 = s rounded up to
-// 8).  hq % hkv == 0 and (d, dv) one of the ten pairs.  bf16: three
+// 8).  hq % hkv == 0 and (d, dv) one of the ten pairs, or in bf16
+// (224, 224).  bf16: three
 // launches (dQ, dV, dK); float32: ten (the pre-pass's seven, then the
 // same three); returns cudaGetLastError() after them, or the error that
 // kept them from launching.
@@ -1647,5 +1676,7 @@ extern "C" int flash_attention_bwd_launch(
   BWD_CASE(192, 64)
   BWD_CASE(192, 128)
 #undef BWD_CASE
+  if (d == 224 && dv_dim == 224)
+    return bf16 ? launch_bf16<224, 224>(o, sh, cs) : cudaErrorInvalidValue;
   return cudaErrorInvalidValue;
 }

@@ -54,7 +54,8 @@
 // never visited, and query tiles go out longest first (the block index
 // walks the (b, h) pairs fastest and the query tiles from the last).  Any
 // S >= 1; (D, Dv) are template parameters: the nine pairs with D in
-// {32, 64, 128, 192}, Dv in {32, 64, 128}, Dv <= D, and Zamba2's (80, 80).
+// {32, 64, 128, 192}, Dv in {32, 64, 128}, Dv <= D, Zamba2-2.7B's (80, 80)
+// and Zamba2-7B's (224, 224).
 // 80 is no whole number of slabs.  Its Q, K and V tiles take two 64-column
 // slabs each, whose tensor maps keep the operands' own inner extent of 80,
 // so TMA writes zeros into columns 80-127 as it writes zeros into the rows
@@ -71,6 +72,18 @@
 // products, ping-pong turns between the warpgroups on named barriers)
 // gave the same outputs bit for bit but ran slower on an H100 at the two
 // main shapes, so they are not in this kernel.
+// (224, 224) takes 64-key tiles and one consumer warpgroup.  Its O
+// accumulator is 64 rows x 256 columns (224 and TMA's zero columns, as 80
+// takes 128), 128 float32 registers a thread: with 128-key tiles (64
+// scores, 32 packed P registers) it cannot fit, and with 64 keys and two
+// warpgroups ptxas holds a 288-thread block to 168 registers and spilled
+// 284 bytes; one warpgroup of 64 query rows and the producer warp (160
+// threads) take 209 registers and no spill, and ran 1.80-1.84 ms against
+// 2.02 ms at (2, 32, 4096) causal on an H100.  Q K^T is m64n64k16, D / 16
+// = 14 k-steps, and P V two m64n128k16 products a k-step, one over each
+// half of V's four slabs.  Shared memory: Q 32 KB, two K and two V stages
+// of 32 KB each, 160 KB in all.  The float32 kernel
+// (csrc/flash_attention.cu) has no 224.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -78,11 +91,7 @@
 
 namespace {
 
-constexpr int kBM = 128;                 // query rows per block
-constexpr int kBN = 128;                 // key rows per tile
 constexpr int kStages = 2;               // depth of the K/V ring
-constexpr int kConsumers = 256;          // two warpgroups of 64 query rows
-constexpr int kThreads = kConsumers + 32;  // and one producer warp
 constexpr float kNegInf = -1e30f;        // the reference's mask value
 constexpr float kLog2e = 1.4426950408889634f;
 
@@ -93,14 +102,21 @@ constexpr float kLog2e = 1.4426950408889634f;
 // kDVP), the columns past them zeros.
 template <int D, int DV>
 struct Tile {
-  static_assert(D % 16 == 0 && DV % 16 == 0 && DV <= D && D <= 192,
-                "D, Dv in {32, 64, 80, 128, 192}, Dv <= D");
+  static_assert(D % 16 == 0 && DV % 16 == 0 && DV <= D &&
+                    (D <= 192 || (D == 224 && DV == 224)),
+                "D, Dv in {32, 64, 80, 128, 192}, Dv <= D, or 224 / 224");
+  // query rows a block: two consumer warpgroups of 64, or at 224 one
+  static constexpr int kBM = D > 192 ? 64 : 128;
+  static constexpr int kConsumers = 2 * kBM;         // 128 threads a 64 rows
+  static constexpr int kThreads = kConsumers + 32;   // and a producer warp
+  static constexpr int kBN = D > 192 ? 64 : 128;     // key rows per tile
   static constexpr int kW = D >= 64 ? 64 : 32;      // q/k columns a slab
   static constexpr int kWv = DV >= 64 ? 64 : 32;    // v columns a slab
   static constexpr int kSlabs = (D + kW - 1) / kW;
   static constexpr int kSlabsV = (DV + kWv - 1) / kWv;
   static constexpr int kDP = kSlabs * kW, kDVP = kSlabsV * kWv;
-  static_assert(kDVP == 32 || kDVP == 64 || kDVP == 128, "a P V width");
+  static_assert(kDVP == 32 || kDVP == 64 || kDVP == 128 || kDVP == 256,
+                "a P V width");
   static constexpr uint32_t kRow = kW * 2, kRowV = kWv * 2;  // slab row bytes
   static constexpr uint32_t kQSlab = kBM * kRow, kKSlab = kBN * kRow;
   static constexpr uint32_t kVSlab = kBN * kRowV;
@@ -193,6 +209,29 @@ __device__ __forceinline__ void hold(uint32_t (&r)[N]) {
 // wgmma, bf16 in and float32 accumulated.  _ss: A and B from shared memory,
 // both K-major; scale_d = 0 overwrites d.  _rs: A (four bf16 pairs a thread)
 // from registers, B from shared memory MN-major (transposed), adds to d.
+
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
+                                              uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
 
 __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
                                                uint64_t db, int scale_d) {
@@ -304,6 +343,14 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t* a,
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// S = Q K^T for one k-step: n64 or n128 keys.
+template <int BN>
+__device__ __forceinline__ void wgmma_qk(float (&s)[BN / 2], uint64_t da,
+                                         uint64_t db, int scale_d) {
+  if constexpr (BN == 64) wgmma_ss_n64(s, da, db, scale_d);
+  else wgmma_ss_n128(s, da, db, scale_d);
+}
+
 template <int DV>
 __device__ __forceinline__ void wgmma_pv(float (&o)[DV / 2], const uint32_t* a,
                                          uint64_t db) {
@@ -313,13 +360,14 @@ __device__ __forceinline__ void wgmma_pv(float (&o)[DV / 2], const uint32_t* a,
 }
 
 template <int D, int DV>
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(Tile<D, DV>::kThreads, 1)
 flash_tc(const __grid_constant__ CUtensorMap tm_q,
          const __grid_constant__ CUtensorMap tm_k,
          const __grid_constant__ CUtensorMap tm_v,
          __nv_bfloat16* __restrict__ out, int S, int Hq, int group, int n_bh,
          float scale_log2, int causal) {
   using T = Tile<D, DV>;
+  constexpr int kBM = T::kBM, kConsumers = T::kConsumers;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t sq = base, sk = base + T::kK, sv = base + T::kV;
@@ -332,6 +380,7 @@ flash_tc(const __grid_constant__ CUtensorMap tm_q,
   const int bh = static_cast<int>(blockIdx.x % n_bh);
   const int q0 = (n_q - 1 - static_cast<int>(blockIdx.x / n_bh)) * kBM;
   const int h = bh % Hq, b = bh / Hq, hk = h / group;
+  constexpr int kBN = T::kBN;
   const int n_kv_all = (S + kBN - 1) / kBN;
   // a tile is live iff its first key is not after the block's last query
   const int n_kv = causal ? min(n_kv_all, (q0 + kBM - 1) / kBN + 1)
@@ -397,7 +446,7 @@ flash_tc(const __grid_constant__ CUtensorMap tm_q,
       // slab kk / (W/16), then 16 columns (32 bytes) at a time inside it
       const int slab = kk / (T::kW / 16);
       const uint32_t off = (kk % (T::kW / 16)) * 32;
-      wgmma_ss_n128(
+      wgmma_qk<kBN>(
           s,
           smem_desc(sq_wg + slab * T::kQSlab + off, 16, 8 * T::kRow, T::kSwz),
           smem_desc(sk + st * T::kKBytes + slab * T::kKSlab + off, 16,
@@ -467,10 +516,21 @@ flash_tc(const __grid_constant__ CUtensorMap tm_q,
     hold(p);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < kBN / 16; ++kk)
-      wgmma_pv<DVP>(o, &p[4 * kk],
-                   smem_desc(sv + st * T::kVBytes + kk * 16 * T::kRowV,
-                             T::kVSlab, 8 * T::kRowV, T::kSwzV));
+    for (int kk = 0; kk < kBN / 16; ++kk) {
+      if constexpr (DVP == 256) {
+        // two n128 products, one over each pair of V's slabs
+        const uint32_t vrow = sv + st * T::kVBytes + kk * 16 * T::kRowV;
+        wgmma_rs_n128(*reinterpret_cast<float(*)[64]>(o), &p[4 * kk],
+                      smem_desc(vrow, T::kVSlab, 8 * T::kRowV, T::kSwzV));
+        wgmma_rs_n128(*reinterpret_cast<float(*)[64]>(o + 64), &p[4 * kk],
+                      smem_desc(vrow + 2 * T::kVSlab, T::kVSlab,
+                                8 * T::kRowV, T::kSwzV));
+      } else {
+        wgmma_pv<DVP>(o, &p[4 * kk],
+                      smem_desc(sv + st * T::kVBytes + kk * 16 * T::kRowV,
+                                T::kVSlab, 8 * T::kRowV, T::kSwzV));
+      }
+    }
     wgmma_commit();
     wgmma_wait_all();
     hold(o);
@@ -558,18 +618,18 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
   using T = Tile<D, DV>;
   CUtensorMap mq, mk, mv;
   if (!encode_tiled()) return cudaErrorNotSupported;
-  if (!tensor_map(&mq, q, batch, hq, s, D, st, T::kW, kBM) ||
-      !tensor_map(&mk, k, batch, hkv, s, D, st + 3, T::kW, kBN) ||
-      !tensor_map(&mv, v, batch, hkv, s, DV, st + 6, T::kWv, kBN))
+  if (!tensor_map(&mq, q, batch, hq, s, D, st, T::kW, T::kBM) ||
+      !tensor_map(&mk, k, batch, hkv, s, D, st + 3, T::kW, T::kBN) ||
+      !tensor_map(&mv, v, batch, hkv, s, DV, st + 6, T::kWv, T::kBN))
     return cudaErrorInvalidValue;
   cudaError_t e = cudaFuncSetAttribute(
       flash_tc<D, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(T::kSmem));
   if (e != cudaSuccess) return e;
   const long long blocks =
-      static_cast<long long>((s + kBM - 1) / kBM) * hq * batch;
+      static_cast<long long>((s + T::kBM - 1) / T::kBM) * hq * batch;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  flash_tc<D, DV><<<static_cast<unsigned>(blocks), kThreads, T::kSmem,
+  flash_tc<D, DV><<<static_cast<unsigned>(blocks), T::kThreads, T::kSmem,
                     stream>>>(mq, mk, mv, static_cast<__nv_bfloat16*>(out), s,
                               hq, hq / hkv, hq * batch, scale * kLog2e,
                               causal);
@@ -582,7 +642,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
 // bfloat16, each with unit stride in its last axis, a 16-byte-aligned base
 // and the element strides of its batch, head and sequence axes (multiples
 // of 8) in strides[0..2] (q), [3..5] (k), [6..8] (v); out: [batch, hq, s,
-// dv] bfloat16, contiguous.  hq % hkv == 0 and (d, dv) one of the ten
+// dv] bfloat16, contiguous.  hq % hkv == 0 and (d, dv) one of the eleven
 // pairs.  Returns cudaGetLastError() after the launch, or the error that
 // kept it from launching (a tensor map the driver refused: invalid value).
 extern "C" int flash_attention_tc_launch(const void* q, const void* k,
@@ -610,6 +670,7 @@ extern "C" int flash_attention_tc_launch(const void* q, const void* k,
   FLASH_TC_CASE(192, 32)
   FLASH_TC_CASE(192, 64)
   FLASH_TC_CASE(192, 128)
+  FLASH_TC_CASE(224, 224)
 #undef FLASH_TC_CASE
   return cudaErrorInvalidValue;
 }

@@ -16,10 +16,14 @@ this wrapper allocates; plain twin ``plain_bwd``): the Pallas kernel has
 none, and the JAX package differentiates its jnp twin.
 
 q (B, Hq, S, D), k (B, Hkv, S, D) and v (B, Hkv, S, Dv), all float32 or
-all bfloat16, Hq a multiple of Hkv, (D, Dv) in ``HEAD_DIMS`` (Dv = D, or
-MLA's D = 192 with Dv = 128, among others; Zamba2's shared attention is
-(80, 80), which both kernels pad to whole slabs on chip: the sources say
-how); any ragged S.  Each operand
+all bfloat16, Hq a multiple of Hkv, (D, Dv) in ``head_dims(dtype)``:
+``HEAD_DIMS`` in both types (Dv = D, or MLA's D = 192 with Dv = 128,
+among others; the JAX package's Zamba2 block is (80, 80), which both
+kernels pad to whole slabs on chip: the sources say how), and in bf16
+alone Zamba2-7B's shared attention, (224, 224), which the bf16 kernels
+take in 64-key tiles with 256-column accumulators (the sources say why).
+The float32 kernels stop at D = 192: (224, 224) in float32 raises the
+error of any other pair they lack.  Any ragged S.  Each operand
 needs unit stride in its last axis, and in bf16 what TMA needs besides: a
 16-byte-aligned base and batch, head and sequence strides of whole 16-byte
 units (``takes`` says whether a tensor qualifies; ``ops`` copies one that
@@ -45,10 +49,18 @@ _LIBS = {torch.float32: ("flash_attention", "flash_attention_launch",
          torch.bfloat16: ("flash_attention_tc", "flash_attention_tc_launch",
                           [_I, _P])}
 #: the (D, Dv) pairs both kernels are built for: D in {32, 64, 128, 192},
-#: Dv in {32, 64, 128}, Dv <= D; and (80, 80), Zamba2's shared attention
+#: Dv in {32, 64, 128}, Dv <= D; and (80, 80), the JAX package's Zamba2
 HEAD_DIMS = tuple(sorted(
     [(d, dv) for d in (32, 64, 128, 192) for dv in (32, 64, 128) if dv <= d]
     + [(80, 80)]))
+#: the pairs the bf16 kernels take besides: Zamba2-7B's shared attention
+BF16_HEAD_DIMS = ((224, 224),)
+
+
+def head_dims(dtype: torch.dtype) -> tuple:
+    """The (D, Dv) pairs the kernels of ``dtype`` are built for."""
+    return HEAD_DIMS + BF16_HEAD_DIMS if dtype == torch.bfloat16 \
+        else HEAD_DIMS
 
 
 def _strides(t: torch.Tensor) -> tuple[int, int, int]:
@@ -112,9 +124,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"flash_attention kernel: q {tuple(q.shape)} and "
                          f"k/v {tuple(k.shape)} are not GQA-compatible")
     dv = v.shape[3]
-    if (d, dv) not in HEAD_DIMS:
+    if (d, dv) not in head_dims(q.dtype):
         raise ValueError(f"flash_attention kernel: head dims (q/k {d}, v "
-                         f"{dv}) not in {HEAD_DIMS}")
+                         f"{dv}) not in {head_dims(q.dtype)} ({q.dtype})")
     if any(t.stride(-1) != 1 for t in (q, k, v)):
         raise ValueError("flash_attention kernel: unit stride in D")
     if not all(takes(t) for t in (q, k, v)):
@@ -195,9 +207,9 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if do.shape != (b, hq, s, dv):
         raise ValueError(f"flash_attention_bwd kernel: do {tuple(do.shape)}"
                          f", expected {(b, hq, s, dv)}")
-    if (d, dv) not in HEAD_DIMS:
+    if (d, dv) not in head_dims(q.dtype):
         raise ValueError(f"flash_attention_bwd kernel: head dims (q/k {d}, "
-                         f"v {dv}) not in {HEAD_DIMS}")
+                         f"v {dv}) not in {head_dims(q.dtype)} ({q.dtype})")
     if any(t.stride(-1) != 1 for t in ops_):
         raise ValueError("flash_attention_bwd kernel: unit stride in D")
     if not all(takes(t) for t in ops_):

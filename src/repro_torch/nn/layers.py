@@ -138,6 +138,23 @@ def gelu_mlp(p, x):
 # attention (GQA, optional qk-norm / qkv-bias)
 # ---------------------------------------------------------------------------
 
+def geglu_init(gen: torch.Generator, d: int, ff: int, lead=()):
+    """Zamba2-7B's shared MLP: ``gate_up`` (d, 2 ff), then ``down``."""
+    return {"gate_up": dense_init(gen, (*lead, d, 2 * ff)),
+            "down": dense_init(gen, (*lead, ff, d))}
+
+
+def geglu(p, x, adapter=None):
+    """gelu(g) · u @ down, with (g, u) the halves of x @ gate_up, exact
+    GELU; ``adapter`` ({"a": (d, r), "b": (r, 2 ff)}) adds its LoRA,
+    x @ a @ b, to gate_up's product (the use's own, in Zamba2)."""
+    gu = x @ cdt(p["gate_up"])
+    if adapter is not None:
+        gu = gu + (x @ cdt(adapter["a"])) @ cdt(adapter["b"])
+    g, u = gu.chunk(2, dim=-1)
+    return (F.gelu(g) * u) @ cdt(p["down"])
+
+
 def gqa_init(gen: torch.Generator, d: int, n_heads: int, n_kv: int,
              d_head: int, qkv_bias: bool = False, qk_norm: bool = False,
              lead=()):
@@ -180,18 +197,20 @@ def gqa_project_qkv(p, x, n_heads: int, n_kv: int, d_head: int,
 
 
 def attend(q, k, v, causal: bool = True, q_offset: int = 0,
-           kv_len_mask=None):
+           kv_len_mask=None, scale: float | None = None):
     """softmax(q·kᵀ)·v with GQA head grouping. q: (B,Hq,Sq,dh), k/v (B,Hkv,Skv,dh).
 
     ``q_offset``: absolute position of q[...,0,:] (decode: Skv-1).
     ``kv_len_mask``: optional (B, Skv) validity mask for ragged caches.
+    ``scale``: the softmax scale, dh ** -0.5 by default.
     """
     b, hq, sq, dh = q.shape
     hkv, skv = k.shape[1], k.shape[2]
     group = hq // hkv
     qg = q.reshape(b, hkv, group, sq, dh)
     logits = torch.einsum("bhgqd,bhkd->bhgqk", qg.to(torch.float32),
-                          k.to(torch.float32)) * (dh ** -0.5)
+                          k.to(torch.float32)) * (
+                              dh ** -0.5 if scale is None else scale)
     if causal and sq > 1:
         qpos = q_offset + torch.arange(sq, device=q.device)
         kpos = torch.arange(skv, device=q.device)
@@ -211,7 +230,7 @@ def auto_chunk(seq_len: int) -> int:
 
 
 def attend_flash(q, k, v, causal: bool = True, bf16_scores: bool = False,
-                 chunk: int | None = None):
+                 chunk: int | None = None, scale: float | None = None):
     """Full-sequence attention through ``ops.flash_attention``: the
     ``flash_attention`` kernels on the card, their plain version on the CPU.
 
@@ -224,39 +243,42 @@ def attend_flash(q, k, v, causal: bool = True, bf16_scores: bool = False,
     ``bf16_scores`` holds: with S a multiple of min(chunk, S); otherwise
     JAX falls back to its float32 dense function and so does this.
     ``bf16_scores`` rounds q, k, v and P to bf16 around float32 scores and
-    sums, which on the card is the bf16 tensor-core kernel.
+    sums, which on the card is the bf16 tensor-core kernel.  ``scale``
+    replaces d_head**-0.5 (Zamba2-7B's (d_head / 2) ** -0.5).
     """
     s = q.shape[2]
     chunk = min(chunk or auto_chunk(s), s)
-    return ops.flash_attention(q, k, v, causal=causal,
+    return ops.flash_attention(q, k, v, causal=causal, scale=scale,
                                bf16_scores=bf16_scores and s % chunk == 0)
 
 
-def attend_flash_scan(q, k, v, causal: bool = True):
+def attend_flash_scan(q, k, v, causal: bool = True,
+                      scale: float | None = None):
     """The JAX package's ``attend_flash_scan``: ``attend_flash`` with its kv
     loop as a ``lax.scan`` (the dry-run's memory model), float32 scores
     always, the dense ``attend`` for a ragged S.  All three compute one
     function, so here it is ``ops.flash_attention`` as ``attend_flash``
     runs it without ``bf16_scores``: the kernel on the card, its plain
     version on the CPU."""
-    return ops.flash_attention(q, k, v, causal=causal)
+    return ops.flash_attention(q, k, v, causal=causal, scale=scale)
 
 
-def attend_chunked(q, k, v, chunk: int = 2048, q_offset: int = 0):
+def attend_chunked(q, k, v, chunk: int = 2048, q_offset: int = 0,
+                   scale: float | None = None):
     """Causal attention per q-chunk against only the kv prefix that chunk
     can see (the JAX package's ``attend_chunked``): dense ``attend`` on
     each chunk, so no strictly-future block is computed.  Plain PyTorch,
     as the JAX version is jnp outside any kernel."""
     sq = q.shape[2]
     if sq <= chunk:
-        return attend(q, k, v, causal=True, q_offset=q_offset)
+        return attend(q, k, v, causal=True, q_offset=q_offset, scale=scale)
     assert sq % chunk == 0
     outs = []
     for lo in range(0, sq, chunk):
         kv_hi = q_offset + lo + chunk
         outs.append(attend(q[:, :, lo:lo + chunk], k[:, :, :kv_hi],
                            v[:, :, :kv_hi], causal=True,
-                           q_offset=q_offset + lo))
+                           q_offset=q_offset + lo, scale=scale))
     return torch.cat(outs, dim=2)
 
 

@@ -7,9 +7,20 @@ families:
   vlm     — dense backbone, stub vision frontend feeds embeddings (internvl2)
   audio   — MHA + LayerNorm + GELU over stub EnCodec frame embeds (musicgen)
   ssm     — RWKV-6 time mix + channel mix, no attention (rwkv6)
-  hybrid  — Mamba-2 (SSD) mixers with one shared attention + SwiGLU block
-            applied before every ``shared_attn_every`` layers (zamba2); the
-            shared block's weights live under ``params["shared_block"]``
+  hybrid  — Mamba-2 (SSD) mixers with shared attention blocks.  Two layouts:
+            the JAX package's simplified block (zamba2_2_7b's config: one
+            block, a 2d → d in_proj, SwiGLU with an inner residual, its
+            output added to the stream, before every
+            ``shared_attn_every`` layers, weights under
+            ``params["shared_block"]``), and Zamba2 as published
+            (zamba2_7b: ``cfg.hybrid_layer_ids`` call ``num_mem_blocks``
+            blocks in turn on concat(hidden, embeddings), attention at
+            head dim 2d / heads and a gated-GELU MLP with a per-use LoRA
+            adapter, no residual in the block, a per-use linear adding the
+            output to the Mamba layer's input before its norm; weights
+            under ``params["shared_blocks"]`` (stacked by block) and
+            ``params["hybrid"]`` (stacked by use); training and the
+            full-sequence forward only, no cache)
 
 The parameter tree is the JAX package's: nested dicts, the layer stack
 under ``params["layers"]`` with a leading L axis, float32 storage cast to
@@ -24,7 +35,8 @@ Entry points, and the kernels each runs on the card:
       dense/vlm/audio: flash_attention a layer; ssm: rwkv6_scan a layer;
       moe: flash_attention a layer, with impl="sort" moe_dispatch and
       relational_matmul a MoE layer; hybrid: flash_attention a use of the
-      shared block (n_layers / shared_attn_every)
+      shared block (n_layers / shared_attn_every; ``forward`` of the
+      published layout: one a hybrid layer)
   decode_step(params, batch, cache, pos) → (logits, cache)
       ssm: rwkv6_scan a layer; moe with impl="sort": moe_dispatch and
       relational_matmul a MoE layer; dense/vlm/audio and hybrid: none
@@ -43,7 +55,8 @@ each decode step.  The moe family's routed experts go through
 decode step.  The hybrid family's Mamba-2 mixers (``nn/ssm.py``'s SSD)
 are PyTorch products with no kernel, as the JAX package's are jnp; its
 shared block's full-sequence attention is the flash kernel at head dim
-80.  ``decode_step`` writes the step's K/V (MLA: latent and rope key), or
+80 (the JAX package's block) or 224 (Zamba2-7B, bf16 alone).
+``decode_step`` writes the step's K/V (MLA: latent and rope key), or
 the recurrent families' new states, into ``cache`` in place (the JAX
 version returns a new cache), so serving holds one cache, not two.
 
@@ -78,6 +91,7 @@ import torch.utils._pytree as pytree
 import torch.utils.checkpoint
 from torch.utils._python_dispatch import TorchDispatchMode
 
+from .. import obs
 from ..configs.base import ArchConfig
 from ..device import resolve
 from ..tree import leaves
@@ -210,7 +224,8 @@ class LM:
         if cfg.family == "hybrid":
             layers["mixer"] = S.mamba2_init(
                 generator, d, cfg.n_heads_mamba(), cfg.ssm.d_state,
-                cfg.ssm.d_conv, cfg.ssm.expand, lead=(n,))
+                cfg.ssm.d_conv, cfg.ssm.expand, lead=(n,),
+                n_groups=cfg.ssm.n_groups, conv_bias=cfg.ssm.conv_bias)
         elif cfg.family == "ssm":
             layers["tmix"] = S.rwkv6_init(generator, d, self._ssm_heads,
                                           lead=(n,))
@@ -244,6 +259,8 @@ class LM:
                 "mlp": L.swiglu_init(generator, d, cfg.moe.d_ff_dense,
                                      lead=(n_dense,)),
             }
+        if cfg.hybrid_layer_ids:
+            params.update(self._zamba2_init(generator))
         if cfg.shared_attn_every:
             # Zamba2's shared block: (hidden, embeddings) → d, then a plain
             # GQA attention and a SwiGLU, as the JAX init has it
@@ -260,6 +277,30 @@ class LM:
                           if a.dim() >= 2 and a.dtype == torch.float32
                           else a, params)
         return params
+
+    def _zamba2_init(self, generator) -> dict:
+        """The published Zamba2's shared blocks, stacked on a leading
+        ``num_mem_blocks`` axis (norms over 2d and d, q/k/v from 2d, o to
+        d, the gated-GELU MLP), and each hybrid use's linear and MLP
+        adapter, stacked on a leading axis of uses."""
+        cfg = self.cfg
+        d, m, u, r = (cfg.d_model, cfg.num_mem_blocks,
+                      len(cfg.hybrid_layer_ids), cfg.adapter_rank)
+        hd = cfg.n_heads * cfg.d_head
+        kv = cfg.n_kv_heads * cfg.d_head
+        dense = lambda *shape: L.dense_init(generator, shape)
+        return {
+            "shared_blocks": {
+                "norm1": L.rmsnorm_init(2 * d, (m,), self.device),
+                "attn": {"wq": dense(m, 2 * d, hd), "wk": dense(m, 2 * d, kv),
+                         "wv": dense(m, 2 * d, kv), "wo": dense(m, hd, d)},
+                "norm2": L.rmsnorm_init(d, (m,), self.device),
+                "mlp": L.geglu_init(generator, d, cfg.d_ff, lead=(m,)),
+            },
+            "hybrid": {"linear": dense(u, d, d),
+                       "adapter": {"a": dense(u, d, r),
+                                   "b": dense(u, r, 2 * cfg.d_ff)}},
+        }
 
     def _attn_init(self, generator, lead, plain: bool = False):
         cfg = self.cfg
@@ -303,9 +344,13 @@ class LM:
         ang = pos / torch.pow(1e4, i / d)
         return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
+    def _final_norm(self, params, x) -> torch.Tensor:
+        if self.cfg.norm == "rmsnorm":
+            return L.rmsnorm(params["final_norm"], x, self.cfg.norm_eps)
+        return L.layernorm(params["final_norm"], x)
+
     def unembed(self, params, x) -> torch.Tensor:
-        norm = (L.rmsnorm if self.cfg.norm == "rmsnorm" else L.layernorm)
-        x = norm(params["final_norm"], x)
+        x = self._final_norm(params, x)
         head = (params["embed"].T if self.cfg.tie_embeddings
                 else params["lm_head"])
         return x @ head.to(x.dtype)
@@ -316,18 +361,20 @@ class LM:
         ``LM._attend_full`` dispatches it: ``attn_impl="flash"`` through
         the kernel (``flash_impl="scan"`` too, without ``bf16_scores``, as
         JAX drops it there), "chunked" per q-chunk of ``attn_chunk`` (or
-        auto) tokens, anything else the dense ``attend``."""
+        auto) tokens, anything else the dense ``attend``; at
+        ``cfg.attn_scale`` where it is set."""
         cfg = self.cfg
         s = q.shape[2]
         chunk = min(cfg.attn_chunk or L.auto_chunk(s), s)
+        scale = cfg.attn_scale or None
         if cfg.attn_impl == "flash":
             if cfg.flash_impl == "scan":
-                return L.attend_flash_scan(q, k, v)
+                return L.attend_flash_scan(q, k, v, scale=scale)
             return L.attend_flash(q, k, v, bf16_scores=cfg.attn_bf16_scores,
-                                  chunk=chunk)
+                                  chunk=chunk, scale=scale)
         if cfg.attn_impl == "chunked":
-            return L.attend_chunked(q, k, v, chunk=chunk)
-        return L.attend(q, k, v, causal=True)
+            return L.attend_chunked(q, k, v, chunk=chunk, scale=scale)
+        return L.attend(q, k, v, causal=True, scale=scale)
 
     def _attn_block(self, p, x, cos, sin, cache=None, pos=None):
         """Returns (out, kv): this call's K/V (full sequence; MLA: the
@@ -490,6 +537,9 @@ class LM:
         Returns (hidden (B,S,d), aux_loss)."""
         x = self.embed_inputs(params, batch)
         cos, sin = self._rope(x.shape[1], x.device)
+        if self.cfg.hybrid_layer_ids:
+            x = self._zamba2_forward(params, x, cos, sin)
+            return x, torch.zeros((), dtype=torch.float32, device=x.device)
         if self.cfg.shared_attn_every:
             x, _ = self._hybrid_forward(params, x, cos, sin,
                                         want_cache=False)
@@ -566,6 +616,68 @@ class LM:
         h = h + L.swiglu(p["mlp"], L.rmsnorm(p["norm2"], h))
         return x + h, kv
 
+    # ------------------------------------------------- hybrid, as published
+    def _zamba2_forward(self, params, x, cos, sin):
+        """Zamba2 as published, full sequence: layer i is ``x = x +
+        mamba(norm(x + t))``, with t the shared block's output through the
+        use's linear where i is a hybrid layer (use j, block j mod M) and
+        nothing otherwise.  Under ``remat`` other than "none" each Mamba
+        layer and each shared use is checkpointed ("dots" runs "full", as
+        the JAX twin's Mamba layers do)."""
+        cfg = self.cfg
+        x0 = x
+        remat = "none" if cfg.remat == "none" else "full"
+        blocks = _layers(params["shared_blocks"])
+        uses = _layers(params["hybrid"])
+        use_of = {layer: j for j, layer in enumerate(cfg.hybrid_layer_ids)}
+        for i, lp in enumerate(_layers(params["layers"])):
+            j = use_of.get(i)
+            if j is not None:
+                t = self._remat(
+                    lambda p, h, j=j: self._zamba2_shared(
+                        p["block"], p["use"], h, p["x0"], cos, sin, j),
+                    {"block": blocks[j % cfg.num_mem_blocks], "use": uses[j],
+                     "x0": x0}, x, remat)
+                lp = dict(lp, t=t)
+            x = self._remat(lambda p, h, i=i: self._zamba2_mamba(p, h, i),
+                            lp, x, remat)
+        return x
+
+    def _zamba2_mamba(self, p, x, i: int):
+        """Mamba layer i of the published layout: x + mixer(norm(x + t)),
+        t (``p["t"]``) the shared use's output where the layer has one."""
+        cfg, ssm = self.cfg, self.cfg.ssm
+        h = x + p["t"] if "t" in p else x
+        with obs.span("ssm.mixer", layer=i, tokens=x.shape[0] * x.shape[1]):
+            o, _ = S.mamba2_mixer(
+                p["mixer"], L.rmsnorm(p["norm1"], h, cfg.norm_eps),
+                self._mamba_dims, chunk=ssm.chunk, ssd_impl=cfg.ssd_impl,
+                compute_dtype=(torch.bfloat16 if cfg.ssm_bf16
+                               else L.ACCUM_DTYPE),
+                n_groups=ssm.n_groups, d_on_x=ssm.d_on_x,
+                norm_groups=ssm.norm_groups, norm_eps=ssm.norm_eps)
+        return x + o
+
+    def _zamba2_shared(self, block, use, x, x0, cos, sin, j: int):
+        """Use j of a shared block: RMSNorm of concat(x, x0), attention
+        (rope on every dim, ``cfg.attn_scale``), RMSNorm, the gated-GELU MLP
+        with use j's adapter, no residual; then use j's linear.  The
+        counter ``zamba2.shared_uses`` counts the uses of a forward, not
+        the ones that remat recomputes."""
+        cfg = self.cfg
+        eps = cfg.norm_eps
+        with obs.span("zamba2.shared", block=j % cfg.num_mem_blocks, use=j):
+            if obs.tracing() and not obs.in_backward():
+                obs.inc("zamba2.shared_uses")
+            h = L.rmsnorm(block["norm1"], torch.cat([x, x0], dim=-1), eps)
+            q, k, v = L.gqa_project_qkv(block["attn"], h, cfg.n_heads,
+                                        cfg.n_kv_heads, cfg.d_head, cos, sin)
+            h = L.merge_heads(self._attend_full(q, k, v)) \
+                @ L.cdt(block["attn"]["wo"])
+            h = L.geglu(block["mlp"], L.rmsnorm(block["norm2"], h, eps),
+                        use["adapter"])
+            return h @ L.cdt(use["linear"])
+
     # ------------------------------------------------------------- training
     def loss_fn(self, params, batch):
         """Mean next-token cross-entropy over ``batch["labels"]`` plus 0.01 ×
@@ -594,8 +706,7 @@ class LM:
         ``cfg.loss_chunk`` vocabulary columns."""
         cfg = self.cfg
         x, aux = self.backbone(params, batch)
-        norm = L.rmsnorm if cfg.norm == "rmsnorm" else L.layernorm
-        xn = norm(params["final_norm"], x)
+        xn = self._final_norm(params, x)
         head = (params["embed"].T if cfg.tie_embeddings
                 else params["lm_head"])
         labels = batch["labels"].long()
@@ -628,6 +739,7 @@ class LM:
         (L,B,H,N,P)) in float32, (K, V) of the shared block, each
         (n_seg,B,Hkv,max_len,dh) in the compute type)."""
         cfg = self.cfg
+        self._no_published_cache()
         if cfg.family == "ssm":
             n = cfg.ssm.head_dim
             z = lambda *s: torch.zeros(s, dtype=L.ACCUM_DTYPE,
@@ -660,6 +772,7 @@ class LM:
         {"embeds": (B,1,d)}; pos: the current write position, shared by
         every sequence (unused by the ssm family, as in JAX).  Writes into
         ``cache`` and returns it."""
+        self._no_published_cache()
         x = self.embed_inputs_decode(params, batch, pos)
         if self.cfg.family == "ssm":
             return self._decode_ssm(params, x, cache)
@@ -724,6 +837,7 @@ class LM:
         as (prologue's, layers') where a prologue leads; or the recurrent
         families' states (hybrid: with the shared block's K/V, each
         (n_seg,B,Hkv,S,dh))."""
+        self._no_published_cache()
         x = self.embed_inputs(params, batch)
         cos, sin = self._rope(x.shape[1], x.device)
         if self.cfg.family == "hybrid":
@@ -740,6 +854,14 @@ class LM:
             caches.append(_stack(states))
         cache = tuple(caches) if "prologue" in params else caches[0]
         return self.unembed(params, x[:, -1:]), cache
+
+
+    def _no_published_cache(self) -> None:
+        if self.cfg.hybrid_layer_ids:
+            raise NotImplementedError(
+                "the published Zamba2 layout runs the full-sequence forward "
+                "and training; its serving cache (Mamba states beside each "
+                "use's K/V) is not built")
 
 
 def _stack(trees: list):

@@ -496,7 +496,7 @@ def test_flash_attention_kernel_takes_head_split_views(cuda):
 TC_SCORES = dict(rtol=1e-2, atol=1e-2)
 
 
-@pytest.mark.parametrize("d,dv", flash_mod.HEAD_DIMS)
+@pytest.mark.parametrize("d,dv", flash_mod.head_dims(torch.bfloat16))
 @pytest.mark.parametrize("s", [1, 63, 64, 65, 127, 128, 129, 2000])
 @pytest.mark.parametrize("group", [1, 8])
 @pytest.mark.parametrize("causal", [True, False])
@@ -1182,6 +1182,65 @@ def test_flash_attention_bwd_kernel(cuda, d, dv, s, group, causal, dtype):
         assert g.dtype == dtype and g.shape == t.shape and g.is_contiguous()
         torch.testing.assert_close(g.float(), w.float(), **tol,
                                    msg=lambda m: f"d{name}: {m}")
+
+
+@pytest.mark.parametrize("s", [1, 63, 64, 65, 200])
+@pytest.mark.parametrize("group", [1, 4])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_bwd_kernel_at_224(cuda, s, group, causal):
+    """bf16 alone takes (224, 224), Zamba2-7B's shared attention: the
+    64-row tile edges and a ragged S, one and four query heads a KV head,
+    against the float64 oracle at the bf16 tolerance."""
+    rng = np.random.RandomState(448 + s + group)
+    q, k, v, do = bwd_inputs(rng, 2, 2 * group, 2, s, 224, 224, cuda,
+                             torch.bfloat16)
+    got = flash_mod.flash_attention_bwd(q, k, v, do, causal=causal)
+    for name, g, w in zip("qkv", got, bwd_oracle(q, k, v, do, causal)):
+        torch.testing.assert_close(g.float(), w.float(), **BF16_BWD,
+                                   msg=lambda m: f"d{name}: {m}")
+
+
+@pytest.mark.parametrize("s", [4096, 1000])
+def test_flash_attention_224_at_zamba2s_shape(cuda, s):
+    """Zamba2-7B's shared attention as the training microbatch runs it,
+    (B, H, S, D) = (2, 32, 4096, 224) causal, and at a ragged S: the bf16
+    forward against both plain versions and the backward against the
+    float64 oracle (taken 4 heads at a time, whose gradients are their
+    own), each one launch."""
+    rng = np.random.RandomState(s)
+    q, k, v, do = bwd_inputs(rng, 2, 32, 32, s, 224, 224, cuda,
+                             torch.bfloat16)
+    fwd = flash_mod.flash_attention.launches
+    got = ops.flash_attention(q, k, v, causal=True)
+    assert flash_mod.flash_attention.launches == fwd + 1
+    for h in range(0, 32, 4):
+        sl = (slice(None), slice(h, h + 4))
+        want = flash_mod.plain(q[sl], k[sl], v[sl], causal=True)
+        torch.testing.assert_close(got[sl].float(), want.float(), **BF16)
+        want = flash_mod.plain(q[sl], k[sl], v[sl], causal=True,
+                               bf16_scores=True)
+        torch.testing.assert_close(got[sl].float(), want.float(),
+                                   **TC_SCORES)
+    bwd = flash_mod.flash_attention_bwd.launches
+    grads = flash_mod.flash_attention_bwd(q, k, v, do, causal=True)
+    assert flash_mod.flash_attention_bwd.launches == bwd + 1
+    for h in range(0, 32, 4):
+        sl = (slice(None), slice(h, h + 4))
+        want = bwd_oracle(q[sl], k[sl], v[sl], do[sl], True)
+        for name, g, w in zip("qkv", grads, want):
+            torch.testing.assert_close(g[sl].float(), w.float(), **BF16_BWD,
+                                       msg=lambda m: f"d{name}: {m}")
+
+
+def test_flash_attention_f32_has_no_224(cuda):
+    """The float32 kernels stop at D = 192: (224, 224) raises the head-dim
+    error before any launch, forward and backward."""
+    rng = np.random.RandomState(9)
+    q, k, v, do = bwd_inputs(rng, 1, 2, 2, 64, 224, 224, cuda, torch.float32)
+    with pytest.raises(ValueError, match="head dims"):
+        flash_mod.flash_attention(q, k, v)
+    with pytest.raises(ValueError, match="head dims"):
+        flash_mod.flash_attention_bwd(q, k, v, do)
 
 
 def test_flash_attention_bwd_kernel_is_deterministic(cuda):
