@@ -69,7 +69,12 @@ Phases (any failure exits non-zero; nothing is caught and carried on past):
            two calls equal bit for bit, timed beside its bound, its
            design's operation count, the plain backward and SDPA's
            backward alone; and the forward's bf16 kernel against the
-           float32-P plain version at the microbatch);
+           float32-P plain version at the microbatch; the optimizer tail's
+           global_norm and adamw kernels at each LM cell's largest leaf
+           (DeepSeek-V2-Lite's stacked experts, Zamba2-7B's stacked
+           in_proj): the norm within 1e-6 of float64's and two calls
+           equal, the fused update the per-leaf PyTorch update's bits
+           given its factor, both timed beside the plain passes);
 3. main    the paper's pipeline at the full width of Fig. 10 (2000 rows,
            784 → 200 → 10, random weights from Listing 2's seed): one-hot
            labels, 5 training steps and inference on Engine("dense") and
@@ -205,7 +210,8 @@ Phases (any failure exits non-zero; nothing is caught and carried on past):
            for 1 warm step and 3 more, the counts zeroed before and read
            after: 20 flash_attention, 10 flash_attention_bwd, 16
            moe_dispatch, 32 relational_matmul (16 forward, 16 backward)
-           and 8 tuple_dot launches a step; each step's wall and tokens/s,
+           and 8 tuple_dot launches a step, one global_norm and one adamw
+           (the optimizer tail); each step's wall and tokens/s,
            the peak device memory, the dropped assignments of each layer
            (the recompute must route as the forward did) and one profiled
            step with each kernel's share; (b) on the dense layer and 1 MoE
@@ -282,7 +288,7 @@ Phases (any failure exits non-zero; nothing is caught and carried on past):
            the plain version, one PyTorch call and its bound.
 
 ``python3 chip_smoke.py --kernels [name ...]`` runs phases 1 and 2 alone,
-for the named kernels (all nine without a name), and prints no result line:
+for the named kernels (all ten without a name), and prints no result line:
 two trees are compared on one card by running it in each, in turns.
 
 ``python3 chip_smoke.py --rwkv-margin`` runs phase 1 and phase 13 (b)
@@ -826,6 +832,107 @@ def check_tuple_dot(mod, report):
         f"{events}, plain {r['plain_ms']:.4f} ms, sampled_addmm "
         f"{r['library_ms']:.4f} ms (max |diff| {lib_err:.3e}), bound "
         f"{bms:.4f} ms ({by})")
+
+
+#: the largest leaf of each LM cell's AdamW (``portbench/``): DeepSeek-V2-
+#: Lite's stacked expert output projection at 5 layers (4 MoE layers) and
+#: Zamba2-7B's stacked Mamba-2 in_proj at 24 layers, float32 without a
+#: master, as the cells hold them
+OPT_LEAVES = {"adamw_deepseek": (4, 64, 1408, 2048),
+              "adamw_zamba2": (24, 3584, 14704)}
+OPT_HYPER = dict(lr=3e-4, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1)
+
+
+def check_optimizer(mod, report):
+    """The optimizer tail's two kernels at each LM cell's largest leaf
+    (OPT_LEAVES), as the trainer calls them at step 2 of 2 microbatches
+    with a binding clip: ``global_norm`` within 1e-6 of the float64 norm
+    and two calls equal bit for bit; ``adamw_update`` against the per-leaf
+    PyTorch code (``optimizers.adamw_plain``) given the kernel's factor,
+    bit for bit in the parameter and both moments.  Timed beside the plain
+    versions (the norm of the divided gradients and the factor; the
+    division, the clip and AdamW's passes) and the bytes at 3.35 TB/s:
+    each input read once, each output written once (4 B an element for
+    the norm; g, m, v and w read and m, v and w written, 28 B, for the
+    update).  The kernels replace no TPU kernel: the JAX package leaves
+    AdamW and the clip to XLA."""
+    from repro_torch.optim import GradScale, optimizers
+
+    dev = "cuda"
+    replaces = ("none: JAX leaves AdamW and the clip to XLA "
+                "(src/repro/optim/optimizers.py::adamw, "
+                "::clip_by_global_norm)")
+    for key, shape in OPT_LEAVES.items():
+        n = int(np.prod(shape))
+        gen = torch.Generator(device=dev).manual_seed(len(shape))
+        g = torch.randn(shape, generator=gen, device=dev)
+        w = torch.randn(shape, generator=gen, device=dev).mul_(0.02)
+        m = torch.randn(shape, generator=gen, device=dev).mul_(1e-3)
+        v = torch.randn(shape, generator=gen, device=dev).mul_(1e-3).square_()
+        t = torch.tensor(2, dtype=torch.int32, device=dev).float()
+        b1t, b2t = (1.0 - torch.pow(torch.tensor(b, dtype=torch.float32,
+                                                 device=dev), t)
+                    for b in (0.9, 0.95))
+        want = sum(float((c.double() / 2).square().sum())
+                   for c in g.view(-1).split(1 << 26)) ** 0.5
+        out = mod.global_norm([g], 2, 1.0)
+        norm_err = abs(float(out[0]) - want) / want
+        if norm_err > 1e-6:
+            raise AssertionError(f"global_norm {key}: {norm_err:.3e} of the "
+                                 "float64 norm")
+        if not torch.equal(out, mod.global_norm([g], 2, 1.0)):
+            raise AssertionError(f"global_norm {key}: two calls differ")
+        scale = GradScale(2, out[1])
+        kw, km, kv = w.clone(), m.clone(), v.clone()
+        mod.adamw_update([kw], [kw], [g], [km], [kv], b1t, b2t,
+                         grad_scale=scale, **OPT_HYPER)
+        gp = g.clone()
+        optimizers.adamw_plain([w], [w], [gp], [m], [v], b1t, b2t,
+                               grad_scale=scale, **OPT_HYPER)
+        for what, a, b in (("w", kw, w), ("m", km, m), ("v", kv, v)):
+            if not torch.equal(a.view(torch.int32), b.view(torch.int32)):
+                raise AssertionError(f"adamw {key}: {what} differs from the "
+                                     "plain update")
+        del gp
+        torch.cuda.empty_cache()
+
+        def plain_norm():
+            norm = optimizers.global_norm([g], 2)
+            return torch.clamp(1.0 / (norm + 1e-9), max=1.0)
+
+        def plain_update():
+            optimizers.adamw_plain([w], [w], [g], [m], [v], b1t, b2t,
+                                   grad_scale=GradScale(2, plain_norm()),
+                                   **OPT_HYPER)
+
+        update = lambda: mod.adamw_update([kw], [kw], [g], [km], [kv], b1t,
+                                          b2t, grad_scale=scale, **OPT_HYPER)
+        shape_s = f"{tuple(shape)} float32, {n:,} elements"
+        for name, fn, plain, nbytes, flops in (
+                ("global_norm", lambda: mod.global_norm([g], 2, 1.0),
+                 plain_norm, 4 * n, 3 * n),
+                ("adamw", update, plain_update, 28 * n, 16 * n)):
+            events = device_events(fn, 5)
+            bms, by = bound_ms(nbytes, flops)
+            r = dict(name=name, route="cuda",
+                     source="src/repro_torch/kernels/csrc/adamw.cu",
+                     replaces=replaces, shape=shape_s,
+                     max_abs_err=norm_err if name == "global_norm" else 0.0,
+                     ms=time_ms(fn, iters=10), device=events,
+                     device_ms=device_ms(events),
+                     plain_ms=time_ms(plain, iters=3, warmup=1),
+                     library_ms=None, bound_ms=bms, bound_by=by)
+            report[f"{name}_{key.split('_')[1]}"] = r
+            log(f"{name} at {key} ({shape_s}): {r['ms']:.4f} ms a call, "
+                f"device {r['device_ms']:.4f} ms in {events}, plain "
+                f"{r['plain_ms']:.4f} ms, bound {bms:.4f} ms ({by}), "
+                f"{bms / r['ms']:.3f} of it" + (
+                    f"; norm {norm_err:.3e} of float64's, two calls equal"
+                    if name == "global_norm" else
+                    "; w, m, v equal to the plain update bit for bit"))
+        del g, w, m, v, kw, km, kv, out, scale
+        gc.collect()
+        torch.cuda.empty_cache()
 
 
 #: the profiler sessions ``profiled`` ran again, in this run
@@ -4813,6 +4920,7 @@ def moe_trainer(counters, card):
     """(a) ``Trainer`` on the 5-layer full-width DeepSeek-V2-Lite: the
     counts are zeroed just before ``run`` and read just after it."""
     from repro_torch.data import TokenPipeline
+    from repro_torch.kernels import adamw as optim_mod
     from repro_torch.nn import moe
     from repro_torch.nn.model import LM
     from repro_torch.optim import adamw
@@ -4837,10 +4945,13 @@ def moe_trainer(counters, card):
         f"{cfg.remat}; global batch {TRAIN_BATCH} x {TRAIN_SEQ} in "
         f"{TRAIN_ACCUM} microbatches, AdamW 3e-4, on {card}")
     torch.cuda.reset_peak_memory_stats()
+    optim_kernels = {"global_norm": optim_mod.global_norm,
+                     "adamw": optim_mod.adamw_update}
     with RoutePin(moe) as routes:
-        zero_launches(counters)
+        zero_launches(counters | optim_kernels)
         run = trainer.run(gen, MOE_STEPS, log_every=0)
         launches = read_launches(counters)
+        optim_launches = read_launches(optim_kernels)
     peak = torch.cuda.max_memory_allocated()
     params, opt_state, hist = run["params"], run["opt_state"], run["history"]
     n_params = sum(t.numel() for t in leaves(params))
@@ -4863,6 +4974,11 @@ def moe_trainer(counters, card):
     if launches != expected:
         raise AssertionError(f"moe-train (a) launches {launches}, expected "
                              f"{expected}")
+    # the optimizer tail: one norm and one fused update a step, whatever
+    # the number of leaves
+    if optim_launches != {k: MOE_STEPS for k in optim_kernels}:
+        raise AssertionError(f"moe-train (a) optimizer kernels' launches "
+                             f"{optim_launches}, expected {MOE_STEPS} each")
     if not all(np.isfinite([h["loss"], h["grad_norm"]]).all() for h in hist):
         raise AssertionError(f"moe-train (a): a loss or norm is not finite: "
                              f"{hist}")
@@ -4887,6 +5003,7 @@ def moe_trainer(counters, card):
         history=hist, step_s=step_s, step_s_mean=float(np.mean(step_s)),
         tokens_per_s=[tokens / t for t in step_s],
         launches=launches, launches_per_step=per_step,
+        optim_launches=optim_launches,
         host_waits_per_step=waits, peak_bytes=peak,
         assignments_per_layer=assignments, drops_per_layer=drops)
     for h in hist:
@@ -6256,6 +6373,7 @@ def main() -> int:
     from repro_torch.kernels import build, flash_attention, moe_dispatch
     from repro_torch.kernels import fused_sigmoid_matmul, onehot_embed
     from repro_torch.kernels import relational_matmul, rwkv6_scan, tuple_dot
+    from repro_torch.kernels import adamw as optim_kernels
 
     card = gpu_line()
     log(card)
@@ -6318,7 +6436,8 @@ def main() -> int:
                                                        report),
         "rwkv6_scan": lambda: check_rwkv6(rwkv6_scan, report),
         "rwkv6_scan_bwd": lambda: check_rwkv6_bwd(rwkv6_scan, report),
-        "tuple_dot": lambda: check_tuple_dot(tuple_dot, report)}
+        "tuple_dot": lambda: check_tuple_dot(tuple_dot, report),
+        "adamw": lambda: check_optimizer(optim_kernels, report)}
     kernels_only = sys.argv[1:2] == ["--kernels"]
     unknown = set(sys.argv[2:]) - set(checks)
     if sys.argv[1:] and not kernels_only or unknown:
@@ -6375,6 +6494,7 @@ def main() -> int:
     launches["flash_attention_bwd"] = train_path(counters, result)[
         "flash_attention_bwd"]
     launches["tuple_dot"] = moe_train_path(counters, result)["tuple_dot"]
+    launches |= result["train_moe"]["trainer"]["optim_launches"]
     launches["rwkv6_scan_bwd"] = rwkv_train_path(counters, result)[
         "rwkv6_scan_bwd"]
     zamba_train_path(counters, result)

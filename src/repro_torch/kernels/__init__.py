@@ -3,7 +3,9 @@
 Each kernel: ``csrc/<name>.cu`` (built at first use by ``build``), its
 ctypes wrapper ``<name>.py`` with a launch counter and its plain twin
 ``plain``, the device dispatch in ``ops.py``, and the plain PyTorch
-versions in ``ref.py``.
+versions in ``ref.py``.  The optimizer tail's (``adamw.py``) is
+dispatched by ``optim/optimizers.py``, whose per-leaf code is its plain
+twin.
 """
 from . import ops, ref
 

@@ -57,9 +57,11 @@ tracer on each call): ``nn2sql.iteration``, ``engine.evaluate``,
 ``rel.pivot`` / ``rel.transpose`` / ``rel.matmul``, ``kernels.<wrapper>``
 with children ``kernels.status_wait`` and ``kernels.launch``,
 ``train.step``, ``train.microbatch``, ``train.forward`` /
-``train.backward`` (device), ``train.grad_scale`` / ``train.clip`` /
-``train.update``, and the counters ``moe.assignments`` / ``moe.dropped``
-and ``relmm.calls`` / ``relmm.<route>`` (``relational_matmul``'s schedule).
+``train.backward`` (device), ``train.clip`` / ``train.update``, and the
+counters ``moe.assignments`` / ``moe.dropped``, ``relmm.calls`` /
+``relmm.<route>`` (``relational_matmul``'s schedule) and ``optim.elems`` /
+``optim.fused`` (the elements a CUDA update touched, and those of them the
+fused AdamW kernel updated).
 
 The *active* tracer is a module global (``current()`` / ``install()`` /
 the ``use()`` context manager); engines and adapters additionally accept a

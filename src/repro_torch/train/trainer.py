@@ -20,7 +20,8 @@ import torch
 
 from ..checkpoint.checkpointer import Checkpointer
 from ..obs import tracer as obs
-from ..optim.optimizers import Optimizer, clip_by_global_norm
+from ..optim.optimizers import (Optimizer, apply_grad_scale,
+                                 clip_by_global_norm)
 from ..tree import leaves, tree_map, unflatten
 
 
@@ -36,15 +37,20 @@ def make_train_step(loss_fn: Callable, optimizer: Optimizer,
     float32, else into float32 buffers) and divided by ``grad_accum``; the
     loss is averaged; the other metrics are the last microbatch's.  Then
     the gradients are clipped to ``clip_norm`` by their global norm and the
-    optimizer updates the parameters in place.  Metrics are 0-dim tensors:
-    ``loss``, ``grad_norm`` (before the clip) and ``loss_fn``'s own.
+    optimizer updates the parameters in place.  The clip reads the norm of
+    the averaged gradients and leaves the division and the clip's factor
+    to an optimizer that folds them into its update
+    (``Optimizer.folds_grad_scale``: AdamW, one kernel on the card); for
+    any other they are applied to the gradients first.  Metrics are 0-dim
+    tensors: ``loss``, ``grad_norm`` (of the averaged gradients, before the
+    clip) and ``loss_fn``'s own.
 
     Traced (``repro_torch.obs``), a step is the span ``train.step``
     (attributes ``step``, the call's number, and ``tokens``) with
     ``train.microbatch`` spans around each microbatch's ``train.forward``
     and ``train.backward`` (which holds the forward that activation
     checkpointing recomputes; both carry device time), then
-    ``train.grad_scale``, ``train.clip`` and ``train.update``.
+    ``train.clip`` and ``train.update``.
     """
     calls = itertools.count()
 
@@ -86,15 +92,17 @@ def make_train_step(loss_fn: Callable, optimizer: Optimizer,
         for p in flat:
             p.grad = None
         if grad_accum > 1:
-            with obs.span("train.grad_scale"):
-                for g in acc:
-                    g.div_(grad_accum)
             loss_sum = loss_sum / grad_accum
         with obs.span("train.clip"):
-            grads, gnorm = clip_by_global_norm(unflatten(params, acc),
-                                               clip_norm)
+            grads, gnorm, scale = clip_by_global_norm(
+                unflatten(params, acc), clip_norm, divide_by=grad_accum)
         with obs.span("train.update"):
-            params, opt_state = optimizer.update(grads, opt_state, params)
+            if getattr(optimizer, "folds_grad_scale", False):
+                params, opt_state = optimizer.update(grads, opt_state, params,
+                                                     grad_scale=scale)
+            else:
+                params, opt_state = optimizer.update(
+                    apply_grad_scale(grads, scale), opt_state, params)
         metrics = {k: v.detach() for k, v in metrics.items()}
         return params, opt_state, dict(metrics, loss=loss_sum,
                                        grad_norm=gnorm)

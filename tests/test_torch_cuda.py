@@ -1551,3 +1551,273 @@ def test_moe_functions_gradient_on_the_card(cuda, t, k, e, cap, d, dtype):
         torch.testing.assert_close(g.double(), w, **tol,
                                    msg=lambda m, n=name: f"d {n}: {m}")
     assert all(torch.equal(a, b) for a, b in zip(got, grads()))
+
+
+# ---------------------------------------------------------------------------
+# the optimizer tail: the global-norm kernel and the fused AdamW
+# (kernels/adamw.py) against the per-leaf PyTorch code of optim/optimizers.py
+
+#: ragged leaves: one element, a tail of 3, one chunk's eighth, 611 chunks
+#: and a tail of 3
+OPT_SIZES = (1, 31, 2048, 10_000_003)
+OPT_HYPER = dict(lr=1e-2, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1)
+
+
+def bits(t):
+    return t.view(torch.int16 if t.element_size() == 2 else torch.int32)
+
+
+def bias_corrections(step, device):
+    """b1t, b2t as ``adamw``'s update computes them at step ``step``."""
+    tf = torch.tensor(step, dtype=torch.int32, device=device).float()
+    return [1.0 - torch.pow(torch.tensor(b, dtype=torch.float32,
+                                         device=device), tf)
+            for b in (OPT_HYPER["b1"], OPT_HYPER["b2"])]
+
+
+def opt_state(gen, sizes, device, kind, offset=0):
+    """(params, masters, m, v) of ``sizes``; ``kind`` "float32" (no
+    master: ``masters`` is ``params``), "bf16_master" or "bf16" (bf16
+    parameters, no master).  With ``offset`` each leaf starts that many
+    elements into a buffer of its own, so no pointer is 16-byte aligned."""
+    def make(n, scale=1.0):
+        buf = torch.randn(n + offset, generator=gen, device=device)
+        return (buf * scale)[offset:]
+
+    def bf16(x):
+        buf = torch.empty(x.numel() + offset, dtype=torch.bfloat16,
+                          device=device)
+        return buf[offset:].copy_(x)
+    masters = [make(n) for n in sizes]
+    if kind == "float32":
+        params = masters
+    else:
+        params = [bf16(x) for x in masters]
+        masters = params if kind == "bf16" else masters
+    return (params, masters, [make(n, 0.1) for n in sizes],
+            [make(n, 0.1).square_() for n in sizes])
+
+
+def clone_state(state):
+    params, masters, m, v = state
+    copies = [p.clone() for p in params]
+    return (copies, copies if masters is params else
+            [x.clone() for x in masters], [x.clone() for x in m],
+            [x.clone() for x in v])
+
+
+@pytest.mark.parametrize("max_norm", [1e-3, 1e9], ids=["clipped",
+                                                       "unclipped"])
+@pytest.mark.parametrize("divisor", [1, 3])
+@pytest.mark.parametrize("kind", ["float32", "bf16_master", "bf16"])
+def test_fused_adamw_is_the_plain_update_bit_for_bit(cuda, kind, divisor,
+                                                     max_norm):
+    """Three steps over ragged leaves: given the global-norm kernel's
+    factor, the fused update writes the bits the per-leaf PyTorch code
+    writes on the card (the division a multiply by the float32
+    reciprocal, as PyTorch's CUDA ``div_`` by a Python number), and leaves
+    the gradients as they were."""
+    from repro_torch.kernels import adamw as adamw_mod
+    from repro_torch.optim import GradScale, optimizers
+
+    gen = torch.Generator(device=cuda).manual_seed(divisor)
+    fused = opt_state(gen, OPT_SIZES, cuda, kind)
+    plain = clone_state(fused)
+    for step in (1, 2, 3):
+        grads = [torch.randn(n, generator=gen, device=cuda)
+                 for n in OPT_SIZES]
+        kept = [g.clone() for g in grads]
+        orig = [g.clone() for g in grads]
+        b1t, b2t = bias_corrections(step, cuda)
+        out = adamw_mod.global_norm(grads, divisor, max_norm)
+        scale = GradScale(divisor, out[1])
+        before = adamw_mod.adamw_update.launches
+        assert adamw_mod.adamw_update(*fused[:2], grads, *fused[2:], b1t,
+                                      b2t, grad_scale=scale,
+                                      **OPT_HYPER) == sum(OPT_SIZES)
+        assert adamw_mod.adamw_update.launches == before + 1
+        optimizers.adamw_plain(*plain[:2], kept, *plain[2:], b1t, b2t,
+                               grad_scale=scale, **OPT_HYPER)
+        assert all(torch.equal(bits(g), bits(o)) for g, o in
+                   zip(grads, orig))
+        for i, (a, b) in enumerate(zip([x for t in fused for x in t],
+                                       [x for t in plain for x in t])):
+            assert torch.equal(bits(a), bits(b)), (step, i)
+    if max_norm < 1:
+        assert float(out[1]) < 1
+
+
+def test_fused_adamw_on_unaligned_leaves_is_the_plain_update(cuda):
+    """Leaves one element into their buffers take the kernel's
+    element-at-a-time route, to the same bits."""
+    from repro_torch.kernels import adamw as adamw_mod
+    from repro_torch.optim import GradScale, optimizers
+
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    sizes = (5, 16387, 40_001)
+    fused = opt_state(gen, sizes, cuda, "bf16_master", offset=1)
+    plain = clone_state(fused)
+    assert all(t[i].data_ptr() % 8 for t in fused for i in range(3))
+    grads = [torch.randn(n + 1, generator=gen, device=cuda)[1:]
+             for n in sizes]
+    b1t, b2t = bias_corrections(1, cuda)
+    scale = GradScale(2, adamw_mod.global_norm(grads, 2, 0.5)[1])
+    adamw_mod.adamw_update(*fused[:2], grads, *fused[2:], b1t, b2t,
+                           grad_scale=scale, **OPT_HYPER)
+    optimizers.adamw_plain(*plain[:2], [g.clone() for g in grads],
+                           *plain[2:], b1t, b2t, grad_scale=scale,
+                           **OPT_HYPER)
+    for a, b in zip([x for t in fused for x in t],
+                    [x for t in plain for x in t]):
+        assert torch.equal(bits(a), bits(b))
+
+
+@pytest.mark.parametrize("divisor", [1, 2, 3])
+def test_global_norm_kernel_against_float64_and_again(cuda, divisor):
+    """The norm of the leaves over ``divisor`` within 1e-6 of float64's
+    and of the plain per-leaf sums, the same bits in two calls (aligned
+    and unaligned leaves), and the factor as ``torch.clamp(max_norm /
+    (norm + 1e-9), max=1.0)`` computes it from that norm, bit for bit."""
+    from repro_torch.kernels import adamw as adamw_mod
+    from repro_torch.optim import optimizers
+
+    gen = torch.Generator(device=cuda).manual_seed(divisor)
+    grads = [torch.randn(n + 1, generator=gen, device=cuda)[i % 2:][:n]
+             for i, n in enumerate(OPT_SIZES + (5, 3 * 16384 + 1))]
+    want = sum(float((g.double() / divisor).square().sum())
+               for g in grads) ** 0.5
+    out = adamw_mod.global_norm(grads, divisor, 1.0)
+    assert abs(float(out[0]) - want) <= 1e-6 * want
+    plain = optimizers.global_norm(grads, divisor)
+    assert abs(float(out[0]) - float(plain)) <= 1e-6 * want
+    assert torch.equal(bits(out), bits(adamw_mod.global_norm(grads, divisor,
+                                                            1.0)))
+    for max_norm in (0.5 * want, 2.0 * want):
+        got = adamw_mod.global_norm(grads, divisor, max_norm)
+        factor = torch.clamp(max_norm / (got[0] + 1e-9), max=1.0)
+        assert torch.equal(bits(got[1]), bits(factor))
+    empty = adamw_mod.global_norm([torch.empty(0, device=cuda)], 1, 1.0)
+    assert empty.tolist() == [0.0, 1.0]
+
+
+def test_optimizer_tail_issues_the_same_ops_whatever_the_leaves(cuda):
+    """``clip_by_global_norm(..., divide_by=2)`` and AdamW's update on the
+    card issue the same PyTorch operations for 3 leaves as for 60 (the
+    bias corrections, the table's copy, the buffers), a handful, and one
+    launch of each kernel; on the CPU the per-leaf code issues some 20 a
+    leaf."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from repro_torch.kernels import adamw as adamw_mod
+    from repro_torch.optim import adamw, clip_by_global_norm
+
+    class Ops(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.n += 1
+            return func(*args, **(kwargs or {}))
+
+    def tail(n_leaves, device):
+        gen = torch.Generator(device=device).manual_seed(n_leaves)
+        params = {f"w{i}": torch.randn(100 + i, generator=gen, device=device)
+                  for i in range(n_leaves)}
+        grads = {k: torch.randn(v.shape, generator=gen, device=device)
+                 for k, v in params.items()}
+        opt = adamw(1e-3)
+        state = opt.init(params)
+        launches = (adamw_mod.global_norm.launches,
+                    adamw_mod.adamw_update.launches)
+        with Ops() as ops:
+            _, _, scale = clip_by_global_norm(grads, 1.0, divide_by=2)
+            opt.update(grads, state, params, grad_scale=scale)
+        return ops.n, (adamw_mod.global_norm.launches - launches[0],
+                       adamw_mod.adamw_update.launches - launches[1])
+
+    tail(2, cuda)                               # builds and loads the library
+    few, many = tail(3, cuda), tail(60, cuda)
+    assert few == many and few[1] == (1, 1) and few[0] <= 40
+    assert tail(60, "cpu")[0] > 10 * 60
+
+
+def test_optimizer_kernels_refuse_what_they_cannot_take(cuda):
+    """A non-contiguous CUDA leaf, a float16 gradient and a gradient on
+    another device raise, in the clip and in the update, before any
+    launch; the step count stays."""
+    from repro_torch.kernels import adamw as adamw_mod
+    from repro_torch.optim import adamw, clip_by_global_norm
+
+    params = {"w": torch.zeros(8, 6, device=cuda)}
+    opt = adamw(1e-3)
+    state = opt.init(params)
+    launches = (adamw_mod.global_norm.launches,
+                adamw_mod.adamw_update.launches)
+    strided = {"w": torch.ones(6, 8, device=cuda).t()}
+    with pytest.raises(ValueError, match="contiguous"):
+        clip_by_global_norm(strided, 1.0, divide_by=1)
+    with pytest.raises(ValueError, match="contiguous"):
+        opt.update(strided, state, params)
+    with pytest.raises(TypeError, match="float16"):
+        opt.update({"w": torch.ones(8, 6, device=cuda).half()}, state, params)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        opt.update({"w": torch.ones(8, 6)}, state, params)
+    assert (adamw_mod.global_norm.launches,
+            adamw_mod.adamw_update.launches) == launches
+    assert int(state["t"]) == 0
+
+
+@pytest.mark.parametrize("clip_norm", [1e-2, 1e9], ids=["clipped",
+                                                        "unclipped"])
+def test_trainer_step_on_the_card_keeps_the_plain_tails_norm(
+        cuda, clip_norm, monkeypatch):
+    """Two steps of a two-layer reduced DeepSeek-V2-Lite at the model's
+    MLA head dims (the relational MoE) through ``Trainer``, 2
+    microbatches: with the kernels, and with the per-leaf PyTorch code on
+    the same card (the old sequence: divide, clip in place, update).  The first step's ``grad_norm`` agrees to
+    float32 rounding (the sums' order), the second's too; unclipped the
+    parameters and moments are the same bits, clipped within float32
+    rounding of the factor."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import MLAConfig
+    from repro_torch.data import TokenPipeline
+    from repro_torch.kernels import adamw as adamw_mod
+    from repro_torch.nn.model import LM
+    from repro_torch.optim import adamw, optimizers
+    from repro_torch.train import Trainer
+    from repro_torch.tree import leaves
+
+    cfg = get_config("deepseek_v2_lite_16b", reduced=True)
+    cfg = dataclasses.replace(      # the model's head dims, for flash
+        cfg, n_layers=2, d_head=128,
+        mla=MLAConfig(kv_lora=32, d_nope=128, d_rope=64, d_v=128),
+        moe=dataclasses.replace(cfg.moe, impl="sort"))
+    runs = []
+    for on_card in (True, False):
+        if not on_card:
+            monkeypatch.setattr(optimizers, "_on_card", lambda *t: False)
+        data = TokenPipeline(vocab=cfg.vocab, seq_len=64, global_batch=4,
+                             device=cuda)
+        trainer = Trainer(LM(cfg), adamw(1e-3), data, grad_accum=2,
+                          clip_norm=clip_norm)
+        params, state = trainer.init_state(
+            torch.Generator(device=cuda).manual_seed(0))
+        launches = adamw_mod.adamw_update.launches
+        norms = []
+        for step in range(2):
+            params, state, metrics = trainer.step_fn(params, state,
+                                                     data.batch_at(step))
+            norms.append(float(metrics["grad_norm"]))
+        assert adamw_mod.adamw_update.launches - launches == (
+            2 if on_card else 0)
+        runs.append((norms, leaves((params, state))))
+    (n_fused, fused), (n_plain, plain) = runs
+    np.testing.assert_allclose(n_fused, n_plain, rtol=2e-6)
+    for a, b in zip(fused, plain, strict=True):
+        if clip_norm > 1:
+            assert torch.equal(a, b)
+        else:
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)

@@ -25,8 +25,9 @@ from repro.optim import compression as jcomp
 from repro.optim import global_norm as jglobal_norm
 from repro.optim import sgd as jsgd
 from repro_torch import convert
-from repro_torch.optim import (adamw, clip_by_global_norm, compression,
-                               global_norm, sgd)
+from repro_torch.optim import (GradScale, adamw, apply_grad_scale,
+                               clip_by_global_norm, compression, global_norm,
+                               sgd)
 from repro_torch.tree import leaves
 
 TOL = dict(rtol=1e-6, atol=1e-7)
@@ -119,6 +120,90 @@ def test_global_norm_and_clip_match_jax(max_norm):
     jclipped, jnorm = jclip(as_jax(g_np), max_norm)
     np.testing.assert_allclose(float(norm), float(jnorm), **TOL)
     same(clipped, jclipped)
+
+
+def torch_tree(rng, scale=1.0):
+    return convert.from_jax_params(tree(rng, scale), device="cpu")
+
+
+def clone(t):
+    return [x.clone() for x in leaves(t)]
+
+
+@pytest.mark.parametrize("max_norm", [0.5, 1e3], ids=["clipped",
+                                                      "unclipped"])
+@pytest.mark.parametrize("divisor", [1, 2, 3])
+@pytest.mark.parametrize("mixed_precision", [False, True])
+def test_scaled_update_is_the_old_sequence_bit_for_bit(mixed_precision,
+                                                       divisor, max_norm):
+    """``clip_by_global_norm(..., divide_by=k)`` and AdamW's update with
+    its ``GradScale`` give the norm, the parameters and the state that the
+    old sequence gives (``g.div_(k)`` for k > 1, the in-place clip, the
+    update), bit for bit, over three updates; the gradients they get stay
+    as they were until the update applies the scale."""
+    rng = np.random.RandomState(divisor)
+    opt = adamw(1e-2, mixed_precision=mixed_precision)
+    p_np = tree(rng)
+    old_p = convert.from_jax_params(p_np, device="cpu")
+    new_p = convert.from_jax_params(p_np, device="cpu")
+    old_st, new_st = opt.init(old_p), opt.init(new_p)
+    for _ in range(3):
+        g_np = tree(rng, 0.3 * divisor)
+        old_g = convert.from_jax_params(g_np, "cpu")
+        new_g = convert.from_jax_params(g_np, "cpu")
+        if divisor > 1:
+            for g in leaves(old_g):
+                g.div_(divisor)
+        old_g, old_norm = clip_by_global_norm(old_g, max_norm)
+        old_p, old_st = opt.update(old_g, old_st, old_p)
+        kept = clone(new_g)
+        new_g, new_norm, scale = clip_by_global_norm(new_g, max_norm,
+                                                     divide_by=divisor)
+        assert isinstance(scale, GradScale) and scale.divisor == divisor
+        assert all(torch.equal(a, b) for a, b in zip(leaves(new_g), kept))
+        assert torch.equal(new_norm, old_norm)
+        new_p, new_st = opt.update(new_g, new_st, new_p, grad_scale=scale)
+        for a, b in zip(leaves((old_p, old_st)), leaves((new_p, new_st)),
+                        strict=True):
+            assert torch.equal(a, b)
+    assert (float(scale.factor) < 1) == (max_norm < 1)
+
+
+def test_clip_by_global_norm_default_call_is_unchanged():
+    """Without ``divide_by`` the clip scales in place and returns (grads,
+    norm), as the JAX package's does; ``apply_grad_scale`` of the deferred
+    form's scale gives the same leaves."""
+    rng = np.random.RandomState(5)
+    g_np = tree(rng)
+    grads = torch_tree(np.random.RandomState(5))
+    out = clip_by_global_norm(grads, 0.5)
+    assert len(out) == 2 and out[0] is grads
+    norm = float(jglobal_norm(as_jax(g_np)))
+    np.testing.assert_allclose(float(out[1]), norm, **TOL)
+    factor = min(1.0, 0.5 / (norm + 1e-9))
+    for a, b in zip(leaves(grads), jax.tree.leaves(g_np)):
+        np.testing.assert_allclose(a.numpy(), b * factor, **TOL)
+    deferred = torch_tree(np.random.RandomState(5))
+    _, norm2, scale = clip_by_global_norm(deferred, 0.5, divide_by=1)
+    assert torch.equal(norm2, out[1])
+    applied = apply_grad_scale(deferred, scale)
+    assert applied is deferred
+    assert all(torch.equal(a, b) for a, b in zip(leaves(deferred),
+                                                  leaves(grads)))
+
+
+def test_global_norm_divides_each_leaf_first():
+    """``global_norm(tree, k)`` is the norm of the leaves divided by k, the
+    quotient taken in the leaf's type as ``div_`` takes it."""
+    grads = torch_tree(np.random.RandomState(6))
+    want = global_norm([g / 3 for g in leaves(grads)])
+    assert torch.equal(global_norm(grads, 3), want)
+    assert torch.equal(global_norm(grads, 1), global_norm(grads))
+
+
+def test_adamw_folds_the_scale_and_sgd_does_not():
+    assert adamw(1e-2).folds_grad_scale
+    assert not sgd(0.1).folds_grad_scale
 
 
 def test_sgd_matches_formula():

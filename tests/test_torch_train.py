@@ -37,9 +37,9 @@ from repro_torch.configs import get_config
 from repro_torch.data import TokenPipeline, stub_frontend_batch
 from repro_torch.launch import train as launch_train
 from repro_torch.nn.model import LM
-from repro_torch.optim import adamw, sgd
+from repro_torch.optim import adamw, clip_by_global_norm, sgd
 from repro_torch.train import StragglerMonitor, Trainer, make_train_step
-from repro_torch.tree import leaves
+from repro_torch.tree import leaves, tree_map, unflatten
 
 F32 = dict(rtol=1e-4, atol=1e-5)
 BF16 = dict(rtol=0.08, atol=0.05)
@@ -194,6 +194,76 @@ def test_grad_accum_matches_full_batch():
     for a, b in zip(p1, leaves(p2)):
         np.testing.assert_allclose(a.numpy(), b.numpy(), **STEP)
     np.testing.assert_allclose(float(m1["loss"]), float(m2["loss"]), **STEP)
+
+
+def in_place_step(lm, opt, params, state, batch, grad_accum, clip_norm):
+    """The step as ``make_train_step`` ran it before the clip left the
+    division to the update: the microbatches' gradients summed into
+    ``.grad``, divided in place, clipped in place, then AdamW.  Returns
+    the norm."""
+    flat = [p.detach().requires_grad_() for p in leaves(params)]
+    tracked = unflatten(params, flat)
+    size = next(iter(batch.values())).shape[0] // grad_accum
+    for i in range(grad_accum):
+        micro = {k: v[i * size:(i + 1) * size] for k, v in batch.items()}
+        loss, _ = lm.loss_fn(tracked, micro)
+        loss.backward()
+    acc = [p.grad if p.grad is not None else torch.zeros_like(p)
+           for p in flat]
+    if grad_accum > 1:
+        for g in acc:
+            g.div_(grad_accum)
+    grads, norm = clip_by_global_norm(unflatten(params, acc), clip_norm)
+    opt.update(grads, state, params)
+    return norm
+
+
+@pytest.mark.parametrize("clip_norm", [0.1, 1e6], ids=["clipped",
+                                                       "unclipped"])
+@pytest.mark.parametrize("grad_accum", [1, 2, 3])
+def test_train_step_is_the_in_place_sequence_bit_for_bit(grad_accum,
+                                                         clip_norm):
+    """Two steps of ``make_train_step`` with AdamW, whose update now takes
+    the division and the clip from ``clip_by_global_norm(...,
+    divide_by=)``: the same ``grad_norm`` (of the averaged gradients,
+    before the clip) and the same parameters and state, bit for bit, as
+    the sequence of in-place passes the step ran before."""
+    cfg = get_config("yi_6b", reduced=True)
+    lm = LM(cfg, device="cpu")
+    data = TokenPipeline(vocab=cfg.vocab, seq_len=8, global_batch=6,
+                         device="cpu")
+    opt = adamw(1e-2)
+    params = lm.init(torch.Generator().manual_seed(0))
+    old = tree_map(torch.clone, params)
+    state, old_state = opt.init(params), opt.init(old)
+    step = make_train_step(lm.loss_fn, opt, grad_accum, clip_norm)
+    for i in range(2):
+        batch = data.batch_at(i)
+        params, state, metrics = step(params, state, batch)
+        norm = in_place_step(lm, opt, old, old_state, batch, grad_accum,
+                            clip_norm)
+        assert torch.equal(metrics["grad_norm"], norm)
+    assert (float(norm) > clip_norm) == (clip_norm < 1)
+    for a, b in zip(leaves((params, state)), leaves((old, old_state)),
+                    strict=True):
+        assert torch.equal(a, b)
+
+
+def test_train_step_with_sgd_applies_the_scale_first():
+    """An optimizer that does not fold the scale in (SGD) gets gradients
+    already divided and clipped: the in-place sequence, bit for bit."""
+    cfg = get_config("yi_6b", reduced=True)
+    lm = LM(cfg, device="cpu")
+    tb = TokenPipeline(vocab=cfg.vocab, seq_len=8, global_batch=4,
+                       device="cpu").batch_at(0)
+    params = lm.init(torch.Generator().manual_seed(1))
+    old = tree_map(torch.clone, params)
+    _, _, metrics = make_train_step(lm.loss_fn, sgd(0.1), 2, 0.1)(
+        params, (), tb)
+    norm = in_place_step(lm, sgd(0.1), old, (), tb, 2, 0.1)
+    assert torch.equal(metrics["grad_norm"], norm)
+    assert all(torch.equal(a, b) for a, b in zip(leaves(params),
+                                                  leaves(old)))
 
 
 def leaves_dict(params):
